@@ -1,0 +1,166 @@
+"""Paged decode and K-step verify attention: the CUDA kernel
+``ops/csrc/paged_attention.cu`` and its plain PyTorch versions.
+
+Port of ``dlrover_tpu/ops/paged_kernels.py:128-452``
+(``paged_decode_kernel``, ``paged_verify_kernel``).  Layouts are the
+JAX package's: ``q [B, H, D]`` (decode) or ``[B, C, H, D]`` (verify),
+one layer's pools ``[num_blocks, block_size, KV, D]``, tables
+``[B, max_blocks]`` int32.  Block 0 is the null block; its contents and
+those of any page past a lane's end are garbage and never reach the
+output.
+
+The plain versions follow the kernel's numerics: fp32 logits, fp32
+``p @ v`` and one cast at the end, masked keys excluded (their V rows
+are zeroed, so a NaN there cannot poison the product), and a lane with
+no visible key returns exact zeros.
+"""
+
+import ctypes
+
+import torch
+
+from dlrover_tpu_torch.ops import _build
+
+
+def gather_pool(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """``[N, bs, KV, D]`` gathered by ``[B, MB]`` -> ``[B, MB*bs, KV, D]``."""
+    g = pool[tables.long()]
+    return g.reshape(g.shape[0], g.shape[1] * g.shape[2], *g.shape[3:])
+
+
+def _masked_weights(logits, visible):
+    """``logits [..., T]`` fp32 and a broadcastable ``visible`` mask ->
+    unnormalised weights ``p`` (exactly 0 where masked) and their sum
+    clamped at 1e-30, so a row with no visible key comes out 0."""
+    logits = logits.masked_fill(~visible, float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isneginf(m), torch.zeros_like(m), m)
+    p = torch.exp(logits - m)
+    denom = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return p, denom
+
+
+def paged_decode_plain(q, k_pool, v_pool, block_tables, seq_lens):
+    """One query token per lane over its paged prefix: key ``t`` is
+    visible iff ``t < seq_lens[b]``.  Returns ``[B, H, D]`` in
+    ``q.dtype``."""
+    b, nh, d = q.shape
+    nkv = k_pool.shape[2]
+    g = nh // nkv
+    k = gather_pool(k_pool, block_tables).float()  # [B, T, KV, D]
+    v = gather_pool(v_pool, block_tables).float()
+    t = k.shape[1]
+    cols = torch.arange(t, device=q.device)
+    valid = cols[None] < seq_lens.long()[:, None]  # [B, T]
+    v = v.masked_fill(~valid[:, :, None, None], 0.0)
+    qg = q.float().reshape(b, nkv, g, d)
+    logits = torch.einsum("bkgd,btkd->bkgt", qg, k) * (d ** -0.5)
+    p, denom = _masked_weights(logits, valid[:, None, None])
+    out = torch.einsum("bkgt,btkd->bkgd", p, v) / denom
+    return out.to(q.dtype).reshape(b, nh, d)
+
+
+def paged_verify_plain(q, k_pool, v_pool, block_tables, positions):
+    """A window of ``C`` queries per lane: query ``c`` of lane ``b``
+    sits at ``positions[b] + c`` and sees keys ``t <= positions[b] +
+    c``.  Returns ``[B, C, H, D]`` in ``q.dtype``."""
+    b, c, nh, d = q.shape
+    nkv = k_pool.shape[2]
+    g = nh // nkv
+    k = gather_pool(k_pool, block_tables).float()
+    v = gather_pool(v_pool, block_tables).float()
+    t = k.shape[1]
+    cols = torch.arange(t, device=q.device)
+    q_pos = positions.long()[:, None] + torch.arange(c, device=q.device)
+    visible = cols[None, None] <= q_pos[:, :, None]  # [B, C, T]
+    # a key past the horizon is garbage for every row of the window
+    v = v.masked_fill(~visible[:, -1, :, None, None], 0.0)
+    qg = q.float().reshape(b, c, nkv, g, d)
+    logits = torch.einsum("bckgd,btkd->bckgt", qg, k) * (d ** -0.5)
+    p, denom = _masked_weights(logits, visible[:, :, None, None])
+    out = torch.einsum("bckgt,btkd->bckgd", p, v) / denom
+    return out.to(q.dtype).reshape(b, c, nh, d)
+
+
+#: ``dl_paged_attention(q, k_pool, v_pool, out, tables, lens_or_pos,
+#: decode, B, C, H, KV, D, bs, MB, scale, dtype, stream)``
+ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+]
+
+
+def _check_inputs(q, k_pool, v_pool, block_tables, lens, what):
+    if q.dtype not in _build.DTYPE_CODES:
+        raise TypeError(f"{what} kernel takes fp32/bf16, got {q.dtype}")
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise TypeError(f"{what} kernel needs q and pools in one dtype")
+    if k_pool.dim() != 4 or k_pool.shape != v_pool.shape:
+        raise ValueError(f"{what} kernel needs pools [N, bs, KV, D]")
+    if block_tables.dtype != torch.int32 or lens.dtype != torch.int32:
+        raise TypeError(f"{what} kernel needs int32 tables and lengths")
+    for name, t in (("q", q), ("k_pool", k_pool), ("v_pool", v_pool),
+                    ("block_tables", block_tables), ("lens", lens)):
+        if not t.is_contiguous():
+            raise ValueError(f"{what} kernel needs contiguous {name}")
+    _, bs, nkv, d = k_pool.shape
+    if q.shape[-1] != d or q.shape[-2] % nkv:
+        raise ValueError(
+            f"{what}: q {tuple(q.shape)} does not fit pools "
+            f"{tuple(k_pool.shape)}"
+        )
+    if d not in (32, 64, 128, 256):
+        raise ValueError(f"{what} kernel takes head_dim 32/64/128/256")
+    # each lane loads its d/32 elements of a row as one vector
+    vec = d // 32 * q.element_size()
+    if any(t.data_ptr() % vec for t in (q, k_pool, v_pool)):
+        raise ValueError(f"{what} kernel needs {vec}-byte aligned rows")
+    if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
+        raise ValueError(f"{what}: tables must be [B, max_blocks]")
+    if lens.shape != (q.shape[0],):
+        raise ValueError(f"{what}: lengths/positions must be [B]")
+
+
+def _launch(q, k_pool, v_pool, block_tables, lens, decode):
+    what = "paged_decode" if decode else "paged_verify"
+    _check_inputs(q, k_pool, v_pool, block_tables, lens, what)
+    out = torch.empty_like(q)
+    b = q.shape[0]
+    c = 1 if decode else q.shape[1]
+    nh, d = q.shape[-2], q.shape[-1]
+    _, bs, nkv, _ = k_pool.shape
+    mb = block_tables.shape[1]
+    if b == 0:
+        return out
+    lib = _build.library("paged_attention")
+    fn = lib.dl_paged_attention
+    fn.restype = ctypes.c_int
+    fn.argtypes = ARGTYPES
+    code = fn(
+        _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
+        _build.ptr(out), _build.ptr(block_tables), _build.ptr(lens),
+        int(decode), b, c, nh, nkv, d, bs, mb, float(d ** -0.5),
+        _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
+    )
+    _build.check(code, lib, what)
+    _build.launches[what] += 1
+    return out
+
+
+def paged_decode_kernel(q, k_pool, v_pool, block_tables, seq_lens):
+    """Streamed paged GQA decode attention, ``q [B, H, D]`` ->
+    ``[B, H, D]``: the CUDA kernel for CUDA tensors, the plain version
+    for CPU tensors."""
+    if _build.on_cpu(q, k_pool, v_pool, block_tables, seq_lens):
+        return paged_decode_plain(q, k_pool, v_pool, block_tables, seq_lens)
+    return _launch(q, k_pool, v_pool, block_tables, seq_lens, decode=True)
+
+
+def paged_verify_kernel(q, k_pool, v_pool, block_tables, positions):
+    """Fused K-step verify, ``q [B, C, H, D]`` -> ``[B, C, H, D]``: one
+    paged-prefix pass serves every window position of a lane.  The
+    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    if _build.on_cpu(q, k_pool, v_pool, block_tables, positions):
+        return paged_verify_plain(
+            q, k_pool, v_pool, block_tables, positions
+        )
+    return _launch(q, k_pool, v_pool, block_tables, positions, decode=False)

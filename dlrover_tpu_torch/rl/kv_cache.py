@@ -1,0 +1,438 @@
+"""Paged KV cache: a block pool and per-sequence block tables.
+
+Port of ``dlrover_tpu/rl/kv_cache.py:62-125`` and ``:212-552``.  The
+host bookkeeping (:class:`BlockPool`, its errors, ``blocks_needed``,
+``pool_can_ever_hold``, ``prefix_block_keys``) is a verbatim copy of the
+reference: it is pure Python, and the port keeps its own copy rather
+than importing it.  Only :func:`init_block_pool` is new, building the
+device pool with ``torch``.
+
+The pool is ``[L, num_blocks, block_size, KV, head_dim]`` per stream
+(``k`` and ``v``).  Block 0 is the NULL block: never allocated, the
+write and read target of inactive lanes and unwritten table entries
+(always masked).  Allocation is reservation (worst case at admission)
+or incremental (prompt plus headroom, grown on demand, preemption when
+dry), with content-hashed sharing of full prompt blocks in a
+ref-counted index and a refcount-0 LRU.
+"""
+
+import hashlib
+from collections import OrderedDict
+from dataclasses import dataclass, field
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import torch
+
+from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+
+
+def blocks_needed(n_tokens: int, block_size: int) -> int:
+    """Blocks needed to hold ``n_tokens`` cache positions."""
+    return -(-max(int(n_tokens), 0) // int(block_size))
+
+
+def pool_can_ever_hold(num_blocks: int, block_size: int,
+                       n_tokens: int) -> bool:
+    """Can a pool of ``num_blocks`` (INCLUDING its null block 0) ever
+    hold one sequence of ``n_tokens``?  The ONE definition of the
+    incremental-mode worst-case admission guard — the scheduler's
+    ``submit`` and the serving dispatcher's ``submit`` must agree, or
+    an oversized request slips past the dispatcher and kills the
+    replica whose scheduler then refuses it."""
+    return blocks_needed(n_tokens, block_size) <= int(num_blocks) - 1
+
+
+@dataclass(frozen=True)
+class PagedCacheConfig:
+    n_layers: int
+    n_kv_heads: int
+    head_dim: int
+    num_blocks: int  # pool size INCLUDING the null block
+    block_size: int = 16
+    dtype: torch.dtype = torch.bfloat16
+
+    @property
+    def usable_blocks(self) -> int:
+        return self.num_blocks - 1  # block 0 is the null block
+
+    def blocks_for(self, n_tokens: int) -> int:
+        """Blocks needed to hold ``n_tokens`` cache positions."""
+        return blocks_needed(n_tokens, self.block_size)
+
+
+def init_block_pool(
+    cfg: PagedCacheConfig, device: DeviceLike = None
+) -> Dict[str, torch.Tensor]:
+    """The device-side pool, stacked on the layer dim like the params
+    (``[L, num_blocks, block_size, KV, head_dim]``), zero-filled."""
+    dev = resolve_device(device)
+    shape = (
+        cfg.n_layers,
+        cfg.num_blocks,
+        cfg.block_size,
+        cfg.n_kv_heads,
+        cfg.head_dim,
+    )
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+    }
+
+
+def prefix_block_keys(tokens, block_size: int) -> List[str]:
+    """Content keys for the FULL blocks of a token stream: key ``i``
+    is a chained hash over blocks ``0..i`` (position-dependent by
+    construction — two prompts share block ``i`` iff their first
+    ``(i + 1) * block_size`` tokens are identical)."""
+    import numpy as np
+
+    toks = np.asarray(tokens, np.int32).reshape(-1)
+    keys: List[str] = []
+    h = hashlib.sha1()
+    for start in range(0, toks.size - block_size + 1, block_size):
+        h.update(toks[start:start + block_size].tobytes())
+        keys.append(h.hexdigest())
+    return keys
+
+
+class OutOfBlocksError(RuntimeError):
+    """The pool cannot satisfy an allocation — admission control
+    should have checked :meth:`BlockPool.can_allocate` first (or, in
+    incremental mode, preempted a running sequence)."""
+
+
+class DoubleFreeError(RuntimeError):
+    """A block id was returned to the free list twice.  Freeing loudly
+    beats corrupting the LIFO free list into handing one block to two
+    sequences — the scatter/gather would silently interleave their
+    K/V (e.g. an evict racing a drain-requeue)."""
+
+
+@dataclass
+class _SeqAlloc:
+    blocks: List[int] = field(default_factory=list)
+    filled_tokens: int = 0  # cache positions actually written
+    shared_prefix: int = 0  # leading blocks held via the shared index
+
+
+class BlockPool:
+    """Host-side block accounting (free list + per-sequence tables +
+    the ref-counted shared-block index).
+
+    Pure bookkeeping — device memory is the fixed-size pool from
+    :func:`init_block_pool`; this class only decides which block ids a
+    sequence owns.  LIFO free list: a just-freed block is re-issued
+    first, which keeps the hot working set small.
+    """
+
+    def __init__(self, cfg: PagedCacheConfig):
+        self.cfg = cfg
+        # block 0 reserved as the null block
+        self._free: List[int] = list(range(cfg.num_blocks - 1, 0, -1))
+        self._free_set = set(self._free)
+        self._seqs: Dict[int, _SeqAlloc] = {}
+        # shared-block index: content key <-> block id, per-block
+        # refcount, and the LRU of refcount-0 cached blocks
+        self._shared_by_key: Dict[str, int] = {}
+        self._shared_key_of: Dict[int, str] = {}
+        self._ref: Dict[int, int] = {}
+        self._lru: "OrderedDict[int, None]" = OrderedDict()
+        self.alloc_count = 0
+        self.free_count = 0
+        self.peak_used = 0
+        self.prefix_hits = 0  # full-block lookups answered shared
+        self.prefix_queries = 0  # full-block lookups attempted
+
+    # ---------------------------------------------------------- queries
+    @property
+    def used_blocks(self) -> int:
+        """Blocks held by LIVE sequences.  Refcount-0 cached shared
+        blocks are excluded — their content is retained for prefix
+        hits but they are reclaimable on demand, i.e. not leaked."""
+        return (
+            self.cfg.usable_blocks - len(self._free) - len(self._lru)
+        )
+
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def available_blocks(self) -> int:
+        """Blocks an allocation can claim: truly free plus refcount-0
+        shared blocks the LRU would evict under pressure."""
+        return len(self._free) + len(self._lru)
+
+    @property
+    def cached_shared_blocks(self) -> int:
+        return len(self._lru)
+
+    @property
+    def live_sequences(self) -> int:
+        return len(self._seqs)
+
+    def can_allocate(self, n_tokens: int) -> bool:
+        return self.cfg.blocks_for(n_tokens) <= len(self._free)
+
+    def blocks_of(self, seq_id: int) -> List[int]:
+        return list(self._seqs[seq_id].blocks)
+
+    def covered_tokens(self, seq_id: int) -> int:
+        """Cache positions the sequence's current table can hold."""
+        return len(self._seqs[seq_id].blocks) * self.cfg.block_size
+
+    def internal_fragmentation(self) -> float:
+        """Reserved-but-unfilled cache slots / reserved slots (0.0
+        when nothing is allocated)."""
+        reserved = sum(
+            len(s.blocks) * self.cfg.block_size
+            for s in self._seqs.values()
+        )
+        if reserved == 0:
+            return 0.0
+        filled = sum(s.filled_tokens for s in self._seqs.values())
+        return 1.0 - filled / reserved
+
+    def utilization(self) -> float:
+        """Filled cache positions / whole-pool capacity — shared
+        blocks count once (physical occupancy, capped at 1.0)."""
+        cap = self.cfg.usable_blocks * self.cfg.block_size
+        if cap <= 0:
+            return 0.0
+        filled = sum(s.filled_tokens for s in self._seqs.values())
+        # shared blocks are filled once but counted by every holder;
+        # subtract the duplicate holders' worth
+        dup_blocks = sum(
+            max(self._ref.get(b, 1) - 1, 0)
+            for b in self._shared_key_of
+        )
+        filled -= dup_blocks * self.cfg.block_size
+        return min(max(filled / cap, 0.0), 1.0)
+
+    def prefix_hit_rate(self) -> float:
+        if self.prefix_queries == 0:
+            return 0.0
+        return self.prefix_hits / self.prefix_queries
+
+    def stats(self) -> Dict[str, float]:
+        return {
+            "used_blocks": self.used_blocks,
+            "free_blocks": self.free_blocks,
+            "cached_shared_blocks": self.cached_shared_blocks,
+            "peak_used_blocks": self.peak_used,
+            "live_sequences": self.live_sequences,
+            "allocs": self.alloc_count,
+            "frees": self.free_count,
+            "prefix_hits": self.prefix_hits,
+            "prefix_queries": self.prefix_queries,
+            "prefix_hit_rate": round(self.prefix_hit_rate(), 4),
+            "internal_fragmentation": round(
+                self.internal_fragmentation(), 4
+            ),
+            "kv_utilization": round(self.utilization(), 4),
+        }
+
+    # -------------------------------------------------- free-list core
+    def _push_free(self, block_id: int):
+        if block_id in self._free_set:
+            raise DoubleFreeError(
+                f"block {block_id} freed twice: it is already on the "
+                "free list (evict racing a drain-requeue?)"
+            )
+        if block_id in self._shared_key_of or block_id in self._lru:
+            raise DoubleFreeError(
+                f"block {block_id} freed while still in the shared "
+                "index"
+            )
+        self._free.append(block_id)
+        self._free_set.add(block_id)
+
+    def _pop_free(self) -> int:
+        block = self._free.pop()
+        self._free_set.discard(block)
+        return block
+
+    def _evict_lru(self, need: int):
+        """Reclaim up to ``need`` refcount-0 shared blocks (oldest
+        first) back onto the free list."""
+        while need > 0 and self._lru:
+            block, _ = self._lru.popitem(last=False)
+            key = self._shared_key_of.pop(block)
+            self._shared_by_key.pop(key, None)
+            self._ref.pop(block, None)
+            self._push_free(block)
+            need -= 1
+
+    def _take_blocks(self, need: int) -> List[int]:
+        if need > len(self._free):
+            self._evict_lru(need - len(self._free))
+        if need > len(self._free):
+            raise OutOfBlocksError(
+                f"need {need} blocks, {len(self._free)} free "
+                f"({len(self._lru)} cached-shared)"
+            )
+        return [self._pop_free() for _ in range(need)]
+
+    # ---------------------------------------------------- shared index
+    def peek_prefix(self, keys: Sequence[str]) -> Tuple[int, int]:
+        """How many leading keys the shared index could answer RIGHT
+        NOW — side-effect free (no refcounts, no hit/query counters);
+        the admission sizing probe.  Returns ``(hits, hits_in_lru)``:
+        a hit currently parked in the refcount-0 LRU is NOT evictable
+        capacity once acquired, so admission math must not count it
+        both as a hit and as an available block."""
+        n = in_lru = 0
+        for key in keys:
+            block = self._shared_by_key.get(key)
+            if block is None:
+                break
+            n += 1
+            if block in self._lru:
+                in_lru += 1
+        return n, in_lru
+
+    def acquire_prefix(self, keys: Sequence[str]) -> List[int]:
+        """Longest-prefix lookup in the shared-block index: returns
+        the block ids of the leading keys already cached (refs bumped,
+        removed from the LRU).  Every key attempted counts as a query;
+        every answered one as a hit."""
+        hit: List[int] = []
+        for key in keys:
+            self.prefix_queries += 1
+            block = self._shared_by_key.get(key)
+            if block is None:
+                break
+            self.prefix_hits += 1
+            self._ref[block] = self._ref.get(block, 0) + 1
+            self._lru.pop(block, None)
+            hit.append(block)
+        return hit
+
+    def share_block(self, seq_id: int, block_index: int,
+                    key: str) -> bool:
+        """Promote one of ``seq_id``'s PRIVATE blocks (by index into
+        its table) into the shared index under ``key`` — called by the
+        scheduler the moment prefill fills a whole prompt block (full
+        blocks are immutable, so sharing is safe from then on).
+        Returns False when the key is already indexed (a concurrent
+        identical prompt won the race; this copy stays private)."""
+        if key in self._shared_by_key:
+            return False
+        block = self._seqs[seq_id].blocks[block_index]
+        if block in self._shared_key_of:
+            return False  # already shared (resumed re-prefill)
+        self._shared_by_key[key] = block
+        self._shared_key_of[block] = key
+        self._ref[block] = self._ref.get(block, 0) + 1
+        return True
+
+    def _release_block(self, block: int):
+        """Return one block at sequence-free time: shared blocks
+        decref (refcount 0 -> LRU, content retained); private blocks
+        go straight to the free list."""
+        key = self._shared_key_of.get(block)
+        if key is None:
+            self._push_free(block)
+            return
+        ref = self._ref.get(block, 0) - 1
+        if ref < 0:
+            raise DoubleFreeError(
+                f"shared block {block} released below refcount 0"
+            )
+        self._ref[block] = ref
+        if ref == 0:
+            self._lru[block] = None
+            self._lru.move_to_end(block)
+
+    # ------------------------------------------------------- lifecycle
+    def allocate(
+        self,
+        seq_id: int,
+        n_tokens: int,
+        extra_blocks: int = 0,
+        prefix_blocks: Optional[List[int]] = None,
+    ) -> List[int]:
+        """Reserve blocks for ``n_tokens`` cache positions (plus
+        ``extra_blocks`` growth headroom).  Under reservation
+        admission the scheduler passes the worst case (prompt +
+        max_new) so decode can never die of pool exhaustion
+        mid-flight; under incremental admission it passes the prompt
+        plus a small headroom and grows on demand via :meth:`extend`.
+        ``prefix_blocks`` (already acquired via
+        :meth:`acquire_prefix`) become the leading table entries; only
+        the remainder is newly allocated."""
+        if seq_id in self._seqs:
+            raise ValueError(f"sequence {seq_id} already allocated")
+        prefix = list(prefix_blocks or [])
+        need = max(
+            self.cfg.blocks_for(n_tokens) - len(prefix), 0
+        ) + max(int(extra_blocks), 0)
+        try:
+            blocks = self._take_blocks(need)
+        except OutOfBlocksError:
+            raise OutOfBlocksError(
+                f"need {need} blocks for seq {seq_id}, "
+                f"{len(self._free)} free"
+            ) from None
+        self._seqs[seq_id] = _SeqAlloc(
+            blocks=prefix + blocks,
+            shared_prefix=len(prefix),
+        )
+        self.alloc_count += need
+        self.peak_used = max(self.peak_used, self.used_blocks)
+        return list(self._seqs[seq_id].blocks)
+
+    def extend(self, seq_id: int, n_blocks: int) -> List[int]:
+        """Grow a live sequence's table by ``n_blocks`` (the
+        incremental-allocation decode path).  Raises
+        :class:`OutOfBlocksError` when the pool (free + evictable
+        shared) cannot satisfy it — the scheduler then preempts."""
+        alloc = self._seqs[seq_id]
+        blocks = self._take_blocks(max(int(n_blocks), 0))
+        alloc.blocks.extend(blocks)
+        self.alloc_count += len(blocks)
+        self.peak_used = max(self.peak_used, self.used_blocks)
+        return blocks
+
+    def note_filled(self, seq_id: int, filled_tokens: int):
+        """Record how many cache positions the sequence has actually
+        written (drives the fragmentation/utilization figures)."""
+        self._seqs[seq_id].filled_tokens = int(filled_tokens)
+
+    def free(self, seq_id: int) -> int:
+        """Return a finished/evicted/preempted sequence's blocks:
+        private blocks to the pool, shared blocks decref'd (a
+        refcount-0 shared block parks in the LRU with its content
+        intact for future prefix hits).  Raises
+        :class:`DoubleFreeError` if any block would land on the free
+        list twice."""
+        alloc = self._seqs.pop(seq_id, None)
+        if alloc is None:
+            return 0
+        for block in reversed(alloc.blocks):
+            self._release_block(block)
+        # allocs/frees count OWNERSHIP churn, symmetrically: allocs =
+        # blocks this sequence newly took from the pool (acquired
+        # prefix hits excluded), frees = those same blocks released
+        # from its ownership — whether they land on the free list or
+        # park in the LRU (a later LRU eviction moves an already-
+        # released block and touches neither counter).  Under this
+        # definition allocs == frees after any full drain.
+        self.free_count += len(alloc.blocks) - alloc.shared_prefix
+        return len(alloc.blocks)
+
+    def table_row(
+        self, seq_id: int, max_blocks: int
+    ) -> Optional[List[int]]:
+        """The sequence's block table padded to ``max_blocks`` with
+        null-block ids (the fixed-shape row the jitted decode step
+        consumes)."""
+        alloc = self._seqs.get(seq_id)
+        if alloc is None:
+            return None
+        if len(alloc.blocks) > max_blocks:
+            raise ValueError(
+                f"seq {seq_id} owns {len(alloc.blocks)} blocks > "
+                f"table width {max_blocks}"
+            )
+        return alloc.blocks + [0] * (max_blocks - len(alloc.blocks))

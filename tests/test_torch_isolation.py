@@ -1,0 +1,212 @@
+"""The port stands alone and runs on the card unless told otherwise.
+
+- Importing every module of ``dlrover_tpu_torch`` pulls in neither
+  ``jax`` nor ``dlrover_tpu`` (checked in a fresh interpreter, and by a
+  scan of every import statement of the package and ``chip_smoke.py``).
+- With no CUDA, the entry points raise unless ``device="cpu"`` is given.
+- ``ops/_build.py`` imports without ``nvcc``, and building without one
+  fails with a clear error rather than at import.
+- ``chip_smoke.py`` alone, or without a card, exits nonzero and prints
+  no result.
+"""
+
+import ast
+import json
+import os
+import pkgutil
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import dlrover_tpu_torch
+from dlrover_tpu_torch.common import device as device_mod
+from dlrover_tpu_torch.common import env
+from dlrover_tpu_torch.models import llama
+from dlrover_tpu_torch.models.convert import params_from_jax
+from dlrover_tpu_torch.ops import _build
+from dlrover_tpu_torch.rl import kv_cache, scheduler
+
+REPO = Path(__file__).resolve().parents[1]
+PKG = REPO / "dlrover_tpu_torch"
+
+
+def _modules():
+    return sorted(
+        m.name for m in pkgutil.walk_packages(
+            dlrover_tpu_torch.__path__, "dlrover_tpu_torch.")
+    )
+
+
+def _foreign(name: str) -> bool:
+    root = name.split(".")[0]
+    return root in ("jax", "jaxlib", "flax", "optax", "dlrover_tpu")
+
+
+def test_every_module_imports_without_jax_or_the_jax_package():
+    mods = _modules()
+    assert "dlrover_tpu_torch.rl.scheduler" in mods and len(mods) >= 15
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=str(REPO)),
+    )
+    assert proc.returncode == 0, proc.stderr
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert [m for m in loaded if _foreign(m)] == []
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_source_scan_finds_no_foreign_import():
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) >= 16
+    bad = [(str(f.relative_to(REPO)), name)
+           for f in files for name in _imports(f) if _foreign(name)]
+    assert bad == []
+
+
+@pytest.fixture
+def no_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_resolve_device_needs_cuda_or_an_explicit_cpu(no_cuda):
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_mod.resolve_device()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_mod.resolve_device("cuda")
+    assert device_mod.resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError, match="unsupported device"):
+        device_mod.resolve_device("meta")
+
+
+def test_entry_points_raise_without_cuda_unless_given_cpu(no_cuda):
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama.init_params(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        scheduler.ContinuousBatchingScheduler(cfg)
+    pcfg = kv_cache.PagedCacheConfig(2, 2, 16, 8, 4, torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kv_cache.init_block_pool(pcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        params_from_jax({"w": [1.0]})
+    # the same calls with an explicit CPU
+    params = llama.init_params(cfg, device="cpu")
+    assert params["embed"].device.type == "cpu"
+    sch = scheduler.ContinuousBatchingScheduler(cfg, device="cpu")
+    assert sch.stats()["device"] == "cpu"
+    assert kv_cache.init_block_pool(pcfg, "cpu")["k"].shape == (
+        2, 8, 4, 2, 16)
+
+
+def test_build_module_imports_and_fails_cleanly_without_nvcc(
+    monkeypatch, tmp_path
+):
+    proc = subprocess.run(
+        [sys.executable, "-c",
+         "import dlrover_tpu_torch.ops._build as b; print(b.SOURCES)"],
+        cwd=REPO, capture_output=True, text=True, timeout=60,
+        env={"PATH": "", "PYTHONPATH": str(REPO),
+             "HOME": str(tmp_path)},
+    )
+    assert proc.returncode == 0, proc.stderr
+    monkeypatch.setenv("PATH", "")
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.delenv("CUDA_PATH", raising=False)
+    import torch.utils.cpp_extension as cpp_ext
+
+    monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path / "build"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.find_nvcc()
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build(["rms_norm"])
+    assert "rms_norm" not in _build._libs
+
+
+def test_build_target_is_keyed_by_source_and_flags(monkeypatch, tmp_path):
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path))
+    a = _build._target("rms_norm", verbose=False)
+    b = _build._target("paged_attention", verbose=False)
+    c = _build._target("rms_norm", verbose=True)
+    assert a.parent == tmp_path and a.suffix == ".so"
+    assert len({a, b, c}) == 3
+    assert a == _build._target("rms_norm", verbose=False)
+    default = REPO / "build" / "dlrover_tpu_torch"
+    monkeypatch.delenv(_build.BUILD_DIR_ENV)
+    assert _build.build_dir() == default
+    assert (REPO / ".gitignore").read_text().splitlines().count(
+        "build/") == 1
+
+
+_CTYPE = {"const void*": "c_void_p", "void*": "c_void_p",
+          "int": "c_int", "float": "c_float"}
+
+
+def _c_signature(source: str, fn: str):
+    text = (PKG / "ops" / "csrc" / f"{source}.cu").read_text()
+    start = text.index(f"int {fn}(") + len(f"int {fn}(")
+    params = text[start:text.index(")", start)].split(",")
+    return [_CTYPE[" ".join(p.split()[:-1])] for p in params]
+
+
+@pytest.mark.parametrize("source,fn,module", [
+    ("rms_norm", "dl_rms_norm_fwd", "dlrover_tpu_torch.ops.fused"),
+    ("paged_attention", "dl_paged_attention",
+     "dlrover_tpu_torch.ops.paged_kernels"),
+])
+def test_ctypes_argtypes_match_the_c_entry(source, fn, module):
+    """The wrapper's ctypes signature is the C entry's, argument by
+    argument (a pointer passed as a 32-bit int would be cut)."""
+    import importlib
+
+    argtypes = importlib.import_module(module).ARGTYPES
+    assert [t.__name__ for t in argtypes] == _c_signature(source, fn)
+
+
+def test_env_knobs_mirror_the_jax_package(monkeypatch):
+    for name in (env.KV_INCREMENTAL_ENV, env.KV_GROW_BLOCKS_ENV,
+                 env.KV_ADMIT_WATERMARK_ENV, env.KV_PREFIX_CACHE_ENV,
+                 env.DECODE_STEPS_ENV):
+        assert name.startswith("DLROVER_TPU_")
+        monkeypatch.delenv(name, raising=False)
+    assert env.kv_incremental_enabled() and env.kv_prefix_cache_enabled()
+    assert env.kv_grow_blocks() == 2 and env.decode_steps() == 1
+    assert env.kv_admit_watermark() == 0.1
+    monkeypatch.setenv(env.KV_INCREMENTAL_ENV, "off")
+    monkeypatch.setenv(env.KV_ADMIT_WATERMARK_ENV, "5")
+    monkeypatch.setenv(env.DECODE_STEPS_ENV, "junk")
+    monkeypatch.setenv(env.KV_GROW_BLOCKS_ENV, "0")
+    assert not env.kv_incremental_enabled()
+    assert env.kv_admit_watermark() == 0.9
+    assert env.decode_steps() == 1 and env.kv_grow_blocks() == 1
+
+
+def test_chip_smoke_alone_exits_nonzero_without_a_result(tmp_path):
+    shutil.copy(REPO / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    proc = subprocess.run(
+        [sys.executable, "chip_smoke.py"], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120,
+        env=dict(os.environ, PYTHONPATH=""),
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
