@@ -7,24 +7,31 @@ card::
     python3 chip_smoke.py            # everything, as the chip check runs it
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --layers 4 # main path at reduced depth
-    python3 chip_smoke.py --profile  # + a torch.profiler decode step
+    python3 chip_smoke.py --profile  # + torch.profiler decode/train steps
+    python3 chip_smoke.py --skip-serve --train-layers 2  # quick training
 
 Phases (any failed check raises, so the script exits nonzero):
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 and
-   reduced-precision bf16 reductions are switched off for every matmul.
-2. build: the three kernels of the serving path from ``ops/csrc`` (one
-   ``nvcc`` per source, in parallel), with the build seconds and the
-   ``ptxas`` register report.
+   reduced-precision bf16 reductions are switched off for every matmul
+   (the training leg goes back to PyTorch's default for the latter).
+2. build: the kernels of both paths from ``ops/csrc`` (one ``nvcc`` per
+   source, in parallel), with the build seconds and the ``ptxas``
+   register report.
 3. kernels against their plain PyTorch versions on the card, bf16 and
-   fp32, at full width (RMSNorm D=4096 and 8192; attention head_dim=128,
+   fp32, at full width (RMSNorm D=4096 and 8192, and bf16 x with an fp32
+   weight; paged attention head_dim=128,
    GQA group 1/4/8, block_size 16, ragged lengths including 0 and a full
    table, inactive lanes on the null block, 1e4 and NaN poison in the
-   null block and the guard blocks, verify window C=4); then a small
-   fp32 Llama served on the card and on the CPU from the same params,
-   whose greedy tails and K=3 acceptance counts must agree (K=1 and
-   K=3, with preemption).
-4. main path: Llama-2-7B at full width and depth (bf16, random weights
+   null block and the guard blocks, verify window C=4; flash forward,
+   dK/dV and dQ over S 1-2048, D 64/128, groups 1/4/8, causal or not,
+   NaN past every input, each check also shown to reject a kernel that
+   drops one tile); then a small fp32 Llama served on the card and on
+   the CPU from the same params, whose greedy tails and K=3 acceptance
+   counts must agree (K=1 and K=3, with preemption), and one trained
+   for 3 AGD steps on both, whose losses, grad norms and params must
+   agree.
+4. serving main path: Llama-2-7B at full width and depth (bf16, random weights
    from a seeded generator on the card) served by the continuous-batching
    scheduler over the paged pool: 16 requests with 128-1024-token prompts
    and 64 new tokens each, once with K=1 and once with
@@ -34,7 +41,14 @@ Phases (any failed check raises, so the script exits nonzero):
    must accept at least ``ACCEPT_FLOOR`` drafts per window.  One layer's
    inputs of one decode step and one verify step are captured, and each
    kernel is held against its plain version on them and timed there.
-5. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+5. training main path: Llama-2-7B width at ``--train-layers`` layers
+   (default 8), fp32 masters, bf16 compute, through ``auto_accelerate``
+   -> ``Trainer.train`` for ``--train-steps`` steps of 4 x 2048 tokens.
+   Step 0's attention grads are held against dense attention, the loss
+   must fall, launches per step must be as stated; step times are on
+   the card's clock.  Layer 0's RMSNorm and flash inputs are captured,
+   checked and timed against their plain versions and SDPA.
+6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without printing a result when CUDA is unavailable or
@@ -209,11 +223,225 @@ def check_attention(pk, kind, group, dtype, poison, gen) -> float:
     return err
 
 
+def check_rms_fp32_weight(fused, n, d, gen):
+    """bf16 ``x`` with an fp32 weight whose values bf16 cannot hold
+    (``1 + 1e-3 randn``): the kernel must multiply by the weight as
+    given.  A kernel that rounded it to bf16 would differ from the plain
+    version in about a quarter of the outputs (one bf16 ulp each) and
+    match the plain version of the rounded weight instead."""
+    x = torch.randn(n, d, device="cuda", generator=gen).to(torch.bfloat16)
+    w = 1 + 1e-3 * torch.randn(d, device="cuda", generator=gen)
+    y, _ = fused.rms_norm_fwd(x, w, 1e-5)
+    torch.cuda.synchronize()
+    y_ref, _ = fused.rms_norm_plain(x, w, 1e-5)
+    y_rounded, _ = fused.rms_norm_plain(x, w.to(torch.bfloat16), 1e-5)
+    err = max_err(y, y_ref)
+    mis = float((y != y_ref).float().mean())
+    mis_rounded = float((y != y_rounded).float().mean())
+    ok = err <= RMS_TOL[torch.bfloat16] and mis <= 1e-3 < mis_rounded
+    log(f"[check] rms_norm bf16 x, fp32 weight N={n} D={d} "
+        f"max_abs_err={err:.3g} differing={mis:.2e} (vs bf16-rounded "
+        f"weight {mis_rounded:.2e}; need <= 1e-3 < it) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, "rms_norm with an fp32 weight")
+    return err
+
+
+# Flash attention, kernel against plain version on the same inputs.
+# o, dq, dk, dv: for every row (one query or key of one head),
+# max_j |kernel - plain| over the row's D values, divided by the plain
+# row's RMS plus 1e-2; the worst row must stay within "rows".  The
+# inputs are unit-scale, so rows are 5e-4 (dv of the last key) to 4 in
+# RMS; the 1e-2 is for rows that are 0 in exact arithmetic (dq and dk at
+# S = 1 without an lse cotangent: p (dp - delta) cancels), where both
+# versions give rounding noise of up to ~1e-6.  lse: max |kernel -
+# plain|, an absolute limit (lse is a log: this is the relative error of
+# the softmax denominator).  fp32: summation order only (the kernels use
+# no TF32).  bf16: both versions round p, ds and the outputs to bf16
+# from fp32 values that differ in their last bits, so an element can
+# land one bf16 ulp apart.  Every check must also reject the same plain
+# version with one (32 query rows x 64 keys) tile of the score matrix
+# dropped (drop_tile).  Each limit sits between the two readings on the
+# card: bf16 rows worst 0.032, dropped tile at least 0.38 (PERF.md).
+FLASH_TOL = {torch.float32: {"rows": 1e-3, "lse": 1e-4},
+             torch.bfloat16: {"rows": 1e-1, "lse": 1e-4}}
+FLASH_OUT = {"flash_fwd": ("o", "lse"), "flash_bwd_dkv": ("dk", "dv"),
+             "flash_bwd_dq": ("dq",)}
+
+
+def poisoned(shape, dtype, gen, scale=1.0):
+    """A tensor of ``shape`` at the start of a larger allocation whose
+    tail is NaN: a kernel that reads past the end poisons its output."""
+    n = int(np.prod(shape))
+    buf = torch.full((n + 4096,), float("nan"), device="cuda", dtype=dtype)
+    buf[:n] = (scale * torch.randn(n, device="cuda", generator=gen)).to(dtype)
+    return buf[:n].view(shape)
+
+
+def row_err(got, ref) -> float:
+    """Worst row of ``max |got - ref| / (RMS(ref row) + 1e-2)`` over the
+    last dim; a NaN in one but not the other is infinite."""
+    g, r = got.float(), ref.float()
+    nan_g, nan_r = torch.isnan(g), torch.isnan(r)
+    if not torch.equal(nan_g, nan_r):
+        return float("inf")
+    d = (g - r).abs().masked_fill(nan_g, 0.0).amax(-1)
+    r = r.masked_fill(nan_r, 0.0)
+    rms = r.square().mean(-1).sqrt()
+    return float((d / (rms + 1e-2)).max()) if d.numel() else 0.0
+
+
+def flash_errs(got, ref, dtype):
+    """{output: error / its limit} for the outputs in both dicts."""
+    tol = FLASH_TOL[dtype]
+    return {n: (max_err(got[n], ref[n]) / tol["lse"] if n == "lse"
+                else row_err(got[n], ref[n]) / tol["rows"])
+            for n in got if n in ref}
+
+
+def drop_tile(s):
+    """The planted fault: the rows of the last 32-row query tile do not
+    see the 64 keys from the 64-aligned middle of the sequence on, as
+    when a kernel skips one tile of its loop (the forward's k loop, the
+    dQ kernel's k loop, the dK/dV kernel's q loop).  None when S is too
+    short for two tiles."""
+    if s < 100:
+        return None
+    r0 = (s - 1) // 32 * 32
+    c0 = s // 2 // 64 * 64
+    return r0, c0, min(c0 + 64, s)
+
+
+def faulted_refs(fa, q, k, v, dout, lse, delta, glse, causal, scale, ref):
+    """The plain outputs ``ref`` (o, lse, dq, dk, dv) of a kernel that
+    drops ``drop_tile``'s tile: the forward recomputed with the tile
+    masked, the backward less the tile's share (p and ds from the given
+    lse and delta, rounded as the plain version rounds them)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    g = h // kv
+    r0, c0, c1 = drop_tile(s)
+    sc, keep = fa._scores(q, k, causal, scale)
+    if keep is not None:
+        sc = sc.masked_fill(~keep, fa.NEG_INF)
+    sc[..., r0:, c0:c1] = fa.NEG_INF
+    m = sc.amax(-1, keepdim=True)
+    p = torch.exp(sc - m)
+    den = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(v.dtype).float(), v.float())
+    o = (o / den.permute(0, 3, 1, 2, 4)).to(q.dtype).reshape(b, s, h, d)
+    out = {"o": o, "lse": (m + torch.log(den)).reshape(b, h, s)}
+    del sc, p
+    # the backward's share of the tile: [B, KV, G, rows, cols]
+    qr = q[:, r0:].float().reshape(b, -1, kv, g, d)
+    dor = dout[:, r0:].float().reshape(b, -1, kv, g, d)
+    kc, vc = k[:, c0:c1].float(), v[:, c0:c1].float()
+    rows = (b, kv, g, s - r0, 1)
+    st = torch.einsum("bqkgd,bskd->bkgqs", qr, kc) * scale
+    pt = torch.exp(st - lse[:, :, r0:].reshape(rows))
+    corr = -delta[:, :, r0:].reshape(rows)
+    if glse is not None:
+        corr = corr + glse[:, :, r0:].reshape(rows)
+    dst = pt * (torch.einsum("bqkgd,bskd->bkgqs", dor, vc) + corr) * scale
+    pt, dst = pt.to(q.dtype).float(), dst.to(q.dtype).float()
+    dq = ref["dq"].float().clone()
+    dq[:, r0:] -= torch.einsum("bkgqs,bskd->bqkgd", dst, kc).reshape(
+        b, -1, h, d)
+    dk, dv = ref["dk"].float().clone(), ref["dv"].float().clone()
+    dk[:, c0:c1] -= torch.einsum("bkgqs,bqkgd->bskd", dst, qr)
+    dv[:, c0:c1] -= torch.einsum("bkgqs,bqkgd->bskd", pt, dor)
+    out.update(dq=dq, dk=dk, dv=dv)
+    return out
+
+
+def flash_case(fa, dtype, b, s, kv, group, d, causal, gen):
+    """Forward, dK/dV and dQ kernels against their plain versions, the
+    backward with the lse cotangent zero (None) and nonzero; each check
+    must reject the plain version with a dropped tile (S >= 100).
+    Returns {kernel: (worst error / limit, least faulted error /
+    limit)}."""
+    h = kv * group
+    scale = d ** -0.5
+    q = poisoned((b, s, h, d), dtype, gen)
+    k = poisoned((b, s, kv, d), dtype, gen)
+    v = poisoned((b, s, kv, d), dtype, gen)
+    dout = poisoned((b, s, h, d), dtype, gen)
+    glse = poisoned((b, h, s), torch.float32, gen)
+    o, lse = fa.flash_fwd_kernel(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, causal, scale)
+    # the backward's saved inputs, from the plain forward on both sides
+    lse_in = poisoned((b, h, s), torch.float32, gen)
+    lse_in.copy_(lse_ref)
+    delta = poisoned((b, h, s), torch.float32, gen)
+    delta.copy_(fa.attention_delta(o_ref, dout))
+    sound, fault = {}, {}
+    for tag, g in (("", None), ("glse", glse)):
+        args = (q, k, v, dout, lse_in, delta, g, causal, scale)
+        dk, dv = fa.flash_bwd_dkv_kernel(*args)
+        dq = fa.flash_bwd_dq_kernel(*args)
+        torch.cuda.synchronize()
+        dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*args)
+        got = dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv)
+        ref = dict(o=o_ref, lse=lse_ref, dq=fa.flash_bwd_dq_plain(*args),
+                   dk=dk_ref, dv=dv_ref)
+        for n, e in flash_errs(got, ref, dtype).items():
+            sound[n] = max(sound.get(n, 0.0), e)
+            if not bool(torch.isfinite(got[n]).all()):
+                sound[n] = float("inf")
+        if drop_tile(s) is not None:
+            bad = faulted_refs(fa, *args, ref)
+            for n, e in flash_errs(got, bad, dtype).items():
+                fault[n] = min(fault.get(n, float("inf")), e)
+    res = {}
+    for kern, outs in FLASH_OUT.items():
+        worst = max(sound[n] for n in outs)
+        caught = max(fault[n] for n in outs) if fault else float("inf")
+        res[kern] = (worst, caught)
+    ok = all(w <= 1.0 < c for w, c in res.values())
+    log(f"[check] flash {str(dtype)[6:]} B={b} S={s} KV={kv} G={group} "
+        f"D={d} causal={int(causal)} err/limit "
+        + " ".join(f"{n}={e:.3g}" for n, e in sound.items())
+        + " dropped-tile err/limit "
+        + (" ".join(f"{n}={e:.3g}" for n, e in fault.items()) or "-")
+        + f" limits={FLASH_TOL[dtype]} {'ok' if ok else 'FAIL'}")
+    require(ok, f"flash {dtype} S={s} G={group} D={d} causal={causal}")
+    return res
+
+
+def flash_checks():
+    """B2-B4 over S in {1, 100, 128, 1000, 2048} (tails, a partly
+    visible diagonal tile, one row), D in {64, 128}, GQA groups 1/4/8,
+    causal and not, bf16 and fp32, NaN past the end of every input; a
+    dropped tile must be caught wherever S holds two tiles."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    summary = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        worst = {k: [0.0, float("inf")] for k in FLASH_OUT}
+        for d in (64, 128):
+            for s in (1, 100, 128, 1000, 2048):
+                for group in (1, 4, 8):
+                    for causal in (True, False):
+                        b = 2 if s <= 128 else 1
+                        res = flash_case(fa, dtype, b, s, 2, group, d,
+                                         causal, gen)
+                        for kern, (w, c) in res.items():
+                            worst[kern][0] = max(worst[kern][0], w)
+                            worst[kern][1] = min(worst[kern][1], c)
+        summary[str(dtype)[6:]] = worst
+    log(f"[check] flash over all cases, [worst err, least dropped-tile "
+        f"err] / limit: {summary}")
+
+
 def kernel_checks():
     from dlrover_tpu_torch.ops import fused
     from dlrover_tpu_torch.ops import paged_kernels as pk
 
     gen = torch.Generator(device="cuda").manual_seed(0)
+    for n, d in ((16, 4096), (4 * 2048, 4096)):
+        check_rms_fp32_weight(fused, n, d, gen)
     for dtype in (torch.bfloat16, torch.float32):
         for n, d in ((1, 4096), (16, 4096), (257, 4096), (64, 8192)):
             check_rms(fused.rms_norm_fwd, fused.rms_norm_plain, dtype, n, d,
@@ -289,7 +517,8 @@ class Capture:
     """Wraps one kernel entry of ``models.llama``.  Among the calls it
     considers (every ``every``-th: layer 0 of each step), it keeps a
     copy of the inputs and the output of the first one at the highest
-    ``score()`` (the number of lanes decoding, read on the host)."""
+    ``score()`` (serving: the number of lanes decoding, read on the
+    host; a constant keeps the first call)."""
 
     def __init__(self, module, attr, score, every=1, when=None):
         self.module, self.attr = module, attr
@@ -302,17 +531,17 @@ class Capture:
         self.out = None
         setattr(module, attr, self)
 
-    def __call__(self, *args):
-        out = self.orig(*args)
+    def __call__(self, *args, **kw):
+        out = self.orig(*args, **kw)
         if self.calls % self.every == 0 and self.when(*args):
             score = self.score()
             if score > self.best:
                 self.best = score
                 self.args = tuple(
-                    a.clone() if isinstance(a, torch.Tensor) else a
+                    a.detach().clone() if isinstance(a, torch.Tensor) else a
                     for a in args
                 )
-                self.out = out.clone()
+                self.out = out.detach().clone()
         self.calls += 1
         return out
 
@@ -333,9 +562,12 @@ def profile_step(step, label):
         n = step()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
+    # device-side copies of host annotations ("Optimizer.step#AGD.step")
+    # span kernels already counted: leave them out
     kernels = [
         e for e in prof.key_averages()
         if getattr(e, "device_type", None) == DeviceType.CUDA
+        and not e.key.startswith("Optimizer.")
     ]
 
     def dev_us(e):
@@ -426,10 +658,10 @@ def serve_leg(cfg, params, sched_cfg, prompts, k, max_new, captures,
     return tails, counts, caps, stats
 
 
-def rms_bound_ms(x):
+def rms_bound_ms(x, w):
     n, d = x.numel() // x.shape[-1], x.shape[-1]
     item = x.element_size()
-    nbytes = 2 * n * d * item + d * item + 4 * n
+    nbytes = 2 * n * d * item + d * w.element_size() + 4 * n
     return bound(nbytes, 4 * n * d, x.dtype)
 
 
@@ -588,7 +820,7 @@ def main_path(args):
         lambda: fused.rms_norm_fwd(x2, w, eps),
         lambda: fused.rms_norm_plain(x2, w, eps),
         lambda: F.rms_norm(x2, (x2.shape[-1],), w, eps),
-        rms_bound_ms(x2),
+        rms_bound_ms(x2, w),
     ))
 
     for name, cap, window, replaces, kern, plain in (
@@ -622,6 +854,431 @@ def main_path(args):
     return rows
 
 
+# ------------------------------------------------------------ training
+
+
+# fp32 card (kernels, cuBLAS without TF32) against CPU (plain versions)
+# over 3 AGD steps: sums in another order; AGD's sign-like step moves a
+# parameter by up to lr * (relative gradient difference) / delta.
+TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "params": 2e-5}
+# bf16 step 0 at full width, flash kernels against the dense plain
+# attention on the card.  Loss and grad norm are dominated by the lm
+# head and the embedding, so they only show that the step is sound as a
+# whole.  The attention backward is read in the grads of wq, wk and wv:
+# per layer, |g_flash - g_dense| / |g_dense| (L2 over the layer's
+# matrix), worst over layers and the three leaves.  Its limit sits
+# between the sound reading and that of a planted fault, dq zeroed (q
+# detached before the flash call), which must exceed it.
+STEP0_TOL = {"loss": 1e-2, "grad_norm": 3e-2, "attn_grads": 0.1}
+TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+
+
+def _clone_to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _clone_to(v, device) for k, v in tree.items()}
+    return tree.detach().clone().to(device)
+
+
+def _train_run(cfg, params, batches, device, lr=1e-3):
+    """``auto_accelerate`` + ``train_step`` from a copy of ``params`` on
+    ``device``: per-step metrics and the final params."""
+    from dlrover_tpu_torch.accelerate import auto_accelerate
+    from dlrover_tpu_torch.models.llama import loss_fn
+    from dlrover_tpu_torch.optimizers import AGD
+
+    result = auto_accelerate(
+        loss_fn=lambda p, b: loss_fn(p, b, cfg),
+        optimizer=lambda ps: AGD(ps, lr=lr),
+        init_params_fn=lambda gen, dev: _clone_to(params, dev),
+        device=device,
+    )
+    state = result.fns.init_state(SEED)
+    metrics = []
+    for b in batches:
+        state, m = result.fns.train_step(
+            state, {"tokens": torch.from_numpy(b).to(device)})
+        metrics.append((float(m["loss"]), float(m["grad_norm"])))
+    return metrics, _clone_to(state["params"], "cpu")
+
+
+def train_parity():
+    """A small fp32 Llama trained for 3 AGD steps on the card (flash,
+    RMSNorm kernels) and on the CPU (plain versions) from the same
+    params and batches: losses, grad norms and final params agree.
+    head_dim 64 and GQA group 2, so the card runs the kernels."""
+    from dlrover_tpu_torch.models.llama import LlamaConfig, init_params
+    from dlrover_tpu_torch.ops import _build
+
+    cfg = LlamaConfig.tiny(dim=128, n_heads=2, n_kv_heads=1,
+                           dtype=torch.float32)
+    params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu",
+                         dtype=torch.float32)
+    rng = np.random.default_rng(SEED)
+    batches = [rng.integers(0, cfg.vocab_size, (2, 65)).astype(np.int64)
+               for _ in range(3)]
+    cpu_metrics, cpu_params = _train_run(cfg, params, batches, "cpu")
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    card_metrics, card_params = _train_run(cfg, params, batches, "cuda")
+    counts = {k: _build.launches[k] for k in TRAIN_KERNELS}
+    d_loss = max(abs(a[0] - b[0]) for a, b in zip(cpu_metrics, card_metrics))
+    d_norm = max(abs(a[1] - b[1]) / a[1]
+                 for a, b in zip(cpu_metrics, card_metrics))
+    d_params = max(max_err(a, b) for a, b in zip(
+        _leaves(cpu_params), _leaves(card_params)))
+    ok = (d_loss <= TRAIN_TOL["loss"] and d_norm <= TRAIN_TOL["grad_norm"]
+          and d_params <= TRAIN_TOL["params"]
+          and all(v > 0 for v in counts.values()))
+    log(f"[parity] tiny fp32 training, 3 AGD steps: cpu losses "
+        f"{[round(m[0], 6) for m in cpu_metrics]} card "
+        f"{[round(m[0], 6) for m in card_metrics]}; max |d loss|="
+        f"{d_loss:.3g} max rel d grad_norm={d_norm:.3g} max |d param|="
+        f"{d_params:.3g} (tol {TRAIN_TOL}); card launches {counts} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, "tiny fp32 training: card and CPU disagree")
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def flash_pairs(b, h, s):
+    """(query, key) pairs a causal pass visits, for this run's shape."""
+    return b * h * s * (s + 1) // 2
+
+
+def flash_bound_ms(kind, q, k):
+    """Bytes: each input once, each output once.  Operations: 2 * D per
+    visible (query, key) pair and product: forward 2 products (q k^T,
+    p v), dK/dV 4 (s, dp, dv, dk), dQ 3 (s, dp, dq)."""
+    b, s, h, d = q.shape
+    item = q.element_size()
+    qb, kb, row = q.numel() * item, k.numel() * item, b * h * s * 4
+    products = {"fwd": 2, "dkv": 4, "dq": 3}[kind]
+    nbytes = {
+        "fwd": qb + 2 * kb + qb + row,
+        "dkv": 2 * qb + 2 * kb + 2 * row + 2 * kb,
+        "dq": 2 * qb + 2 * kb + 2 * row + qb,
+    }[kind]
+    return bound(nbytes, products * 2 * d * flash_pairs(b, h, s), q.dtype)
+
+
+def events_ms(fn, iters: int = 10) -> float:
+    """Device time of one ``fn()`` from CUDA events around ``iters``
+    eager calls (for a library backward that a graph cannot capture)."""
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def launch_queue_depth(n: int = 8192) -> int:
+    """How many kernel launches the host can queue ahead of the card:
+    with the card held busy by a spinning kernel (about 1 s), the index
+    of the first of ``n`` one-element adds whose launch keeps the host
+    waiting more than 5 ms (``n`` if none does)."""
+    x = torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda._sleep(2_000_000_000)
+    depth = n
+    for i in range(n):
+        t = time.perf_counter()
+        x.add_(1.0)
+        if time.perf_counter() - t > 5e-3:
+            depth = i
+            break
+    torch.cuda.synchronize()
+    return depth
+
+
+def train_path(args):
+    """Llama-2-7B width (dim 4096, 32 heads, MHA, mlp 11008, vocab
+    32000) at ``--train-layers`` layers through ``auto_accelerate`` ->
+    ``Trainer.train``: bf16 compute, fp32 masters, remat "full", fused
+    CE in 512-row chunks, AGD(lr=3e-4), one fixed 4 x 2048 batch of
+    random tokens, ``--train-steps`` steps.  Returns the kernel rows of
+    the path (RMSNorm at the training shape, B2-B4)."""
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.accelerate import auto_accelerate
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import fused
+    from dlrover_tpu_torch.optimizers import AGD
+    from dlrover_tpu_torch.parallel.train_step import param_leaves
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=args.train_layers)
+    L, steps = cfg.n_layers, args.train_steps
+    batch, seq = 4, 2048
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+
+    def init_fn(gen, dev):
+        return llama.init_params(cfg, gen, dev, dtype=torch.float32)
+
+    # the matmul settings a user of examples/llama_pretrain.py runs under
+    # (PyTorch's defaults: bf16 GEMMs may reduce in bf16; TF32 is off)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        args.bf16_reduced_default)
+    log(f"[train] matmul settings: allow_tf32="
+        f"{torch.backends.cuda.matmul.allow_tf32} "
+        "allow_bf16_reduced_precision_reduction="
+        f"{args.bf16_reduced_default} (PyTorch's defaults)")
+
+    # step 0 with the dense plain attention, from the same init, and the
+    # attention leaves' grads with flash and with flash whose dq is
+    # zeroed (the planted fault)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = init_fn(gen, torch.device("cuda"))
+    leaves = param_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    names = ("wq", "wk", "wv")
+    attn_leaves = [params["layers"][n] for n in names]
+    tb = {"tokens": torch.from_numpy(tokens).cuda()}
+    loss0 = llama.loss_fn(params, tb, cfg,
+                          attention_fn=llama.dot_product_attention)
+    grads = torch.autograd.grad(loss0, leaves)
+    norm0 = float(torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(grads))))
+    loss0 = float(loss0.detach())
+    ids = [id(p) for p in leaves]
+    dense = [grads[ids.index(id(p))] for p in attn_leaves]
+    del grads
+
+    def attn_grad_err(attention_fn):
+        """{leaf: worst layer's |g - g_dense| / |g_dense|}."""
+        loss = llama.loss_fn(params, tb, cfg, attention_fn=attention_fn)
+        got = torch.autograd.grad(loss, attn_leaves, allow_unused=True,
+                                  materialize_grads=True)
+        return {n: float(max(
+            torch.linalg.vector_norm((g - r).float()) / torch.linalg.
+            vector_norm(r.float()) for g, r in zip(gl, rl)))
+            for n, gl, rl in zip(names, got, dense)}
+
+    sound_g = attn_grad_err(llama.flash_attention)
+    fault_g = attn_grad_err(
+        lambda q, k, v, **kw: llama.flash_attention(q.detach(), k, v, **kw))
+    del params, leaves, attn_leaves, dense, tb
+    torch.cuda.empty_cache()
+    log(f"[train] step 0, attention leaves' grads, worst layer, flash "
+        f"against dense: {sound_g}; with dq zeroed: {fault_g} (limit "
+        f"{STEP0_TOL['attn_grads']})")
+    require(max(sound_g.values()) <= STEP0_TOL["attn_grads"]
+            < max(fault_g.values()),
+            "step 0: attention grads differ from the dense attention, or "
+            "the check cannot see dq zeroed")
+    log(f"[train] launch queue: the host waits after "
+        f"{launch_queue_depth()} launches queued ahead of a busy card")
+
+    result = auto_accelerate(
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        optimizer=lambda ps: AGD(ps, lr=3e-4),
+        init_params_fn=init_fn,
+        device="cuda",
+    )
+    prof = result.profile
+    log(f"[train] Llama-2-7B width, {L} layers, {prof.num_params / 1e9:.3f}B "
+        f"params (fp32 masters {prof.param_bytes / 2**30:.2f} GiB, AGD state "
+        f"{prof.optimizer_bytes / 2**30:.2f} GiB), bf16 compute, remat "
+        f"{cfg.remat}, fused CE chunk {cfg.ce_chunk_rows}, batch {batch} x "
+        f"{seq}, {steps} steps, strategy {result.strategy.describe()}")
+
+    def data_iter():
+        while True:
+            yield {"tokens": tokens}
+
+    # the host time of each train_step call: with the launch queue full
+    # it returns only when the card is near the end of the step
+    fns = result.fns
+    inner, host_s = fns.train_step, []
+
+    def timed_step(state, b):
+        t = time.perf_counter()
+        out = inner(state, b)
+        host_s.append(time.perf_counter() - t)
+        return out
+
+    fns.train_step = timed_step
+    trainer = Trainer(result, TrainingArgs(max_steps=steps, log_interval=0),
+                      data_iter)
+    # the first call (layer 0 of step 1's forward) of each
+    attn_cap = Capture(llama, "flash_attention", score=lambda: 0)
+    rms_cap = Capture(llama, "rms_norm", score=lambda: 0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        summary = trainer.train()
+    finally:
+        attn_cap.restore()
+        rms_cap.restore()
+        fns.train_step = inner
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: _build.launches[k] for k in TRAIN_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    for r, h in zip(hist, host_s):
+        log(f"[train] step {r['step']} loss={r['loss']:.6f} grad_norm="
+            f"{r['grad_norm']:.6f} step_ms={1e3 * r['step_time_s']:.3f} "
+            f"(card clock, end to end) host_ms_in_train_step={1e3 * h:.3f}")
+    # steps 2..N as one window: from step 1's end to step N's end on the
+    # card's clock (the sum of their step times)
+    window_s = sum(r["step_time_s"] for r in hist[1:])
+    step_s = window_s / (steps - 1)
+    tokens_per_step = batch * seq
+    n_matmul = prof.num_params - cfg.vocab_size * cfg.dim - cfg.dim * (
+        2 * L + 1)  # all but the embedding table and the norms
+    attn_flops = 6 * 2 * cfg.head_dim * flash_pairs(
+        batch, cfg.n_heads, seq) * L
+    model_flops = 6 * n_matmul * tokens_per_step + attn_flops
+    mfu = model_flops / step_s / PEAK_OPS[torch.bfloat16]
+    per_step = {k: v / steps for k, v in counts.items()}
+    expect = {"rms_norm": 4 * L + 1, "flash_fwd": 2 * L,
+              "flash_bwd_dkv": L, "flash_bwd_dq": L}
+    log(f"[train] final_step={summary['final_step']} wall_s={wall:.3f} "
+        f"(host, steps 1-{steps} + sync) sum_of_step_ms="
+        f"{1e3 * sum(r['step_time_s'] for r in hist):.3f} "
+        f"step_ms_window(2-{steps})={1e3 * step_s:.3f} tokens_per_s="
+        f"{tokens_per_step / step_s:.1f} model_tflop_per_step="
+        f"{model_flops / 1e12:.3f} mfu={mfu:.4f} (of 989 TFLOP/s bf16) "
+        f"max_memory_allocated_GiB={peak / 2**30:.2f} "
+        f"launches_per_step={per_step} expected={expect}")
+    d_loss = abs(hist[0]["loss"] - loss0)
+    d_norm = abs(hist[0]["grad_norm"] - norm0) / norm0
+    log(f"[train] step 0 with the plain attention on the card: loss="
+        f"{loss0:.6f} grad_norm={norm0:.6f}; |d loss|={d_loss:.3g} rel d "
+        f"grad_norm={d_norm:.3g} (tol {STEP0_TOL})")
+    require(all(np.isfinite(losses)), "a training loss is not finite")
+    require(losses[-1] < losses[0], "training loss did not fall")
+    require(per_step == expect, f"launches per step {per_step} != {expect}")
+    require(d_loss <= STEP0_TOL["loss"] and d_norm <= STEP0_TOL["grad_norm"],
+            "step 0 differs from the plain attention")
+    if args.profile:
+        state = trainer.state
+        batch_dev = {"tokens": torch.from_numpy(tokens).cuda()}
+
+        def one_step():
+            result.fns.train_step(state, batch_dev)
+            return 1
+
+        profile_step(one_step, f"one training step, {L} layers")
+    del trainer, result, fns
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    rows = []
+    # the training path's RMSNorm: bf16 x with the fp32 master weight
+    x, w, eps = rms_cap.args
+    x2 = x.reshape(-1, x.shape[-1])
+    y = fused.rms_norm_fwd(x2, w, eps)[0]
+    require(torch.equal(y.reshape(rms_cap.out.shape), rms_cap.out),
+            "rms_norm rerun differs from the training path's output")
+    err = max_err(y, fused.rms_norm_plain(x2, w, eps)[0])
+    log(f"[captured] rms_norm training {tuple(x2.shape)} bf16 x, fp32 "
+        f"weight max_abs_err={err:.3g} tol={RMS_TOL[x.dtype]}")
+    require(err <= RMS_TOL[x.dtype], "rms_norm on the training input")
+    rows.append(kernel_row(
+        "rms_norm_train", "dlrover_tpu_torch/ops/csrc/rms_norm.cu",
+        "dlrover_tpu/ops/fused.py:48", counts["rms_norm"], err,
+        RMS_TOL[x.dtype],
+        lambda: fused.rms_norm_fwd(x2, w, eps),
+        lambda: fused.rms_norm_plain(x2, w, eps),
+        # unfused in PyTorch for a weight of another dtype
+        lambda: F.rms_norm(x2, (x2.shape[-1],), w, eps),
+        rms_bound_ms(x2, w),
+    ))
+
+    q, k, v = attn_cap.args[:3]
+    require(tuple(q.shape) == (batch, seq, cfg.n_heads, cfg.head_dim)
+            and q.dtype == torch.bfloat16, "captured flash input shape")
+    scale = cfg.head_dim ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    dout = torch.randn(q.shape, device="cuda", generator=gen).to(q.dtype)
+    o, lse = fa.flash_fwd_kernel(q, k, v, True, scale)
+    require(torch.equal(o, attn_cap.out),
+            "flash_fwd rerun differs from the training path's output")
+    o_ref, lse_ref = fa.flash_fwd_plain(q, k, v, True, scale)
+    delta = fa.attention_delta(o_ref, dout)
+    bargs = (q, k, v, dout, lse_ref, delta, None, True, scale)
+    dk, dv = fa.flash_bwd_dkv_kernel(*bargs)
+    dq = fa.flash_bwd_dq_kernel(*bargs)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*bargs)
+    torch.cuda.synchronize()
+    got = dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv)
+    ref = dict(o=o_ref, lse=lse_ref, dq=fa.flash_bwd_dq_plain(*bargs),
+               dk=dk_ref, dv=dv_ref)
+    sound = flash_errs(got, ref, q.dtype)
+    fault = flash_errs(got, faulted_refs(fa, *bargs, ref), q.dtype)
+    abs_err = {kern: max(max_err(got[n], ref[n]) for n in outs)
+               for kern, outs in FLASH_OUT.items()}
+    log(f"[captured] flash layer 0 q={tuple(q.shape)} bf16 causal "
+        f"err/limit {sound} dropped-tile err/limit {fault} max_abs_err "
+        f"{abs_err} limits={FLASH_TOL[q.dtype]}")
+    for kern, outs in FLASH_OUT.items():
+        require(max(sound[n] for n in outs) <= 1.0
+                < max(fault[n] for n in outs),
+                f"{kern} on the captured input")
+    del got, ref, o_ref, lse_ref, dk_ref, dv_ref, o, lse, dk, dv, dq
+    torch.cuda.empty_cache()
+
+    # the library yardstick: SDPA (never called by the port) on
+    # [B, H, S, D] copies; its backward computes dq, dk and dv in one call
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    dout_t = dout.transpose(1, 2).contiguous()
+    with torch.no_grad():
+        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+    out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    sdpa_bwd_ms = events_ms(lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), dout_t, retain_graph=True))
+    del out_t, qt, kt, vt, dout_t
+    torch.cuda.empty_cache()
+    log(f"[time] SDPA causal forward {sdpa_fwd_ms:.4f} ms, backward (dq, "
+        f"dk, dv in one call, eager, events) {sdpa_bwd_ms:.4f} ms")
+
+    src = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
+    for name, replaces, kind, fn, plain, lib in (
+        ("flash_fwd", "dlrover_tpu/ops/flash_attention.py:42", "fwd",
+         lambda: fa.flash_fwd_kernel(q, k, v, True, scale),
+         lambda: fa.flash_fwd_plain(q, k, v, True, scale), sdpa_fwd_ms),
+        ("flash_bwd_dkv", "dlrover_tpu/ops/flash_attention.py:275", "dkv",
+         lambda: fa.flash_bwd_dkv_kernel(*bargs),
+         lambda: fa.flash_bwd_dkv_plain(*bargs), sdpa_bwd_ms),
+        ("flash_bwd_dq", "dlrover_tpu/ops/flash_attention.py:340", "dq",
+         lambda: fa.flash_bwd_dq_kernel(*bargs),
+         lambda: fa.flash_bwd_dq_plain(*bargs), None),
+    ):
+        outs = FLASH_OUT[name]
+        row = kernel_row(name, src, replaces, counts[name], abs_err[name],
+                         FLASH_TOL[q.dtype], fn, plain, None,
+                         flash_bound_ms(kind, q, k))
+        row["library_ms"] = lib
+        row["err_over_limit"] = max(sound[n] for n in outs)
+        row["dropped_tile_err_over_limit"] = max(fault[n] for n in outs)
+        if name == "flash_bwd_dkv":
+            row["library_note"] = ("SDPA backward, dq+dk+dv in one call: "
+                                   "compare with flash_bwd_dkv + "
+                                   "flash_bwd_dq")
+        rows.append(row)
+    return rows
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -629,7 +1286,14 @@ def main() -> int:
     ap.add_argument("--requests", type=int, default=16)
     ap.add_argument("--max-new", type=int, default=64)
     ap.add_argument("--profile", action="store_true",
-                    help="trace one full-batch decode step per leg")
+                    help="trace one full-batch decode step per serving "
+                    "leg and one training step")
+    ap.add_argument("--skip-serve", action="store_true",
+                    help="leave out the serving main path")
+    ap.add_argument("--skip-train", action="store_true",
+                    help="leave out the training main path")
+    ap.add_argument("--train-layers", type=int, default=8)
+    ap.add_argument("--train-steps", type=int, default=6)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -643,6 +1307,9 @@ def main() -> int:
               file=sys.stderr)
         return 2
 
+    # the training leg goes back to PyTorch's default for bf16 GEMMs
+    args.bf16_reduced_default = (
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
@@ -653,19 +1320,26 @@ def main() -> int:
         f"python={sys.version.split()[0]}")
     log(f"[device] nvidia-smi: {smi}")
     log("[device] TF32 off for matmuls and cuDNN; bf16 matmuls reduce "
-        "in fp32")
+        "in fp32 (the training leg: PyTorch's default)")
 
     secs = _build.build(verbose=True)
     log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)} "
         f"sources={list(_build.SOURCES)} build_s={secs:.2f}")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if "registers" in line or "error" in line.lower():
+            if ("registers" in line or "spill" in line
+                    or "error" in line.lower()):
                 log(f"[build] {name}: {line.strip()}")
 
     kernel_checks()
+    flash_checks()
     tiny_parity()
-    rows = [] if args.kernels_only else main_path(args)
+    train_parity()
+    rows = []
+    if not (args.kernels_only or args.skip_serve):
+        rows += main_path(args)
+    if not (args.kernels_only or args.skip_train):
+        rows += train_path(args)
 
     if rows:
         log(json.dumps({"kernels": rows}))

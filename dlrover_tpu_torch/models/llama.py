@@ -1,8 +1,17 @@
-"""Llama-family paged serving forward in PyTorch.
+"""Llama family in PyTorch: the training forward and loss, and the
+paged serving steps.
 
 Port of ``dlrover_tpu/models/llama.py`` (``LlamaConfig`` :33-85,
-``init_params`` :91-124, ``rms_norm``/RoPE :248-275 and the paged steps
-:597-949): RMSNorm + RoPE (split-half) + GQA + SwiGLU.
+``init_params`` :91-124, ``rms_norm``/RoPE :248-275, the training
+forward and loss :278-447 and :957-996, and the paged steps :597-949):
+RMSNorm + RoPE (split-half) + GQA + SwiGLU.
+
+Training keeps fp32 master weights (``init_params(..., dtype=
+torch.float32)``) and computes in ``cfg.dtype``: every projection casts
+its weight, multiplies with fp32 accumulation and gives ``cfg.dtype``,
+as JAX's ``preferred_element_type`` matmuls do.  Attention defaults to
+``ops.flash_attention`` (the CUDA kernels on the card, the plain version
+on the CPU).
 
 Params are a plain dict with the JAX package's layout: ``embed [V, D]``,
 ``layers`` a dict of tensors stacked on dim 0 (``wq [L, D, H*hd]``,
@@ -26,13 +35,19 @@ the reference.
 """
 
 from dataclasses import dataclass
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
-from dlrover_tpu_torch.ops.fused import rms_norm
+from dlrover_tpu_torch.ops.flash_attention import flash_attention
+from dlrover_tpu_torch.ops.fused import (
+    _mm_f32,
+    fused_linear_cross_entropy,
+    rms_norm,
+)
 from dlrover_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_prefill_attention,
@@ -55,6 +70,22 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
+    # training: activation recompute per layer ("none" | "full"; "dots"
+    # is the JAX package's dots-saveable policy, not ported yet)
+    remat: str = "full"
+    # fused-CE row chunk (peak logits memory = chunk x vocab fp32)
+    ce_chunk_rows: int = 512
+    # the source checkpoint tied lm_head to the embedding; the params
+    # keep them separate, as the JAX package does, and only the HF
+    # export (not ported yet) reads it
+    tie_word_embeddings: bool = False
+
+    def __post_init__(self):
+        if self.tie_word_embeddings:
+            raise NotImplementedError(
+                "tie_word_embeddings=True is read only by the HF export, "
+                "not ported yet: ROADMAP A7 (models/hf_convert.py)"
+            )
 
     @property
     def head_dim(self) -> int:
@@ -99,11 +130,14 @@ def init_params(
     """Random params in the JAX layout: dense weights ``N(0, 1/fan_in)``
     and unit norms, drawn from ``generator`` (a ``torch.Generator`` on
     ``device``; seed 0 when omitted) straight into ``dtype`` (default
-    ``cfg.dtype``) on the device.  Not JAX's numbers: tests that compare
-    the two packages convert JAX params with ``models.convert``."""
-    dev = resolve_device(device)
+    ``cfg.dtype``; training passes ``torch.float32`` for master weights)
+    on the device.  ``device="meta"`` gives shapes only (no generator).
+    Not JAX's numbers: tests that compare the two packages convert JAX
+    params with ``models.convert``."""
+    meta = device is not None and torch.device(device).type == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     dt = dtype or cfg.dtype
-    if generator is None:
+    if generator is None and not meta:
         generator = torch.Generator(device=dev).manual_seed(0)
     d, hd = cfg.dim, cfg.head_dim
     nh, nkv, mlp, L = cfg.n_heads, cfg.n_kv_heads, cfg.mlp_dim, cfg.n_layers
@@ -345,3 +379,145 @@ def paged_prefill_chunk(
         x = x + torch.matmul(attn.reshape(b, c, nh * hd), lp["wo"])
         x = _mlp_residual(cfg, lp, x)
     return _logits(cfg, params, x), pool
+
+
+# ------------------------------------------------------------- training
+
+AttentionFn = Callable[..., torch.Tensor]
+
+# fused CE kicks in for real vocabularies; tiny test configs keep the
+# dense form, as in the JAX package
+_FUSED_CE_MIN_VOCAB = 8192
+
+
+def dot_product_attention(q, k, v, causal: bool = True):
+    """Dense reference attention ``[B,S,H,D] x [B,S,KV,D]`` (GQA by
+    ``H // KV``): fp32 logits, ``-1e30`` causal mask, fp32 softmax,
+    probabilities cast to ``v.dtype`` before ``p v``, output in
+    ``v.dtype``."""
+    b, s, nh, d = q.shape
+    nkv = k.shape[2]
+    qg = q.reshape(b, s, nkv, nh // nkv, d)
+    logits = torch.einsum("bqkgd,bskd->bkgqs", qg.float(), k.float())
+    logits = logits * (d ** -0.5)
+    if causal:
+        mask = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+        logits = logits.masked_fill(~mask, -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum(
+        "bkgqs,bskd->bqkgd", probs.to(v.dtype).float(), v.float()
+    ).to(v.dtype)
+    return out.reshape(b, s, nh, d)
+
+
+def _proj(a, w, dt):
+    """``a @ w`` with the fp32 master weight cast to ``dt``, fp32
+    accumulation, result in ``dt``."""
+    return torch.matmul(a, w.to(dt))
+
+
+def _layer_forward(cfg: LlamaConfig, attention_fn: AttentionFn, lp, x,
+                   cos, sin):
+    b, s, _ = x.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    dt = cfg.dtype
+    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+    q = apply_rope(_proj(h, lp["wq"], dt).reshape(b, s, nh, hd), cos, sin)
+    k = apply_rope(_proj(h, lp["wk"], dt).reshape(b, s, nkv, hd), cos, sin)
+    v = _proj(h, lp["wv"], dt).reshape(b, s, nkv, hd)
+    attn = attention_fn(q, k, v, causal=True)
+    x = x + _proj(attn.reshape(b, s, nh * hd), lp["wo"], dt)
+    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    gate = F.silu(_proj(h, lp["w_gate"], dt))
+    up = _proj(h, lp["w_up"], dt)
+    return x + _proj(gate * up, lp["w_down"], dt)
+
+
+def forward_hidden(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    attention_fn: Optional[AttentionFn] = None,
+) -> torch.Tensor:
+    """tokens ``[B, S]`` -> final-norm hidden states ``[B, S, D]`` in
+    ``cfg.dtype`` (the pre-lm-head activations, so the loss can fuse the
+    vocab projection).  ``cfg.remat == "full"`` recomputes each layer's
+    forward in the backward (non-reentrant ``checkpoint``), as
+    ``jax.checkpoint`` does."""
+    if cfg.remat not in ("none", "full"):
+        if cfg.remat == "dots":
+            raise NotImplementedError(
+                'remat="dots" (save the matmul outputs, recompute the '
+                "rest) is not ported yet: ROADMAP A2, left out"
+            )
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
+    if attention_fn is None:
+        attention_fn = flash_attention
+    dt = cfg.dtype
+    s = tokens.shape[1]
+    x = params["embed"].to(dt)[tokens.long()]
+    cos, sin = rope_frequencies(
+        cfg, torch.arange(s, device=tokens.device)
+    )
+    # one unbind per stacked leaf: its backward stacks the per-layer
+    # grads once, where a slice per layer would add a full-size zero
+    # tensor per layer
+    layers = {k: v.unbind(0) for k, v in params["layers"].items()}
+
+    def block(lp, x):
+        return _layer_forward(cfg, attention_fn, lp, x, cos, sin)
+
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in layers.items()}
+        if cfg.remat == "full":
+            x = checkpoint(block, lp, x, use_reentrant=False)
+        else:
+            x = block(lp, x)
+    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+
+
+def forward(
+    params: Params,
+    tokens: torch.Tensor,
+    cfg: LlamaConfig,
+    attention_fn: Optional[AttentionFn] = None,
+) -> torch.Tensor:
+    """tokens ``[B, S]`` -> logits ``[B, S, vocab]`` (fp32)."""
+    x = forward_hidden(params, tokens, cfg, attention_fn)
+    b, s, d = x.shape
+    logits = _mm_f32(x.reshape(b * s, d), params["lm_head"].to(cfg.dtype))
+    return logits.reshape(b, s, -1)
+
+
+def loss_fn(
+    params: Params,
+    batch: Dict,
+    cfg: LlamaConfig,
+    attention_fn: Optional[AttentionFn] = None,
+    fused_ce: Optional[bool] = None,
+) -> torch.Tensor:
+    """Next-token cross entropy (fp32 scalar); ``batch`` is
+    ``{"tokens": [B, S+1]}`` or ``{"inputs", "targets"}``, with an
+    optional ``"mask"``.  ``fused_ce`` (default: on when vocab >= 8192)
+    routes the lm-head through ``ops.fused.fused_linear_cross_entropy``
+    so fp32 logits never exist at ``[B, S, V]``."""
+    if "inputs" in batch:
+        inputs, targets = batch["inputs"], batch["targets"]
+    else:
+        inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
+    mask = batch.get("mask")
+    if fused_ce is None:
+        fused_ce = cfg.vocab_size >= _FUSED_CE_MIN_VOCAB
+    if fused_ce:
+        hidden = forward_hidden(params, inputs, cfg, attention_fn)
+        return fused_linear_cross_entropy(
+            hidden, params["lm_head"], targets, mask,
+            chunk_rows=cfg.ce_chunk_rows,
+        )
+    logits = forward(params, inputs, cfg, attention_fn)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    if mask is not None:
+        mask = mask.to(nll.dtype)
+        return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
+    return nll.mean()

@@ -35,7 +35,7 @@ from typing import Dict, Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rms_norm", "paged_attention")
+SOURCES = ("rms_norm", "paged_attention", "flash_attention")
 BUILD_DIR_ENV = "DLROVER_TPU_TORCH_BUILD_DIR"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
@@ -48,6 +48,9 @@ launches: Dict[str, int] = {
     "rms_norm": 0,
     "paged_decode": 0,
     "paged_verify": 0,
+    "flash_fwd": 0,
+    "flash_bwd_dkv": 0,
+    "flash_bwd_dq": 0,
 }
 
 #: ``nvcc`` output of the last build of each source (``-Xptxas -v``

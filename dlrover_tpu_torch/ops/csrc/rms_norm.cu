@@ -2,7 +2,10 @@
 //
 // Replaces the TPU kernel dlrover_tpu/ops/fused.py:_rms_fwd_kernel
 // (launched by _rms_fwd_pallas): rstd = 1/sqrt(mean(x^2) + eps) in fp32,
-// y = (x * rstd * w) cast once to x's type, and rstd written beside y.
+// y = (x * rstd * w_f32) cast once to x's type, and rstd written beside y.
+// The weight has its own type (fp32 or bf16): training keeps fp32 master
+// weights beside bf16 activations, and the weight is read in its own
+// precision, never rounded to x's type.
 //
 // What bounds it on the card: bytes.  Each row of D values is read once
 // for the sum of squares and once more for the scale (the second read
@@ -55,9 +58,9 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T>
+template <typename T, typename W>
 __global__ void __launch_bounds__(kThreads)
-    rms_norm_fwd_kernel(const T* __restrict__ x, const T* __restrict__ w,
+    rms_norm_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
                         T* __restrict__ y, float* __restrict__ rstd, int d,
                         float eps) {
   __shared__ float warp_sums[kWarps];
@@ -92,26 +95,39 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T>
+template <typename T, typename W>
 int launch(const void* x, const void* w, void* y, void* rstd, int n, int d,
            float eps, cudaStream_t stream) {
-  rms_norm_fwd_kernel<T><<<n, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
+  rms_norm_fwd_kernel<T, W><<<n, kThreads, 0, stream>>>(
+      static_cast<const T*>(x), static_cast<const W*>(w), static_cast<T*>(y),
       static_cast<float*>(rstd), d, eps);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_w(const void* x, const void* w, void* y, void* rstd, int n, int d,
+             float eps, int w_dtype, cudaStream_t stream) {
+  if (w_dtype == 0) return launch<T, float>(x, w, y, rstd, n, d, eps, stream);
+  if (w_dtype == 1) {
+    return launch<T, __nv_bfloat16>(x, w, y, rstd, n, d, eps, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (x, w and y share it; rstd is fp32).
+// dtype (x and y) and w_dtype (the weight): 0 = float32, 1 = bfloat16;
+// rstd is fp32.
 int dl_rms_norm_fwd(const void* x, const void* w, void* y, void* rstd, int n,
-                    int d, float eps, int dtype, void* stream) {
+                    int d, float eps, int dtype, int w_dtype, void* stream) {
   if (n < 1 || d < 1) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float>(x, w, y, rstd, n, d, eps, s);
-  if (dtype == 1) return launch<__nv_bfloat16>(x, w, y, rstd, n, d, eps, s);
+  if (dtype == 0) return launch_w<float>(x, w, y, rstd, n, d, eps, w_dtype, s);
+  if (dtype == 1) {
+    return launch_w<__nv_bfloat16>(x, w, y, rstd, n, d, eps, w_dtype, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -1,15 +1,25 @@
-"""RMSNorm forward: the CUDA kernel ``ops/csrc/rms_norm.cu`` and its
-plain PyTorch version.
+"""RMSNorm (the CUDA kernel ``ops/csrc/rms_norm.cu`` and its plain
+PyTorch version, with a backward) and the fused linear cross entropy.
 
-Port of ``dlrover_tpu/ops/fused.py:48-118`` (``_rms_fwd_kernel``,
-``_rms_plain``, ``rms_norm``).  Forward only: serving needs no
-backward.  Both versions take the statistics in fp32, multiply by the
-weight in fp32 and cast once to ``x.dtype``, and both return ``rstd``
-(``[..., 1]`` fp32) beside ``y``.
+Port of ``dlrover_tpu/ops/fused.py``:
+
+- ``rms_norm`` (``:48-138``: ``_rms_fwd_kernel``, ``_rms_plain``, the
+  ``custom_vjp`` with ``_rms_bwd``).  Both forward versions take the
+  statistics in fp32, multiply by the weight in fp32 (whatever its
+  dtype: training keeps fp32 master weights beside bf16 activations)
+  and cast once to ``x.dtype``; both return ``rstd`` (``[..., 1]`` fp32)
+  beside ``y``.  The backward reuses the saved ``rstd``; it is torch ops,
+  as ``_rms_bwd`` is jnp in the reference.
+- ``fused_linear_cross_entropy`` (``:156-227``): mean next-token cross
+  entropy of ``hidden @ w_vocab`` computed chunk by chunk, never holding
+  more than one fp32 ``[chunk_rows, V]`` logits block, in the forward or
+  the backward (which recomputes each chunk's logits and accumulates
+  ``dW`` in fp32).  The reference is an XLA scan, not Pallas: the chunks'
+  products go to ``torch.mm``.
 """
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,9 +37,9 @@ def rms_norm_plain(
     return (xf * rstd * weight.float()).to(x.dtype), rstd
 
 
-#: ``dl_rms_norm_fwd(x, w, y, rstd, n, d, eps, dtype, stream)``
+#: ``dl_rms_norm_fwd(x, w, y, rstd, n, d, eps, dtype, w_dtype, stream)``
 ARGTYPES = [ctypes.c_void_p] * 4 + [
-    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p,
 ]
 
@@ -37,9 +47,9 @@ ARGTYPES = [ctypes.c_void_p] * 4 + [
 def _rms_norm_cuda(x, weight, eps):
     if x.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"rms_norm kernel takes fp32/bf16, got {x.dtype}")
-    if weight.dtype != x.dtype:
+    if weight.dtype not in _build.DTYPE_CODES:
         raise TypeError(
-            f"rms_norm kernel needs weight in {x.dtype}, got {weight.dtype}"
+            f"rms_norm kernel takes an fp32/bf16 weight, got {weight.dtype}"
         )
     d = x.shape[-1]
     if weight.shape != (d,):
@@ -58,7 +68,8 @@ def _rms_norm_cuda(x, weight, eps):
     fn.argtypes = ARGTYPES
     code = fn(
         _build.ptr(x), _build.ptr(weight), _build.ptr(y), _build.ptr(rstd),
-        n, d, float(eps), _build.DTYPE_CODES[x.dtype], _build.stream_of(x),
+        n, d, float(eps), _build.DTYPE_CODES[x.dtype],
+        _build.DTYPE_CODES[weight.dtype], _build.stream_of(x),
     )
     _build.check(code, lib, "rms_norm")
     _build.launches["rms_norm"] += 1
@@ -75,9 +86,121 @@ def rms_norm_fwd(
     return _rms_norm_cuda(x, weight, eps)
 
 
+def rms_norm_bwd(x, weight, rstd, g):
+    """``_rms_bwd``: fp32 ``dx`` and ``dw`` from the saved ``rstd``,
+    ``dw`` summed over every leading row; each cast to its input's
+    dtype."""
+    d = x.shape[-1]
+    xhat = x.float() * rstd
+    gf = g.float()
+    dxhat = gf * weight.float()
+    dot = torch.sum(dxhat * xhat, dim=-1, keepdim=True) / d
+    dx = (rstd * (dxhat - xhat * dot)).to(x.dtype)
+    dw = torch.sum((gf * xhat).reshape(-1, d), dim=0).to(weight.dtype)
+    return dx, dw
+
+
+class _RMSNorm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, weight, eps):
+        y, rstd = rms_norm_fwd(x, weight, eps)
+        ctx.save_for_backward(x, weight, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, rstd = ctx.saved_tensors
+        dx, dw = rms_norm_bwd(x, weight, rstd, g)
+        return dx, dw, None
+
+
 def rms_norm(
     x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-5
 ) -> torch.Tensor:
     """``x * rsqrt(mean(x^2) + eps) * weight`` over the last dim, in
-    ``x.dtype`` (any leading shape)."""
+    ``x.dtype`` (any leading shape).  Differentiable in ``x`` and
+    ``weight``; without a gradient to record it is the bare forward."""
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad):
+        return _RMSNorm.apply(x.contiguous(), weight, eps)
     return rms_norm_fwd(x, weight, eps)[0]
+
+
+# ---------------------------------------- fused linear cross entropy
+
+
+def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` with fp32 accumulation and an fp32 result (JAX's
+    ``preferred_element_type=float32``): cuBLAS writes fp32 straight
+    from bf16 operands; the CPU, which has no such mm, casts first."""
+    if a.is_cuda and a.dtype != torch.float32:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+class _FusedLinearCE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, h, w, t, m, chunk):
+        # h [N, D] in the compute dtype, w [D, V] (any float dtype),
+        # t [N] int64, m [N] fp32 row weights
+        w_dt = w.to(h.dtype)
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(0, h.shape[0], chunk):
+            logits = _mm_f32(h[i:i + chunk], w_dt)
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = logits.gather(1, t[i:i + chunk, None])[:, 0]
+            total = total + torch.sum((lse - picked) * m[i:i + chunk])
+            del logits
+        count = torch.clamp(m.sum(), min=1.0)
+        ctx.save_for_backward(h, w, t, m, count)
+        ctx.chunk = chunk
+        return total / count
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, t, m, count = ctx.saved_tensors
+        w_dt = w.to(h.dtype)
+        scale = (g.float() / count) * m  # d loss / d nll per row
+        dh = torch.empty_like(h) if ctx.needs_input_grad[0] else None
+        dw = torch.zeros(w.shape, dtype=torch.float32, device=w.device)
+        for i in range(0, h.shape[0], ctx.chunk):
+            h_c = h[i:i + ctx.chunk]
+            logits = _mm_f32(h_c, w_dt)
+            dlogits = torch.softmax(logits, dim=-1)
+            del logits
+            rows = torch.arange(h_c.shape[0], device=h.device)
+            dlogits[rows, t[i:i + ctx.chunk]] -= 1.0
+            dlogits *= scale[i:i + ctx.chunk, None]
+            d_dt = dlogits.to(h.dtype)
+            del dlogits
+            if dh is not None:
+                dh[i:i + ctx.chunk] = _mm_f32(d_dt, w_dt.t()).to(h.dtype)
+            dw += _mm_f32(h_c.t(), d_dt)
+        return dh, dw.to(w.dtype), None, None, None
+
+
+def fused_linear_cross_entropy(
+    hidden: torch.Tensor,
+    w_vocab: torch.Tensor,
+    targets: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    chunk_rows: int = 512,
+) -> torch.Tensor:
+    """Mean next-token cross entropy of ``hidden @ w_vocab`` against
+    ``targets`` without materializing the full logits tensor.
+
+    ``hidden [..., D]`` (bf16/fp32), ``w_vocab [D, V]`` (cast to
+    ``hidden.dtype`` for the products, fp32 logits), ``targets [...]``
+    int, ``mask`` optional ``[...]`` row weights.  Rows go in chunks of
+    ``chunk_rows``; the last chunk is short where the reference pads it
+    with zero-weight rows, which is the same sum.  Returns
+    ``sum(nll * mask) / max(sum(mask), 1)`` as an fp32 scalar."""
+    d = hidden.shape[-1]
+    h = hidden.reshape(-1, d)
+    t = targets.reshape(-1).long()
+    n = h.shape[0]
+    if mask is None:
+        m = torch.ones(n, dtype=torch.float32, device=h.device)
+    else:
+        m = mask.reshape(-1).to(torch.float32)
+    chunk = max(1, min(chunk_rows, n))
+    return _FusedLinearCE.apply(h, w_vocab, t, m, chunk)

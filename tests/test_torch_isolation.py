@@ -48,7 +48,11 @@ def _foreign(name: str) -> bool:
 
 def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
-    assert "dlrover_tpu_torch.rl.scheduler" in mods and len(mods) >= 15
+    assert "dlrover_tpu_torch.rl.scheduler" in mods and len(mods) >= 26
+    for m in ("ops.flash_attention", "optimizers.agd",
+              "parallel.train_step", "accelerate.api", "trainer.trainer",
+              "examples.llama_pretrain"):
+        assert f"dlrover_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -77,7 +81,7 @@ def _imports(path: Path):
 
 def test_source_scan_finds_no_foreign_import():
     files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 16
+    assert len(files) >= 27
     bad = [(str(f.relative_to(REPO)), name)
            for f in files for name in _imports(f) if _foreign(name)]
     assert bad == []
@@ -169,18 +173,33 @@ def _c_signature(source: str, fn: str):
     return [_CTYPE[" ".join(p.split()[:-1])] for p in params]
 
 
-@pytest.mark.parametrize("source,fn,module", [
-    ("rms_norm", "dl_rms_norm_fwd", "dlrover_tpu_torch.ops.fused"),
+@pytest.mark.parametrize("source,fn,module,attr", [
+    ("rms_norm", "dl_rms_norm_fwd", "dlrover_tpu_torch.ops.fused",
+     "ARGTYPES"),
     ("paged_attention", "dl_paged_attention",
-     "dlrover_tpu_torch.ops.paged_kernels"),
+     "dlrover_tpu_torch.ops.paged_kernels", "ARGTYPES"),
+    ("flash_attention", "dl_flash_fwd",
+     "dlrover_tpu_torch.ops.flash_attention", "FWD_ARGTYPES"),
+    ("flash_attention", "dl_flash_bwd_dkv",
+     "dlrover_tpu_torch.ops.flash_attention", "DKV_ARGTYPES"),
+    ("flash_attention", "dl_flash_bwd_dq",
+     "dlrover_tpu_torch.ops.flash_attention", "DQ_ARGTYPES"),
 ])
-def test_ctypes_argtypes_match_the_c_entry(source, fn, module):
+def test_ctypes_argtypes_match_the_c_entry(source, fn, module, attr):
     """The wrapper's ctypes signature is the C entry's, argument by
     argument (a pointer passed as a 32-bit int would be cut)."""
     import importlib
 
-    argtypes = importlib.import_module(module).ARGTYPES
+    argtypes = getattr(importlib.import_module(module), attr)
     assert [t.__name__ for t in argtypes] == _c_signature(source, fn)
+
+
+def test_every_source_is_built_and_every_kernel_counted():
+    assert set(_build.SOURCES) == {
+        p.stem for p in (PKG / "ops" / "csrc").glob("*.cu")}
+    assert set(_build.launches) == {
+        "rms_norm", "paged_decode", "paged_verify", "flash_fwd",
+        "flash_bwd_dkv", "flash_bwd_dq"}
 
 
 def test_env_knobs_mirror_the_jax_package(monkeypatch):
