@@ -8,7 +8,7 @@ card::
     python3 chip_smoke.py --kernels-only
     python3 chip_smoke.py --layers 4 # main path at reduced depth
     python3 chip_smoke.py --profile  # + torch.profiler decode/train steps
-    python3 chip_smoke.py --skip-serve --train-layers 2  # quick training
+    python3 chip_smoke.py --skip-serve --train-layers 2 --int8-layers 4
 
 Phases (any failed check raises, so the script exits nonzero):
 
@@ -26,11 +26,16 @@ Phases (any failed check raises, so the script exits nonzero):
    null block and the guard blocks, verify window C=4; flash forward,
    dK/dV and dQ over S 1-2048, D 64/128, groups 1/4/8, causal or not,
    NaN past every input, each check also shown to reject a kernel that
-   drops one tile); then a small fp32 Llama served on the card and on
-   the CPU from the same params, whose greedy tails and K=3 acceptance
-   counts must agree (K=1 and K=3, with preemption), and one trained
-   for 3 AGD steps on both, whose losses, grad norms and params must
-   agree.
+   drops one tile); blockwise int8 quantize, dequantize and the fused
+   Adam update over ragged sizes, an all-zero block, a one-spike block
+   and the half-way block, bit for bit, each check also shown to reject
+   a plain version with one block left stale, and ``QuantizedMoments``
+   on the card against its steps written with the plain version; then
+   a small fp32 Llama served on the card and on the CPU from the same
+   params, whose greedy tails and K=3 acceptance counts must agree (K=1
+   and K=3, with preemption), and one trained for 3 steps on both, with
+   AGD and with ``QuantizedMoments``, whose losses, grad norms and
+   params must agree.
 4. serving main path: Llama-2-7B at full width and depth (bf16, random weights
    from a seeded generator on the card) served by the continuous-batching
    scheduler over the paged pool: 16 requests with 128-1024-token prompts
@@ -43,11 +48,18 @@ Phases (any failed check raises, so the script exits nonzero):
    kernel is held against its plain version on them and timed there.
 5. training main path: Llama-2-7B width at ``--train-layers`` layers
    (default 8), fp32 masters, bf16 compute, through ``auto_accelerate``
-   -> ``Trainer.train`` for ``--train-steps`` steps of 4 x 2048 tokens.
-   Step 0's attention grads are held against dense attention, the loss
-   must fall, launches per step must be as stated; step times are on
-   the card's clock.  Layer 0's RMSNorm and flash inputs are captured,
-   checked and timed against their plain versions and SDPA.
+   -> ``Trainer.train`` with AGD for ``--train-steps`` steps of 4 x 2048
+   tokens.  Step 0's attention grads are held against dense attention,
+   the loss must fall, launches per step must be as stated; step and
+   optimizer times are on the card's clock.  Layer 0's RMSNorm and
+   flash inputs are captured, checked and timed against their plain
+   versions and SDPA.
+5b. int8 leg: Llama-2-7B at ``--int8-layers`` layers (default 32, full
+   depth) trained the same way with ``QuantizedMoments(lr=3e-4,
+   weight_decay=0.1)``: launches per step (B9 once per leaf) and at init
+   (B7 twice per leaf), the loss falling, peak memory; the trained
+   moments dequantized (B8) and their norms printed; the last step's
+   largest leaf captured, B7-B9 checked and timed on it.
 6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -56,6 +68,7 @@ when the package is not beside it.
 """
 
 import argparse
+import gc
 import json
 import os
 import statistics
@@ -63,8 +76,14 @@ import subprocess
 import sys
 import time
 
-import numpy as np
-import torch
+# the int8 leg holds ~63 GiB of state and needs 5.4 GiB in one piece in
+# its backward: without expandable segments the caching allocator's
+# cached blocks fragment (11.5 GiB reserved but unusable at the OOM of a
+# full-depth run), as PyTorch's out-of-memory message itself suggests
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -861,6 +880,11 @@ def main_path(args):
 # over 3 AGD steps: sums in another order; AGD's sign-like step moves a
 # parameter by up to lr * (relative gradient difference) / delta.
 TRAIN_TOL = {"loss": 1e-5, "grad_norm": 1e-5, "params": 2e-5}
+# the same over 3 QuantizedMoments steps: a payload may land one count
+# apart (on at most 1 in 10^3 elements) where the grads differ in their
+# last bits, so params are held by each leaf's whole update (L2 of the
+# difference over L2 of the CPU's update)
+INT8_TRAIN_TOL = {"payload_frac": 1e-3, "update_rel": 1e-2}
 # bf16 step 0 at full width, flash kernels against the dense plain
 # attention on the card.  Loss and grad norm are dominated by the lm
 # head and the embedding, so they only show that the step is sound as a
@@ -879,16 +903,15 @@ def _clone_to(tree, device):
     return tree.detach().clone().to(device)
 
 
-def _train_run(cfg, params, batches, device, lr=1e-3):
+def _train_run(cfg, params, batches, device, make_opt):
     """``auto_accelerate`` + ``train_step`` from a copy of ``params`` on
-    ``device``: per-step metrics and the final params."""
+    ``device``: per-step metrics, the final params and the optimizer."""
     from dlrover_tpu_torch.accelerate import auto_accelerate
     from dlrover_tpu_torch.models.llama import loss_fn
-    from dlrover_tpu_torch.optimizers import AGD
 
     result = auto_accelerate(
         loss_fn=lambda p, b: loss_fn(p, b, cfg),
-        optimizer=lambda ps: AGD(ps, lr=lr),
+        optimizer=make_opt,
         init_params_fn=lambda gen, dev: _clone_to(params, dev),
         device=device,
     )
@@ -898,16 +921,18 @@ def _train_run(cfg, params, batches, device, lr=1e-3):
         state, m = result.fns.train_step(
             state, {"tokens": torch.from_numpy(b).to(device)})
         metrics.append((float(m["loss"]), float(m["grad_norm"])))
-    return metrics, _clone_to(state["params"], "cpu")
+    return metrics, _clone_to(state["params"], "cpu"), state["opt_state"]
 
 
 def train_parity():
-    """A small fp32 Llama trained for 3 AGD steps on the card (flash,
-    RMSNorm kernels) and on the CPU (plain versions) from the same
-    params and batches: losses, grad norms and final params agree.
+    """A small fp32 Llama trained for 3 steps on the card (flash,
+    RMSNorm and, for the int8 optimizer, B7/B9 kernels) and on the CPU
+    (plain versions) from the same params and batches, with AGD and with
+    ``QuantizedMoments``: losses, grad norms and final params agree.
     head_dim 64 and GQA group 2, so the card runs the kernels."""
     from dlrover_tpu_torch.models.llama import LlamaConfig, init_params
     from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.optimizers import AGD, QuantizedMoments
 
     cfg = LlamaConfig.tiny(dim=128, n_heads=2, n_kv_heads=1,
                            dtype=torch.float32)
@@ -916,26 +941,60 @@ def train_parity():
     rng = np.random.default_rng(SEED)
     batches = [rng.integers(0, cfg.vocab_size, (2, 65)).astype(np.int64)
                for _ in range(3)]
-    cpu_metrics, cpu_params = _train_run(cfg, params, batches, "cpu")
-    torch.cuda.synchronize()
-    _build.reset_launches()
-    card_metrics, card_params = _train_run(cfg, params, batches, "cuda")
-    counts = {k: _build.launches[k] for k in TRAIN_KERNELS}
-    d_loss = max(abs(a[0] - b[0]) for a, b in zip(cpu_metrics, card_metrics))
-    d_norm = max(abs(a[1] - b[1]) / a[1]
-                 for a, b in zip(cpu_metrics, card_metrics))
-    d_params = max(max_err(a, b) for a, b in zip(
-        _leaves(cpu_params), _leaves(card_params)))
-    ok = (d_loss <= TRAIN_TOL["loss"] and d_norm <= TRAIN_TOL["grad_norm"]
-          and d_params <= TRAIN_TOL["params"]
-          and all(v > 0 for v in counts.values()))
-    log(f"[parity] tiny fp32 training, 3 AGD steps: cpu losses "
-        f"{[round(m[0], 6) for m in cpu_metrics]} card "
-        f"{[round(m[0], 6) for m in card_metrics]}; max |d loss|="
-        f"{d_loss:.3g} max rel d grad_norm={d_norm:.3g} max |d param|="
-        f"{d_params:.3g} (tol {TRAIN_TOL}); card launches {counts} "
-        f"{'ok' if ok else 'FAIL'}")
-    require(ok, "tiny fp32 training: card and CPU disagree")
+    for label, make_opt, kernels in (
+        ("AGD", lambda ps: AGD(ps, lr=1e-3), TRAIN_KERNELS),
+        # the int8 leg's optimizer
+        ("QuantizedMoments", lambda ps: QuantizedMoments(
+            ps, lr=3e-4, weight_decay=0.1),
+         TRAIN_KERNELS + ("quantize", "int8_adam")),
+    ):
+        cpu_metrics, cpu_params, cpu_opt = _train_run(
+            cfg, params, batches, "cpu", make_opt)
+        torch.cuda.synchronize()
+        _build.reset_launches()
+        card_metrics, card_params, card_opt = _train_run(
+            cfg, params, batches, "cuda", make_opt)
+        counts = {k: _build.launches[k] for k in kernels}
+        d_loss = max(abs(a[0] - b[0])
+                     for a, b in zip(cpu_metrics, card_metrics))
+        d_norm = max(abs(a[1] - b[1]) / a[1]
+                     for a, b in zip(cpu_metrics, card_metrics))
+        d_params = max(max_err(a, b) for a, b in zip(
+            _leaves(cpu_params), _leaves(card_params)))
+        extra = ""
+        params_ok = d_params <= TRAIN_TOL["params"]
+        if label == "QuantizedMoments":
+            # grads differ in their last bits (cuBLAS and flash against
+            # the CPU's sums), which can move a payload by one count and
+            # then that element's update by a good part of lr: the params
+            # are held by their whole update, per leaf
+            pairs = [(cpu_opt.state[a][k], card_opt.state[b][k].cpu())
+                     for a, b in zip(cpu_opt.param_groups[0]["params"],
+                                     card_opt.param_groups[0]["params"])
+                     for k in ("mu_q", "nu_q")]
+            off = sum(differing(a, b) for a, b in pairs)
+            total = sum(a.numel() for a, _ in pairs)
+            worst = max(int((a.int() - b.int()).abs().max()) for a, b in pairs)
+            rel = max(float(torch.linalg.vector_norm(b - a) /
+                            torch.linalg.vector_norm(a - p0))
+                      for a, b, p0 in zip(_leaves(cpu_params),
+                                          _leaves(card_params),
+                                          _leaves(params)))
+            params_ok = (rel <= INT8_TRAIN_TOL["update_rel"] and worst <= 1
+                         and off <= INT8_TRAIN_TOL["payload_frac"] * total)
+            extra = (f" int8 payloads: {off} of {total} differ, by at most "
+                     f"{worst} count; worst leaf |d update| / |update| "
+                     f"{rel:.3g} (tol {INT8_TRAIN_TOL});")
+        ok = (d_loss <= TRAIN_TOL["loss"]
+              and d_norm <= TRAIN_TOL["grad_norm"] and params_ok
+              and all(v > 0 for v in counts.values()))
+        log(f"[parity] tiny fp32 training, 3 {label} steps: cpu losses "
+            f"{[round(m[0], 6) for m in cpu_metrics]} card "
+            f"{[round(m[0], 6) for m in card_metrics]}; max |d loss|="
+            f"{d_loss:.3g} max rel d grad_norm={d_norm:.3g} max |d param|="
+            f"{d_params:.3g} (tol {TRAIN_TOL});{extra} card launches "
+            f"{counts} {'ok' if ok else 'FAIL'}")
+        require(ok, f"tiny fp32 {label} training: card and CPU disagree")
 
 
 def _leaves(tree):
@@ -1082,9 +1141,10 @@ def train_path(args):
     log(f"[train] launch queue: the host waits after "
         f"{launch_queue_depth()} launches queued ahead of a busy card")
 
+    opt_events = []
     result = auto_accelerate(
         loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
-        optimizer=lambda ps: AGD(ps, lr=3e-4),
+        optimizer=timed_optimizer(lambda ps: AGD(ps, lr=3e-4), opt_events),
         init_params_fn=init_fn,
         device="cuda",
     )
@@ -1141,12 +1201,9 @@ def train_path(args):
     window_s = sum(r["step_time_s"] for r in hist[1:])
     step_s = window_s / (steps - 1)
     tokens_per_step = batch * seq
-    n_matmul = prof.num_params - cfg.vocab_size * cfg.dim - cfg.dim * (
-        2 * L + 1)  # all but the embedding table and the norms
-    attn_flops = 6 * 2 * cfg.head_dim * flash_pairs(
-        batch, cfg.n_heads, seq) * L
-    model_flops = 6 * n_matmul * tokens_per_step + attn_flops
-    mfu = model_flops / step_s / PEAK_OPS[torch.bfloat16]
+    flops = model_flops(cfg, prof, batch, seq)
+    mfu = flops / step_s / PEAK_OPS[torch.bfloat16]
+    opt_ms = [s.elapsed_time(e) for s, e in opt_events]
     per_step = {k: v / steps for k, v in counts.items()}
     expect = {"rms_norm": 4 * L + 1, "flash_fwd": 2 * L,
               "flash_bwd_dkv": L, "flash_bwd_dq": L}
@@ -1155,8 +1212,9 @@ def train_path(args):
         f"{1e3 * sum(r['step_time_s'] for r in hist):.3f} "
         f"step_ms_window(2-{steps})={1e3 * step_s:.3f} tokens_per_s="
         f"{tokens_per_step / step_s:.1f} model_tflop_per_step="
-        f"{model_flops / 1e12:.3f} mfu={mfu:.4f} (of 989 TFLOP/s bf16) "
-        f"max_memory_allocated_GiB={peak / 2**30:.2f} "
+        f"{flops / 1e12:.3f} mfu={mfu:.4f} (of 989 TFLOP/s bf16) "
+        f"max_memory_allocated_GiB={peak / 2**30:.2f} AGD optimizer_ms "
+        f"(card clock) {[round(o, 3) for o in opt_ms]} "
         f"launches_per_step={per_step} expected={expect}")
     d_loss = abs(hist[0]["loss"] - loss0)
     d_norm = abs(hist[0]["grad_norm"] - norm0) / norm0
@@ -1177,7 +1235,9 @@ def train_path(args):
             return 1
 
         profile_step(one_step, f"one training step, {L} layers")
+    # the timed optimizer's step refers back to it: collect the cycle
     del trainer, result, fns
+    gc.collect()
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
@@ -1279,6 +1339,496 @@ def train_path(args):
     return rows
 
 
+# ---------------------------------------------------------- int8 Adam
+
+
+B1, B2, EPS = 0.9, 0.999, 1e-8
+INT8_SIZES = (0, 1, 300, 1024, 8 * 1024, 9 * 1024 + 17, 131072)
+# fp32 operations per element, for the operation bound: quantize (abs,
+# max, divide, round, clamp), dequantize (multiply), the Adam update (2
+# dequantizing multiplies, 9 for the moments, 5 for the update, 2 square
+# roots, 2 abs-max and 2 x 3 to requantize)
+INT8_OPS = {"quantize": 5, "dequantize": 1, "int8_adam": 28}
+
+
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units of the last place between two fp32
+    tensors of one sign pattern (their bit patterns as integers)."""
+    if a.numel() == 0:
+        return 0
+    d = a.contiguous().view(torch.int32).long() - b.contiguous().view(
+        torch.int32).long()
+    return int(d.abs().max())
+
+
+def int8_input(n, gen):
+    """``n`` fp32 values; where three blocks fit, block 0 is all zero
+    (scale at the 1e-12 floor), block 1 holds one value 1e4 times the
+    rest (the case for storing sqrt(nu)), block 2 is the half-way block
+    (absmax 127, so scale 1.0, and values at .5 that round half to
+    even)."""
+    x = torch.randn(n, device="cuda", generator=gen)
+    if n >= 3 * 1024:
+        x[:1024] = 0.0
+        x[1024:2048] *= 1e-4
+        x[1024 + 7] = 1.0
+        half = torch.tensor([127.0, 0.5, 2.5, 126.5, -0.5, -2.5, -126.5, 1.5],
+                            device="cuda")
+        x[2048:3072] = torch.clamp(50.0 * x[2048:3072], -126.0, 126.0)
+        x[2048:2056] = half
+    return x
+
+
+def stale_block(new, old, blk):
+    """The planted fault: ``new`` (a ``[n_blocks, ...]`` output of the
+    plain version) with block ``blk`` left at its value in ``old``, as
+    when a kernel skips one block."""
+    bad = new.clone()
+    bad[blk] = old[blk]
+    return bad
+
+
+def differing(a, b) -> int:
+    return int((a != b).sum())
+
+
+def int8_case(q, n, step, gen):
+    """B7, B8 and B9 against their plain versions on one input of ``n``
+    elements.  Each must agree (payloads, scales and dequantized values
+    bit for bit, B9's update within 1 ulp) and must not agree with the
+    plain version whose last block was left at its old value.  Returns
+    {kernel: (reading, stale-block reading)}: differing elements, or
+    ulps for the update."""
+    x = int8_input(n, gen)
+    x_old = 0.5 * int8_input(n, gen)
+    nb = q.padded_blocks(n)
+    kw = dict(lr=1e-3, b1=B1, b2=B2, eps=EPS)
+    res = {}
+    # B7
+    qk, sk, meta = q.quantize_blockwise(x)
+    torch.cuda.synchronize()
+    if n == 0:
+        require(qk.shape == (0, 128) and sk.shape == (0, 1)
+                and meta == ((0,), 0), "quantize of n == 0")
+        empty = q.dequantize_blockwise(qk, sk, meta)
+        upd = q.fused_int8_adam_update(x, qk, sk, qk, sk, meta, 0.1, 0.1,
+                                       **kw)
+        require(empty.shape == (0,) and upd[0].shape == (0,),
+                "n == 0 outputs")
+        return {"quantize": (0, None), "dequantize": (0, None),
+                "int8_adam": (0, None), "int8_adam_update_ulps": (0, None)}
+    blk = (n - 1) // q.BLOCK  # the last block that holds data
+    qp, sp = q.quantize_plain(q._pad_blocks(x, nb))
+    qo, so = q.quantize_plain(q._pad_blocks(x_old, nb))
+    qk2 = qk.view(nb, q.BLOCK)
+    sound = differing(qk2, qp) + differing(sk, sp)
+    fault = differing(qk2, stale_block(qp, qo, blk)) + differing(
+        sk, stale_block(sp, so, blk))
+    res["quantize"] = (sound, fault)
+    # B8 on the plain payload
+    xk = q.dequantize_blockwise(qp.view(-1, 128), sp, meta)
+    torch.cuda.synchronize()
+    xp = q.dequantize_plain(qp, sp).view(-1)[:n]
+    xo = q.dequantize_plain(qo, so).view(-1)
+    bad = xp.clone()
+    lo = blk * q.BLOCK
+    bad[lo:] = xo[lo:n]
+    res["dequantize"] = (differing(xk, xp), differing(xk, bad))
+    # B9: g = x, moments from other values (non-zero state)
+    mu0 = 0.1 * torch.randn(n, device="cuda", generator=gen)
+    nu0 = 0.01 * torch.randn(n, device="cuda", generator=gen).abs()
+    mq, ms, _ = q.quantize_blockwise(mu0)
+    nq, ns, _ = q.quantize_blockwise(nu0.sqrt())
+    bc1, bc2 = q.bias_corrections(B1, B2, step)
+    out_k = q.fused_int8_adam_update(x, mq, ms, nq, ns, meta, bc1, bc2, **kw)
+    # the optimizer's form: update over the grad, moments in place
+    g2 = x.clone()
+    state = [t.clone() for t in (mq, ms, nq, ns)]
+    out_i = q.fused_int8_adam_update(g2, *state, meta, bc1, bc2, out=g2,
+                                     inplace=True, **kw)
+    torch.cuda.synchronize()
+    require(all(torch.equal(a, b) for a, b in zip(out_k, out_i)),
+            f"int8_adam n={n}: in place differs from out of place")
+    upd_p, *new_p = q.fused_adam_plain(
+        q._pad_blocks(x, nb), mq.view(nb, -1), ms, nq.view(nb, -1), ns, bc1,
+        bc2, **kw)
+    new_k = [out_k[1].view(nb, -1), out_k[2], out_k[3].view(nb, -1),
+             out_k[4]]
+    old = [mq.view(nb, -1), ms, nq.view(nb, -1), ns]
+    sound = sum(differing(a, b) for a, b in zip(new_k, new_p))
+    fault = sum(differing(a, stale_block(b, o, blk))
+                for a, b, o in zip(new_k, new_p, old))
+    u = ulps(out_k[0].view(-1), upd_p.view(-1)[:n])
+    res["int8_adam"] = (sound, fault)
+    res["int8_adam_update_ulps"] = (u, None)
+    return res
+
+
+def int8_optimizer_check(q, QuantizedMoments, wd, gen):
+    """``QuantizedMoments`` on the card (B9 kernels) against the same
+    three steps written with the plain version on the card, over leaves
+    of a stacked layer, a norm and a ragged size: int8 state bit for bit
+    after steps 1 and 3, params within 1 ulp."""
+    shapes = ((3, 1024, 1000), (32, 4096), (9 * 1024 + 17,))
+    lr = 1e-3
+    leaves = [torch.randn(s, device="cuda", generator=gen).requires_grad_()
+              for s in shapes]
+    plain = [p.detach().clone() for p in leaves]
+    grads = [[torch.randn(s, device="cuda", generator=gen) for s in shapes]
+             for _ in range(3)]
+    opt = QuantizedMoments(leaves, lr=lr, weight_decay=wd)
+    opt.init_state()
+    states = [[opt.state[p][k].clone() for k in ("mu_q", "mu_scales",
+                                                  "nu_q", "nu_scales")]
+              for p in leaves]
+    worst = {"state_differing": 0, "param_ulps": 0}
+    for step, gs in enumerate(grads, 1):
+        for p, g in zip(leaves, gs):
+            p.grad = g.clone()
+        opt.step()
+        bc1, bc2 = q.bias_corrections(B1, B2, step)
+        for p, g, st in zip(plain, gs, states):
+            n, nb = p.numel(), q.padded_blocks(p.numel())
+            upd, *new = q.fused_adam_plain(
+                q._pad_blocks(g.reshape(-1), nb), st[0].view(nb, -1), st[1],
+                st[2].view(nb, -1), st[3], bc1, bc2, lr=lr, b1=B1, b2=B2,
+                eps=EPS)
+            upd = upd.view(-1)[:n].view(p.shape)
+            if wd:
+                upd.sub_(p, alpha=lr * wd)
+            p.add_(upd)
+            st[:] = [new[0].view(-1, 128), new[1], new[2].view(-1, 128),
+                     new[3]]
+        torch.cuda.synchronize()
+        if step in (1, 3):
+            for p, pp, st in zip(leaves, plain, states):
+                got = [opt.state[p][k] for k in ("mu_q", "mu_scales", "nu_q",
+                                                 "nu_scales")]
+                worst["state_differing"] = max(
+                    worst["state_differing"],
+                    sum(differing(a, b) for a, b in zip(got, st)))
+                worst["param_ulps"] = max(worst["param_ulps"],
+                                          ulps(p.detach(), pp))
+    ok = worst["state_differing"] == 0 and worst["param_ulps"] <= 1
+    log(f"[check] QuantizedMoments weight_decay={wd}, 3 steps, card "
+        f"kernels against the plain version on the card: {worst} (need "
+        f"0 and <= 1) {'ok' if ok else 'FAIL'}")
+    require(ok, f"QuantizedMoments wd={wd}: kernel and plain steps differ")
+
+
+def int8_checks():
+    """B7-B9 against their plain versions on the card over
+    ``INT8_SIZES`` (the all-zero, one-spike and half-way blocks where
+    three blocks fit), B9 at steps 1 and 3, each check also shown to
+    reject the plain version with one block left stale; then the
+    optimizer around B9 with weight decay 0 and 0.1."""
+    from dlrover_tpu_torch.ops import quantization as q
+    from dlrover_tpu_torch.optimizers import QuantizedMoments
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for n in INT8_SIZES:
+        for step in (1, 3):
+            res = int8_case(q, n, step, gen)
+            ok = all(s == 0 for k, (s, _) in res.items()
+                     if k != "int8_adam_update_ulps")
+            ok = ok and res["int8_adam_update_ulps"][0] <= 1
+            ok = ok and (n == 0 or all(
+                f > 0 for k, (_, f) in res.items() if f is not None))
+            log(f"[check] int8 n={n} step={step} (differing elements, "
+                f"update in ulps; kernel against plain | against plain with "
+                f"a stale block): "
+                + " ".join(f"{k}={s}|{'-' if f is None else f}"
+                           for k, (s, f) in res.items())
+                + f" {'ok' if ok else 'FAIL'}")
+            require(ok, f"int8 kernels n={n} step={step}")
+    for wd in (0.0, 0.1):
+        int8_optimizer_check(q, QuantizedMoments, wd, gen)
+
+
+def timed_optimizer(make, events, before_step=None):
+    """``make``'s optimizer with its ``step`` bracketed by CUDA events
+    (appended to ``events``), so the optimizer's share of each step is
+    read on the card's clock; ``before_step(opt)`` runs first when
+    given."""
+
+    def build(ps):
+        opt = make(ps)
+        inner = opt.step
+
+        def step(*a, **kw):
+            if before_step is not None:
+                before_step(opt)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = inner(*a, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+
+        opt.step = step
+        return opt
+
+    return build
+
+
+def model_flops(cfg, prof, batch, seq):
+    """6 N tokens (N: parameters in matmuls, all but the embedding table
+    and the norms) plus 6 x 2 x D per visible causal (query, key) pair
+    and layer; remat not counted."""
+    L = cfg.n_layers
+    n_matmul = prof.num_params - cfg.vocab_size * cfg.dim - cfg.dim * (
+        2 * L + 1)
+    attn = 6 * 2 * cfg.head_dim * flash_pairs(batch, cfg.n_heads, seq) * L
+    return 6 * n_matmul * batch * seq + attn
+
+
+def int8_bound_ms(kind, n):
+    """Bytes each input once and each output once over the card's
+    memory rate, or ``INT8_OPS`` fp32 operations per element."""
+    nb = -(-n // 1024)  # blocks that hold data
+    padded = 1024 * nb
+    nbytes = {
+        "quantize": 4 * n + padded + 4 * nb,
+        "dequantize": padded + 4 * nb + 4 * n,
+        "int8_adam": 4 * n + 2 * padded + 8 * nb + 4 * n + 2 * padded
+        + 8 * nb,
+    }[kind]
+    return bound(nbytes, INT8_OPS[kind] * n, torch.float32)
+
+
+INT8_KERNELS = ("quantize", "dequantize", "int8_adam")
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k, v in tree.items()
+                for x in _named_leaves(v, f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def int8_path(args):
+    """Llama-2-7B (dim 4096, 32 heads, MHA, mlp 11008, vocab 32000) at
+    ``--int8-layers`` layers (default: full depth) through
+    ``auto_accelerate`` -> ``Trainer.train`` with
+    ``QuantizedMoments(lr=3e-4, weight_decay=0.1)``: fp32 masters, bf16
+    compute, remat "full", fused CE in 512-row chunks, one fixed 4 x 2048
+    batch, ``--train-steps`` steps.  The largest leaf's grad and moments
+    of the last step are captured; B7-B9 are held against their plain
+    versions and timed on them.  Returns their kernel rows."""
+    from dlrover_tpu_torch.accelerate import auto_accelerate
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import quantization as q
+    from dlrover_tpu_torch.optimizers import (
+        QuantizedMoments,
+        dequantize_qtensor,
+    )
+    from dlrover_tpu_torch.parallel.train_step import param_leaves
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    log(f"[int8] at the leg's start memory_allocated_GiB="
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} memory_reserved_GiB="
+        f"{torch.cuda.memory_reserved() / 2**30:.3f}")
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=args.int8_layers)
+    L, steps = cfg.n_layers, args.train_steps
+    batch, seq = 4, 2048
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        args.bf16_reduced_default)
+    events, captured = [], {}
+
+    def capture(opt):
+        # the last step's largest leaf: its grad and its moments before
+        # the update (copies on the card, ~8 GiB at full depth)
+        if len(events) != steps - 1:
+            return
+        p = max((p for g in opt.param_groups for p in g["params"]),
+                key=lambda t: t.numel())
+        st = opt.state[p]
+        captured.update(
+            shape=tuple(p.shape), grad=p.grad.detach().clone(),
+            state=[st[k].clone() for k in ("mu_q", "mu_scales", "nu_q",
+                                            "nu_scales")],
+            step=opt.param_groups[0]["step"] + 1)
+
+    make = timed_optimizer(
+        lambda ps: QuantizedMoments(ps, lr=3e-4, weight_decay=0.1), events,
+        capture)
+    result = auto_accelerate(
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        optimizer=make,
+        init_params_fn=lambda gen, dev: llama.init_params(
+            cfg, gen, dev, dtype=torch.float32),
+        device="cuda",
+    )
+    prof = result.profile
+    log(f"[int8] Llama-2-7B, {L} layers, {prof.num_params / 1e9:.3f}B params "
+        f"(fp32 masters {prof.param_bytes / 2**30:.2f} GiB, int8 moments "
+        f"with scales {prof.optimizer_bytes / 2**30:.2f} GiB, fp32 grads "
+        f"{prof.param_bytes / 2**30:.2f} GiB), bf16 compute, remat "
+        f"{cfg.remat}, fused CE chunk {cfg.ce_chunk_rows}, batch {batch} x "
+        f"{seq}, {steps} steps, QuantizedMoments(lr=3e-4, weight_decay=0.1)")
+
+    def data_iter():
+        while True:
+            yield {"tokens": tokens}
+
+    trainer = Trainer(result, TrainingArgs(max_steps=steps, log_interval=0),
+                      data_iter)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    summary = trainer.train()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {k: _build.launches[k] for k in TRAIN_KERNELS + INT8_KERNELS}
+    peak = torch.cuda.max_memory_allocated()
+    # the caching allocator frees its cached blocks and retries (a device
+    # sync) when an allocation does not fit
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    hist = trainer.history
+    losses = [r["loss"] for r in hist]
+    opt_ms = [s.elapsed_time(e) for s, e in events]
+    for r, o in zip(hist, opt_ms):
+        log(f"[int8] step {r['step']} loss={r['loss']:.6f} grad_norm="
+            f"{r['grad_norm']:.6f} step_ms={1e3 * r['step_time_s']:.3f} "
+            f"optimizer_ms={o:.3f} (card clock)")
+    step_s = sum(r["step_time_s"] for r in hist[1:]) / (steps - 1)
+    flops = model_flops(cfg, prof, batch, seq)
+    mfu = flops / step_s / PEAK_OPS[torch.bfloat16]
+    per_step = {k: counts[k] / steps for k in TRAIN_KERNELS + ("int8_adam",)}
+    expect = {"rms_norm": 4 * L + 1, "flash_fwd": 2 * L,
+              "flash_bwd_dkv": L, "flash_bwd_dq": L,
+              "int8_adam": len(param_leaves(trainer.state["params"]))}
+    log(f"[int8] final_step={summary['final_step']} wall_s={wall:.3f} "
+        f"step_ms_window(2-{steps})={1e3 * step_s:.3f} tokens_per_s="
+        f"{batch * seq / step_s:.1f} model_tflop_per_step={flops / 1e12:.3f} "
+        f"mfu={mfu:.4f} (of 989 TFLOP/s bf16) max_memory_allocated_GiB="
+        f"{peak / 2**30:.2f} max_memory_reserved_GiB="
+        f"{torch.cuda.max_memory_reserved() / 2**30:.2f} "
+        f"allocator_retries={retries} optimizer_ms_median="
+        f"{statistics.median(opt_ms):.3f} launches_per_step={per_step} "
+        f"expected={expect} quantize_launches={counts['quantize']} "
+        f"(init: 2 per leaf) dequantize_launches={counts['dequantize']}")
+    require(all(np.isfinite(losses)), "an int8 training loss is not finite")
+    require(losses[-1] < losses[0], "int8 training loss did not fall")
+    require(per_step == expect, f"launches per step {per_step} != {expect}")
+    require(counts["quantize"] == 2 * expect["int8_adam"]
+            and counts["dequantize"] == 0, "int8 init launches")
+    if args.profile:
+        batch_dev = {"tokens": torch.from_numpy(tokens).cuda()}
+
+        def one_step():
+            result.fns.train_step(trainer.state, batch_dev)
+            return 1
+
+        profile_step(one_step, f"one int8 training step, {L} layers")
+
+    # inspection: every trained moment dequantized (B8), its norm
+    opt = trainer.state["opt_state"]
+    named = _named_leaves(trainer.state["params"])
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    norms = {name: tuple(
+        float(torch.linalg.vector_norm(dequantize_qtensor(t)))
+        for t in opt.moments(p)) for name, p in named}
+    inspect_launches = _build.launches["dequantize"]
+    log(f"[int8] trained moments, (|mu|, |sqrt(nu)|) per leaf: "
+        + " ".join(f"{k}=({a:.4g}, {b:.4g})" for k, (a, b) in norms.items())
+        + f"; dequantize launches {inspect_launches}")
+    require(inspect_launches == 2 * len(named)
+            and all(np.isfinite(v).all() and v[1] > 0
+                    for v in norms.values()), "moment inspection")
+    # the timed optimizer's step refers back to it: collect the cycle
+    del trainer, result, opt, named, make
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    # the captured leaf: B7 on its grad, B8 on its mu, B9 on both
+    require(bool(captured), "the last step's leaf was not captured")
+    g = captured["grad"].view(-1)
+    n = g.numel()
+    nb = q.padded_blocks(n)
+    mq, ms, nq, ns = captured["state"]
+    meta = (captured["shape"], n)
+    bc1, bc2 = q.bias_corrections(B1, B2, captured["step"])
+    kw = dict(lr=3e-4, b1=B1, b2=B2, eps=EPS)
+    gb = q._pad_blocks(g, nb)
+    rows = []
+    log(f"[int8] captured leaf {captured['shape']} n={n} blocks={nb} step "
+        f"{captured['step']}")
+
+    def compare(got, ref):
+        """(differing elements, max |got - ref|) over output pairs."""
+        return (sum(differing(a, b) for a, b in zip(got, ref)),
+                max(max_err(a, b) for a, b in zip(got, ref)))
+
+    qk, sk, _ = q.quantize_blockwise(g)
+    diff, err = compare((qk.view(nb, -1), sk), q.quantize_plain(gb))
+    del qk, sk
+    rows.append(("quantize", "dlrover_tpu/ops/quantization.py:35", diff, err,
+                 lambda: q.quantize_blockwise(g),
+                 lambda: q.quantize_plain(gb)))
+    xk = q.dequantize_blockwise(mq, ms, meta)
+    diff, err = compare((xk.view(-1),), (q.dequantize_plain(
+        mq.view(nb, -1), ms).view(-1)[:n],))
+    del xk
+    rows.append(("dequantize", "dlrover_tpu/ops/quantization.py:49", diff,
+                 err, lambda: q.dequantize_blockwise(mq, ms, meta),
+                 lambda: q.dequantize_plain(mq.view(nb, -1), ms)))
+    out_k = q.fused_int8_adam_update(g, mq, ms, nq, ns, meta, bc1, bc2, **kw)
+    upd_p, *new_p = q.fused_adam_plain(gb, mq.view(nb, -1), ms,
+                                       nq.view(nb, -1), ns, bc1, bc2, **kw)
+    diff, _ = compare((out_k[1].view(nb, -1), out_k[2], out_k[3].view(nb, -1),
+                       out_k[4]), new_p)
+    err = max_err(out_k[0].view(-1), upd_p.view(-1)[:n])
+    u = ulps(out_k[0].view(-1), upd_p.view(-1)[:n])
+    del out_k, upd_p, new_p
+    rows.append(("int8_adam", "dlrover_tpu/ops/quantization.py:118", diff,
+                 err, lambda: q.fused_int8_adam_update(
+                     g, mq, ms, nq, ns, meta, bc1, bc2, **kw),
+                 lambda: q.fused_adam_plain(gb, mq.view(nb, -1), ms,
+                                            nq.view(nb, -1), ns, bc1, bc2,
+                                            **kw)))
+    log(f"[captured] int8 leaf {captured['shape']}, kernel against plain: "
+        + " ".join(f"{r[0]} differing={r[2]} max_abs_err={r[3]:.3g}"
+                   for r in rows)
+        + f"; int8_adam update {u} ulps (need 0 differing int8/scales/"
+        "values and <= 1 ulp)")
+    require(all(r[2] == 0 for r in rows) and u <= 1,
+            "int8 kernels on the captured leaf")
+    torch.cuda.empty_cache()
+    launches = {"quantize": counts["quantize"],
+                "dequantize": inspect_launches,
+                "int8_adam": counts["int8_adam"]}
+    out = []
+    for name, replaces, diff, err, fn, plain in rows:
+        # no single PyTorch call computes blockwise int8 quantization or
+        # this Adam step (torch._fused_adam_ keeps fp32 moments)
+        row = kernel_row(name, "dlrover_tpu_torch/ops/csrc/quantization.cu",
+                         replaces, launches[name], err, 0.0, fn, plain, None,
+                         int8_bound_ms(name, n))
+        row["differing_elements"] = diff
+        if name == "int8_adam":
+            row["update_ulps"], row["update_tol_ulps"] = u, 1
+        out.append(row)
+        log(f"[time] {name} ms={row['ms']:.4f} plain_ms="
+            f"{row['plain_ms']:.4f} bound_ms={row['bound_ms']:.4f} "
+            f"({row['bound_by']}) launches={row['launches']}")
+    del captured, g, gb, mq, ms, nq, ns
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -1287,13 +1837,17 @@ def main() -> int:
     ap.add_argument("--max-new", type=int, default=64)
     ap.add_argument("--profile", action="store_true",
                     help="trace one full-batch decode step per serving "
-                    "leg and one training step")
+                    "leg and one step of each training leg")
     ap.add_argument("--skip-serve", action="store_true",
                     help="leave out the serving main path")
     ap.add_argument("--skip-train", action="store_true",
                     help="leave out the training main path")
     ap.add_argument("--train-layers", type=int, default=8)
-    ap.add_argument("--train-steps", type=int, default=6)
+    ap.add_argument("--train-steps", type=int, default=6,
+                    help="steps of the AGD and the int8 legs")
+    ap.add_argument("--skip-int8", action="store_true",
+                    help="leave out the int8-moment training leg")
+    ap.add_argument("--int8-layers", type=int, default=32)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1333,6 +1887,7 @@ def main() -> int:
 
     kernel_checks()
     flash_checks()
+    int8_checks()
     tiny_parity()
     train_parity()
     rows = []
@@ -1340,6 +1895,8 @@ def main() -> int:
         rows += main_path(args)
     if not (args.kernels_only or args.skip_train):
         rows += train_path(args)
+    if not (args.kernels_only or args.skip_int8):
+        rows += int8_path(args)
 
     if rows:
         log(json.dumps({"kernels": rows}))

@@ -6,3 +6,15 @@ wrapper takes its plain version for CPU tensors, launches its kernel
 for CUDA tensors (or raises), and counts its launches in
 ``ops._build.launches``.
 """
+
+from dlrover_tpu_torch.ops.quantization import (
+    dequantize_blockwise,
+    fused_int8_adam_update,
+    quantize_blockwise,
+)
+
+__all__ = [
+    "dequantize_blockwise",
+    "fused_int8_adam_update",
+    "quantize_blockwise",
+]

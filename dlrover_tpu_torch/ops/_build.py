@@ -35,7 +35,7 @@ from typing import Dict, Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rms_norm", "paged_attention", "flash_attention")
+SOURCES = ("rms_norm", "paged_attention", "flash_attention", "quantization")
 BUILD_DIR_ENV = "DLROVER_TPU_TORCH_BUILD_DIR"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
@@ -51,6 +51,9 @@ launches: Dict[str, int] = {
     "flash_fwd": 0,
     "flash_bwd_dkv": 0,
     "flash_bwd_dq": 0,
+    "quantize": 0,
+    "dequantize": 0,
+    "int8_adam": 0,
 }
 
 #: ``nvcc`` output of the last build of each source (``-Xptxas -v``

@@ -72,8 +72,10 @@ def build_train_step(
         leaves = param_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        return {"step": 0, "params": params,
-                "opt_state": optimizer_fn(leaves)}
+        opt = optimizer_fn(leaves)
+        if hasattr(opt, "init_state"):
+            opt.init_state()  # the reference's opt.init(params)
+        return {"step": 0, "params": params, "opt_state": opt}
 
     def loss_and_grads(params, leaves, batch):
         loss = loss_fn(params, batch)

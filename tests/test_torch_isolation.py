@@ -11,6 +11,7 @@
 """
 
 import ast
+import ctypes
 import json
 import os
 import pkgutil
@@ -49,7 +50,8 @@ def _foreign(name: str) -> bool:
 def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
     assert "dlrover_tpu_torch.rl.scheduler" in mods and len(mods) >= 26
-    for m in ("ops.flash_attention", "optimizers.agd",
+    for m in ("ops.flash_attention", "ops.quantization", "optimizers.agd",
+              "optimizers.low_bit",
               "parallel.train_step", "accelerate.api", "trainer.trainer",
               "examples.llama_pretrain"):
         assert f"dlrover_tpu_torch.{m}" in mods
@@ -163,7 +165,8 @@ def test_build_target_is_keyed_by_source_and_flags(monkeypatch, tmp_path):
 
 
 _CTYPE = {"const void*": "c_void_p", "void*": "c_void_p",
-          "int": "c_int", "float": "c_float"}
+          "int": "c_int", "float": "c_float",
+          "int64_t": ctypes.c_int64.__name__}
 
 
 def _c_signature(source: str, fn: str):
@@ -184,6 +187,12 @@ def _c_signature(source: str, fn: str):
      "dlrover_tpu_torch.ops.flash_attention", "DKV_ARGTYPES"),
     ("flash_attention", "dl_flash_bwd_dq",
      "dlrover_tpu_torch.ops.flash_attention", "DQ_ARGTYPES"),
+    ("quantization", "dl_quantize",
+     "dlrover_tpu_torch.ops.quantization", "QUANT_ARGTYPES"),
+    ("quantization", "dl_dequantize",
+     "dlrover_tpu_torch.ops.quantization", "DEQUANT_ARGTYPES"),
+    ("quantization", "dl_int8_adam",
+     "dlrover_tpu_torch.ops.quantization", "ADAM_ARGTYPES"),
 ])
 def test_ctypes_argtypes_match_the_c_entry(source, fn, module, attr):
     """The wrapper's ctypes signature is the C entry's, argument by
@@ -199,7 +208,8 @@ def test_every_source_is_built_and_every_kernel_counted():
         p.stem for p in (PKG / "ops" / "csrc").glob("*.cu")}
     assert set(_build.launches) == {
         "rms_norm", "paged_decode", "paged_verify", "flash_fwd",
-        "flash_bwd_dkv", "flash_bwd_dq"}
+        "flash_bwd_dkv", "flash_bwd_dq", "quantize", "dequantize",
+        "int8_adam"}
 
 
 def test_env_knobs_mirror_the_jax_package(monkeypatch):

@@ -322,7 +322,8 @@ def test_on_cpu_rule():
 def test_launch_counters_exist_and_reset():
     assert set(_build.launches) == {
         "rms_norm", "paged_decode", "paged_verify", "flash_fwd",
-        "flash_bwd_dkv", "flash_bwd_dq"}
+        "flash_bwd_dkv", "flash_bwd_dq", "quantize", "dequantize",
+        "int8_adam"}
     _build.launches["rms_norm"] = 3
     _build.reset_launches()
     assert _build.launches["rms_norm"] == 0
