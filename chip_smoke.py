@@ -71,6 +71,7 @@ import argparse
 import gc
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -373,6 +374,55 @@ def faulted_refs(fa, q, k, v, dout, lse, delta, glse, causal, scale, ref):
     return out
 
 
+def bitwise_repeat(fn, runs: int = 3) -> bool:
+    """Whether ``runs`` calls of ``fn`` (a tensor or a tuple of them)
+    give outputs equal bit for bit: the backward kernels use no atomics,
+    so a race in their pipeline shows as a difference."""
+    outs = []
+    for _ in range(runs):
+        out = fn()
+        out = out if isinstance(out, tuple) else (out,)
+        outs.append([t.view(torch.int16) if t.element_size() == 2
+                     else t.view(torch.int32) for t in out])
+    torch.cuda.synchronize()
+    return all(torch.equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o))
+
+
+def bwd_build_report(fa, d: int = 128):
+    """{kernel: registers, spills and shared memory per block} of the
+    bf16 backward kernels at head dim ``d``, from the ``-Xptxas -v`` log
+    (registers, spill bytes, static shared memory) and the launch's own
+    dynamic shared memory."""
+    from dlrover_tpu_torch.ops import _build
+
+    props, cur = {}, None
+    for line in _build.build_logs.get("flash_attention_bwd", "").splitlines():
+        m = re.search(r"(?:entry function '|Function properties for )"
+                      r"([\w$]+)", line)
+        if m:
+            cur = props.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            cur["static_smem"] = int(m.group(1)) if m else 0
+    report = {}
+    for kern, tag in (("flash_bwd_dkv", "dkv"), ("flash_bwd_dq", "dq")):
+        key = f"{tag}_wgmmaILi{d}E"
+        found = [v for n, v in props.items() if key in n]
+        row = dict(found[0]) if found else {"ptxas": "not in the log"}
+        row["dynamic_smem"] = fa.bwd_smem_bytes(tag, d)
+        report[kern] = row
+    return report
+
+
 def flash_case(fa, dtype, b, s, kv, group, d, causal, gen):
     """Forward, dK/dV and dQ kernels against their plain versions, the
     backward with the lse cotangent zero (None) and nonzero; each check
@@ -451,7 +501,53 @@ def flash_checks():
                             worst[kern][1] = min(worst[kern][1], c)
         summary[str(dtype)[6:]] = worst
     log(f"[check] flash over all cases, [worst err, least dropped-tile "
-        f"err] / limit: {summary}")
+        f"err] / limit: {summary}; the bf16 backward streams its 64-row "
+        f"tiles through rings of 3 stages, so S = 1000 (16 tiles, the "
+        f"last of 40 rows) and 2048 (32) wrap them many times")
+    flash_train_shape(fa, gen)
+
+
+def flash_train_shape(fa, gen):
+    """The bf16 backward at the training path's shape [4, 2048, 32, 128]
+    causal on random inputs: three runs of each kernel equal bit for bit,
+    and its time against its bound and SDPA's backward (the captured
+    input of the training leg is checked and timed again there)."""
+    import torch.nn.functional as F
+
+    b, s, h, d = 4, 2048, 32, 128
+    scale = d ** -0.5
+    q, k, v, dout = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                     .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_fwd_plain(q, k, v, True, scale)
+    bargs = (q, k, v, dout, lse, fa.attention_delta(o, dout), None, True,
+             scale)
+    del o
+    same = {"flash_bwd_dkv": bitwise_repeat(
+                lambda: fa.flash_bwd_dkv_kernel(*bargs)),
+            "flash_bwd_dq": bitwise_repeat(
+                lambda: fa.flash_bwd_dq_kernel(*bargs))}
+    log(f"[check] flash backward [{b}, {s}, {h}, {d}] bf16 causal, random "
+        f"inputs, 3 runs equal bit for bit: {same}")
+    require(all(same.values()), "a flash backward kernel is not "
+            "deterministic")
+    ms = {"flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv_kernel(*bargs)),
+          "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_kernel(*bargs))}
+    bnd = {"flash_bwd_dkv": flash_bound_ms("dkv", q, k)[0],
+           "flash_bwd_dq": flash_bound_ms("dq", q, k)[0]}
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (q, k, v))
+    out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dout_t = dout.transpose(1, 2).contiguous()
+    sdpa_ms = events_ms(lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), dout_t, retain_graph=True))
+    log(f"[time] flash backward [{b}, {s}, {h}, {d}] bf16 causal, random "
+        f"inputs: " + " ".join(
+            f"{n} ms={ms[n]:.4f} bound_ms={bnd[n]:.4f} "
+            f"bound/ms={bnd[n] / ms[n]:.3f}" for n in ms)
+        + f" dkv+dq ms={sum(ms.values()):.4f} SDPA backward ms="
+        f"{sdpa_ms:.4f}; {bwd_build_report(fa)}")
+    del qt, kt, vt, out_t, dout_t, q, k, v, dout, lse, bargs
+    torch.cuda.empty_cache()
 
 
 def kernel_checks():
@@ -745,7 +841,8 @@ def kernel_row(name, source, replaces, launches, err, tol, fn, plain,
         "name": name, "route": "cuda", "source": source,
         "replaces": replaces, "launches": launches, "max_abs_err": err,
         "tol": tol, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
-        "bound_by": bnd[1], "library_ms": library_ms,
+        "bound_by": bnd[1], "bound_share": bnd[0] / ms,
+        "library_ms": library_ms,
     }
 
 
@@ -1293,6 +1390,14 @@ def train_path(args):
         require(max(sound[n] for n in outs) <= 1.0
                 < max(fault[n] for n in outs),
                 f"{kern} on the captured input")
+    same = {"flash_bwd_dkv": bitwise_repeat(
+                lambda: fa.flash_bwd_dkv_kernel(*bargs)),
+            "flash_bwd_dq": bitwise_repeat(
+                lambda: fa.flash_bwd_dq_kernel(*bargs))}
+    log(f"[check] flash backward on the captured input, 3 runs of each "
+        f"kernel equal bit for bit: {same}")
+    require(all(same.values()), "a flash backward kernel is not "
+            "deterministic on the captured input")
     del got, ref, o_ref, lse_ref, dk_ref, dv_ref, o, lse, dk, dv, dq
     torch.cuda.empty_cache()
 
@@ -1312,7 +1417,8 @@ def train_path(args):
     log(f"[time] SDPA causal forward {sdpa_fwd_ms:.4f} ms, backward (dq, "
         f"dk, dv in one call, eager, events) {sdpa_bwd_ms:.4f} ms")
 
-    src = "dlrover_tpu_torch/ops/csrc/flash_attention.cu"
+    csrc = "dlrover_tpu_torch/ops/csrc/"
+    report = bwd_build_report(fa)
     for name, replaces, kind, fn, plain, lib in (
         ("flash_fwd", "dlrover_tpu/ops/flash_attention.py:42", "fwd",
          lambda: fa.flash_fwd_kernel(q, k, v, True, scale),
@@ -1325,6 +1431,8 @@ def train_path(args):
          lambda: fa.flash_bwd_dq_plain(*bargs), None),
     ):
         outs = FLASH_OUT[name]
+        src = csrc + ("flash_attention.cu" if kind == "fwd"
+                      else "flash_attention_bwd.cu")
         row = kernel_row(name, src, replaces, counts[name], abs_err[name],
                          FLASH_TOL[q.dtype], fn, plain, None,
                          flash_bound_ms(kind, q, k))
@@ -1335,6 +1443,13 @@ def train_path(args):
             row["library_note"] = ("SDPA backward, dq+dk+dv in one call: "
                                    "compare with flash_bwd_dkv + "
                                    "flash_bwd_dq")
+        if name in report:
+            row["build"] = report[name]
+        log(f"[time] {name} captured layer 0 ms={row['ms']:.4f} bound_ms="
+            f"{row['bound_ms']:.4f} ({row['bound_by']}) bound/ms="
+            f"{row['bound_share']:.3f} plain_ms={row['plain_ms']:.4f} "
+            f"library_ms={lib if lib is None else round(lib, 4)} launches="
+            f"{row['launches']} build={report.get(name, '-')}")
         rows.append(row)
     return rows
 
@@ -1881,7 +1996,8 @@ def main() -> int:
         f"sources={list(_build.SOURCES)} build_s={secs:.2f}")
     for name, text in _build.build_logs.items():
         for line in text.splitlines():
-            if ("registers" in line or "spill" in line
+            # ptxas's C75xx remarks name wgmma pipelines it serialised
+            if ("registers" in line or "spill" in line or "C75" in line
                     or "error" in line.lower()):
                 log(f"[build] {name}: {line.strip()}")
 

@@ -35,7 +35,8 @@ from typing import Dict, Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("rms_norm", "paged_attention", "flash_attention", "quantization")
+SOURCES = ("rms_norm", "paged_attention", "flash_attention",
+           "flash_attention_bwd", "quantization")
 BUILD_DIR_ENV = "DLROVER_TPU_TORCH_BUILD_DIR"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (

@@ -1,56 +1,45 @@
-// Flash attention (FA2) forward and backward for Hopper (sm_90a), bf16
-// and fp32.
+// Flash attention (FA2) forward for Hopper (sm_90a), bf16 and fp32.
 //
-// Replaces the TPU kernels
+// Replaces the TPU kernel
 //   dlrover_tpu/ops/flash_attention.py:_flash_fwd_kernel      (B2, _flash_fwd)
-//   dlrover_tpu/ops/flash_attention.py:_flash_bwd_dkv_kernel  (B3, _flash_bwd)
-//   dlrover_tpu/ops/flash_attention.py:_flash_bwd_dq_kernel   (B4, _flash_bwd)
+// The backward (B3, B4) is flash_attention_bwd.cu.
 //
-// Layout: q, o, do [B, S, H, D]; k, v, dk, dv [B, S, KV, D] (H % KV == 0,
-// query head h reads KV head h / (H / KV)), all contiguous, so the
-// public [B, S, H, D] tensors are read in place (no transpose copy).
-// lse, delta (= rowsum(dO * O)) and glse (the lse cotangent, may be
-// null) are fp32 [B, H, S].
+// Layout: q, o [B, S, H, D]; k, v [B, S, KV, D] (H % KV == 0, query head
+// h reads KV head h / (H / KV)), all contiguous, so the public
+// [B, S, H, D] tensors are read in place (no transpose copy).  lse is
+// fp32 [B, H, S].
 //
-//   forward: s = q k^T * scale (fp32), -1e30 where masked (col >= S, or
-//            col > row under causal), online softmax (m, l, acc in fp32),
-//            p cast to v's type before p v, o = acc / max(l, 1e-30) in q's
-//            type, lse = m + log(max(l, 1e-30)).
-//   dK/dV:   p = exp(s - lse), dp = dO v^T, ds = p (dp - delta + glse) scale,
-//            dv += p^T dO, dk += ds^T q, both accumulated in fp32 over the
-//            q tiles AND the G query heads of the KV head, written once.
-//   dQ:      dq += ds k in fp32.
-// Masked entries get p = ds = 0; rows past S are zero-filled in shared
-// memory and never read from device memory, so garbage (NaN) past the
-// end of a tensor cannot reach a product.
+//   s = q k^T * scale (fp32), -1e30 where masked (col >= S, or col > row
+//   under causal), online softmax (m, l, acc in fp32), p cast to v's type
+//   before p v, o = acc / max(l, 1e-30) in q's type,
+//   lse = m + log(max(l, 1e-30)).
+// Rows past S are zero-filled in shared memory and never read from device
+// memory, so garbage (NaN) past the end of a tensor cannot reach a
+// product.
 //
 // What bounds it on the card: operations.  At Llama-2-7B training shapes
-// ([4, 32, 2048, 128] causal) the forward does 2 and the backward 7
-// causal S x S x D products against ~0.3 GB of inputs, far above the
-// H100's ridge of ~295 operations per byte.  So the bf16 path runs on the
-// tensor cores (mma.sync m16n8k16, fp32 accumulators in registers) and
-// causal tiles above the diagonal are skipped.
+// ([4, 32, 2048, 128] causal) the forward does 2 causal S x S x D
+// products against ~0.2 GB of inputs, far above the H100's ridge of ~295
+// operations per byte.  So the bf16 path runs on the tensor cores
+// (mma.sync m16n8k16, fp32 accumulators in registers) and causal tiles
+// above the diagonal are skipped.
 //
 // Design (a first, simple design: no TMA, no wgmma, no pipelining):
-//   bf16: one block of 4 warps per (q tile of 64, head, batch) for the
-//     forward and dQ, and per (k tile of 64, KV head, batch) for dK/dV.
-//     Tiles are staged through shared memory (rows padded by 8 elements,
-//     so the 8 rows an ldmatrix reads fall in distinct banks); each warp
-//     owns 16 rows of the block's tile, loads its fragments with
-//     ldmatrix (.trans for an operand read across rows: v in p v, k in
-//     ds k, dO and q in dK/dV) and keeps its accumulators in registers.  The fp32 score fragment of one
-//     product is re-packed in registers as the bf16 A operand of the
-//     next (p v, ds k, p^T dO, ds^T q).  dK/dV loops over the G query
-//     heads of its KV head and over q tiles of 32 from the diagonal on,
-//     so GQA needs no atomics and no per-query-head buffers.
-//   fp32: the same grids with 32-row tiles and plain FMA (no TF32): the
+//   bf16: one block of 4 warps per (q tile of 64, head, batch).  Tiles
+//     are staged through shared memory (rows padded by 8 elements, so the
+//     8 rows an ldmatrix reads fall in distinct banks); each warp owns 16
+//     rows of the block's tile, loads its fragments with ldmatrix (.trans
+//     for v in p v) and keeps its accumulators in registers.  The fp32
+//     score fragment is re-packed in registers as the bf16 A operand of
+//     p v.
+//   fp32: the same grid with 32-row tiles and plain FMA (no TF32): the
 //     score tile goes through shared memory, each thread owns a quarter
-//     of one output row (or key row) in registers.
+//     of one output row in registers.
 // D must be 64 or 128 (the wrapper checks).
 //
-// C interface (ctypes): each entry returns cudaGetLastError() after its
-// launch.  The caller allocates every output; the kernels launch on
-// `stream` and allocate nothing.
+// C interface (ctypes): the entry returns cudaGetLastError() after its
+// launch.  The caller allocates every output; the kernel launches on
+// `stream` and allocates nothing.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -145,8 +134,7 @@ struct Shape {
 
 // =================================================== bf16, tensor cores
 
-constexpr int kTile = 64;    // q tile (fwd, dQ) and k tile (dK/dV)
-constexpr int kQTileKV = 32;  // inner q tile of dK/dV
+constexpr int kTile = 64;  // q and k tiles
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4],
                                          const uint32_t (&a)[4],
@@ -351,263 +339,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// ----------------------------------------------------------------- dQ
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    dq_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-           const bf16* __restrict__ v, const bf16* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           const float* __restrict__ glse, bf16* __restrict__ dq,
-           Shape sh) {
-  constexpr int LD = D + 8;
-  constexpr int NT = kTile / 8;
-  constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sO = sQ + kTile * LD;  // dO
-  bf16* sK = sO + kTile * LD;
-  bf16* sV = sK + kTile * LD;
-
-  const int S = sh.S, H = sh.H, KV = sh.KV;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int q0 = qt * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t qs = static_cast<int64_t>(H) * D;
-  const int64_t ks = static_cast<int64_t>(KV) * D;
-  const int64_t qoff = (static_cast<int64_t>(b) * S * H + h) * D;
-  const bf16* kb = k + (static_cast<int64_t>(b) * S * KV + kvh) * D;
-  const bf16* vb = v + (static_cast<int64_t>(b) * S * KV + kvh) * D;
-  const int64_t voff = (static_cast<int64_t>(b) * H + h) * S;
-
-  load_rows<bf16, D, LD>(sQ, q + qoff, q0, kTile, S, qs);
-  load_rows<bf16, D, LD>(sO, dout + qoff, q0, kTile, S, qs);
-  const int wr = warp * 16;
-  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
-  float r_lse[2], r_corr[2];  // lse and glse - delta of the two rows
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const bool in = row[i] < S;
-    r_lse[i] = in ? lse[voff + row[i]] : 0.f;
-    r_corr[i] = in ? (glse != nullptr ? glse[voff + row[i]] : 0.f) -
-                         delta[voff + row[i]]
-                   : 0.f;
-  }
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int nk = (S + kTile - 1) / kTile;
-  const int kt_end = sh.causal ? min(nk, qt + 1) : nk;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();
-    load_rows<bf16, D, LD>(sK, kb, k0, kTile, S, ks);
-    load_rows<bf16, D, LD>(sV, vb, k0, kTile, S, ks);
-    __syncthreads();
-
-    float s[NT][4], dp[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-      uint32_t qa[4], oa[4];
-      frag_a<LD>(qa, sQ, wr, kk * 16, lane);
-      frag_a<LD>(oa, sO, wr, kk * 16, lane);
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bk[4], bv[4];
-        frag_b_nk<LD>(bk, sK, np * 16, kk * 16, lane);
-        frag_b_nk<LD>(bv, sV, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], qa, bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qa, bk[2], bk[3]);
-        mma_bf16(dp[2 * np], oa, bv[0], bv[1]);
-        mma_bf16(dp[2 * np + 1], oa, bv[2], bv[3]);
-      }
-    }
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = e >> 1;
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        const bool keep =
-            col < S && row[i] < S && !(sh.causal && col > row[i]);
-        const float p = keep ? expf(s[nt][e] * sh.scale - r_lse[i]) : 0.f;
-        s[nt][e] = keep ? p * (dp[nt][e] + r_corr[i]) * sh.scale : 0.f;
-      }
-    }
-    // dq += ds k: ds fragments as A, k through the transposed load
-#pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      uint32_t da[4];
-      acc_to_a(da, s[2 * j], s[2 * j + 1]);
-#pragma unroll
-      for (int dn = 0; dn < ND / 2; ++dn) {
-        uint32_t bk[4];
-        frag_b_kn<LD>(bk, sK, j * 16, dn * 16, lane);
-        mma_bf16(acc[2 * dn], da, bk[0], bk[1]);
-        mma_bf16(acc[2 * dn + 1], da, bk[2], bk[3]);
-      }
-    }
-  }
-
-  bf16* dqb = dq + qoff;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (row[i] < S) {
-#pragma unroll
-      for (int dn = 0; dn < ND; ++dn) {
-        *reinterpret_cast<uint32_t*>(dqb + row[i] * qs + dn * 8 + 2 * t) =
-            pack_bf16(acc[dn][2 * i], acc[dn][2 * i + 1]);
-      }
-    }
-  }
-}
-
-// -------------------------------------------------------------- dK/dV
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    dkv_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, const bf16* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            const float* __restrict__ glse, bf16* __restrict__ dk,
-            bf16* __restrict__ dv, Shape sh) {
-  constexpr int LD = D + 8;
-  constexpr int BQ = kQTileKV;
-  constexpr int NT = BQ / 8;  // score n-tiles (over q) per q tile
-  constexpr int KD = D / 16;
-  constexpr int ND = D / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sV = sK + kTile * LD;
-  bf16* sQ = sV + kTile * LD;
-  bf16* sO = sQ + BQ * LD;  // dO
-  float* sLse = reinterpret_cast<float*>(sO + BQ * LD);
-  float* sCorr = sLse + BQ;  // glse - delta
-
-  const int S = sh.S, H = sh.H, KV = sh.KV;
-  const int G = H / KV;
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t qs = static_cast<int64_t>(H) * D;
-  const int64_t ks = static_cast<int64_t>(KV) * D;
-  const int64_t koff = (static_cast<int64_t>(b) * S * KV + kvh) * D;
-
-  load_rows<bf16, D, LD>(sK, k + koff, k0, kTile, S, ks);
-  load_rows<bf16, D, LD>(sV, v + koff, k0, kTile, S, ks);
-  const int wr = warp * 16;
-  const int key[2] = {k0 + wr + g, k0 + wr + g + 8};
-  float dka[ND][4], dva[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
-  }
-
-  const int nq = (S + BQ - 1) / BQ;
-  const int qt_begin = sh.causal ? k0 / BQ : 0;
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = kvh * G + hh;
-    const int64_t qoff = (static_cast<int64_t>(b) * S * H + h) * D;
-    const int64_t voff = (static_cast<int64_t>(b) * H + h) * S;
-    for (int qt = qt_begin; qt < nq; ++qt) {
-      const int q0 = qt * BQ;
-      __syncthreads();  // every warp is done with the previous q tile
-      load_rows<bf16, D, LD>(sQ, q + qoff, q0, BQ, S, qs);
-      load_rows<bf16, D, LD>(sO, dout + qoff, q0, BQ, S, qs);
-      for (int i = threadIdx.x; i < BQ; i += kThreads) {
-        const bool in = q0 + i < S;
-        sLse[i] = in ? lse[voff + q0 + i] : 0.f;
-        sCorr[i] = in ? (glse != nullptr ? glse[voff + q0 + i] : 0.f) -
-                            delta[voff + q0 + i]
-                      : 0.f;
-      }
-      __syncthreads();
-
-      // s^T = k q^T and dp^T = v dO^T: rows are this warp's keys
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-      }
-#pragma unroll
-      for (int kk = 0; kk < KD; ++kk) {
-        uint32_t ka[4], va[4];
-        frag_a<LD>(ka, sK, wr, kk * 16, lane);
-        frag_a<LD>(va, sV, wr, kk * 16, lane);
-#pragma unroll
-        for (int np = 0; np < NT / 2; ++np) {
-          uint32_t bq[4], bo[4];
-          frag_b_nk<LD>(bq, sQ, np * 16, kk * 16, lane);
-          frag_b_nk<LD>(bo, sO, np * 16, kk * 16, lane);
-          mma_bf16(s[2 * np], ka, bq[0], bq[1]);
-          mma_bf16(s[2 * np + 1], ka, bq[2], bq[3]);
-          mma_bf16(dp[2 * np], va, bo[0], bo[1]);
-          mma_bf16(dp[2 * np + 1], va, bo[2], bo[3]);
-        }
-      }
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kr = key[e >> 1];
-          const int qc = nt * 8 + 2 * t + (e & 1);  // q row in the tile
-          const int qrow = q0 + qc;
-          const bool keep =
-              kr < S && qrow < S && !(sh.causal && qrow < kr);
-          const float p = keep ? expf(s[nt][e] * sh.scale - sLse[qc]) : 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = keep ? p * (dp[nt][e] + sCorr[qc]) * sh.scale : 0.f;
-        }
-      }
-      // dv += p^T dO, dk += ds^T q: p^T / ds^T fragments as A (k = q
-      // rows), dO and q through the transposed load
-#pragma unroll
-      for (int j = 0; j < BQ / 16; ++j) {
-        uint32_t pa[4], da[4];
-        acc_to_a(pa, s[2 * j], s[2 * j + 1]);
-        acc_to_a(da, dp[2 * j], dp[2 * j + 1]);
-#pragma unroll
-        for (int dn = 0; dn < ND / 2; ++dn) {
-          uint32_t bo[4], bq[4];
-          frag_b_kn<LD>(bo, sO, j * 16, dn * 16, lane);
-          frag_b_kn<LD>(bq, sQ, j * 16, dn * 16, lane);
-          mma_bf16(dva[2 * dn], pa, bo[0], bo[1]);
-          mma_bf16(dva[2 * dn + 1], pa, bo[2], bo[3]);
-          mma_bf16(dka[2 * dn], da, bq[0], bq[1]);
-          mma_bf16(dka[2 * dn + 1], da, bq[2], bq[3]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    if (key[i] < S) {
-      const int64_t off = koff + key[i] * ks;
-#pragma unroll
-      for (int dn = 0; dn < ND; ++dn) {
-        const int c = dn * 8 + 2 * t;
-        *reinterpret_cast<uint32_t*>(dk + off + c) =
-            pack_bf16(dka[dn][2 * i], dka[dn][2 * i + 1]);
-        *reinterpret_cast<uint32_t*>(dv + off + c) =
-            pack_bf16(dva[dn][2 * i], dva[dn][2 * i + 1]);
-      }
-    }
-  }
-}
-
 // =========================================================== fp32, FMA
 
 constexpr int kT = 32;  // q and k tiles of the FMA kernels
@@ -725,179 +456,6 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    dq_fma(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
-           const float* __restrict__ lse, const float* __restrict__ delta,
-           const float* __restrict__ glse, T* __restrict__ dq, Shape sh) {
-  constexpr int LD = D + 1;
-  constexpr int NJ = D / 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sQ = reinterpret_cast<float*>(smem_raw);
-  float* sO = sQ + kT * LD;
-  float* sK = sO + kT * LD;
-  float* sV = sK + kT * LD;
-  float* sS = sV + kT * LD;
-  float* sLse = sS + kT * kSL;
-  float* sCorr = sLse + kT;
-
-  const int S = sh.S, H = sh.H, KV = sh.KV;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int q0 = qt * kT;
-  const int tid = threadIdx.x;
-  const int orow = tid >> 2, oc = tid & 3;
-  const int64_t qs = static_cast<int64_t>(H) * D;
-  const int64_t ks = static_cast<int64_t>(KV) * D;
-  const int64_t qoff = (static_cast<int64_t>(b) * S * H + h) * D;
-  const int64_t voff = (static_cast<int64_t>(b) * H + h) * S;
-  const T* kb = k + (static_cast<int64_t>(b) * S * KV + kvh) * D;
-  const T* vb = v + (static_cast<int64_t>(b) * S * KV + kvh) * D;
-
-  load_f<T, D, LD>(sQ, q + qoff, q0, kT, S, qs);
-  load_f<T, D, LD>(sO, dout + qoff, q0, kT, S, qs);
-  for (int i = tid; i < kT; i += kThreads) {
-    const bool in = q0 + i < S;
-    sLse[i] = in ? lse[voff + q0 + i] : 0.f;
-    sCorr[i] = in ? (glse != nullptr ? glse[voff + q0 + i] : 0.f) -
-                        delta[voff + q0 + i]
-                  : 0.f;
-  }
-  float acc[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) acc[j] = 0.f;
-
-  const int nk = (S + kT - 1) / kT;
-  const int kt_end = sh.causal ? min(nk, qt + 1) : nk;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kT;
-    __syncthreads();
-    load_f<T, D, LD>(sK, kb, k0, kT, S, ks);
-    load_f<T, D, LD>(sV, vb, k0, kT, S, ks);
-    __syncthreads();
-    for (int e = tid; e < kT * kT; e += kThreads) {
-      const int r = e / kT, c = e % kT;
-      const bool keep = k0 + c < S && q0 + r < S &&
-                        !(sh.causal && k0 + c > q0 + r);
-      float ds = 0.f;
-      if (keep) {
-        const float s = dot_rows<D, LD>(sQ + r * LD, sK + c * LD);
-        const float dp = dot_rows<D, LD>(sO + r * LD, sV + c * LD);
-        const float p = expf(s * sh.scale - sLse[r]);
-        ds = p * (dp + sCorr[r]) * sh.scale;
-      }
-      sS[r * kSL + c] = round_to<T>(ds);
-    }
-    __syncthreads();
-    const float* sr = sS + orow * kSL;
-    for (int c = 0; c < kT; ++c) {
-      const float x = sr[c];
-      const float* kr = sK + c * LD + oc;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[j] += x * kr[4 * j];
-    }
-  }
-  if (q0 + orow < S) {
-    T* dst = dq + qoff + (q0 + orow) * qs + oc;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) dst[4 * j] = from_f<T>(acc[j]);
-  }
-}
-
-// Each thread owns a quarter of one key row of dk and dv.
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-    dkv_fma(const T* __restrict__ q, const T* __restrict__ k,
-            const T* __restrict__ v, const T* __restrict__ dout,
-            const float* __restrict__ lse, const float* __restrict__ delta,
-            const float* __restrict__ glse, T* __restrict__ dk,
-            T* __restrict__ dv, Shape sh) {
-  constexpr int LD = D + 1;
-  constexpr int NJ = D / 4;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* sK = reinterpret_cast<float*>(smem_raw);
-  float* sV = sK + kT * LD;
-  float* sQ = sV + kT * LD;
-  float* sO = sQ + kT * LD;
-  float* sP = sO + kT * LD;  // [q row][key]
-  float* sDS = sP + kT * kSL;
-  float* sLse = sDS + kT * kSL;
-  float* sCorr = sLse + kT;
-
-  const int S = sh.S, H = sh.H, KV = sh.KV;
-  const int G = H / KV;
-  const int kt = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int k0 = kt * kT;
-  const int tid = threadIdx.x;
-  const int krow = tid >> 2, oc = tid & 3;
-  const int64_t qs = static_cast<int64_t>(H) * D;
-  const int64_t ks = static_cast<int64_t>(KV) * D;
-  const int64_t koff = (static_cast<int64_t>(b) * S * KV + kvh) * D;
-
-  load_f<T, D, LD>(sK, k + koff, k0, kT, S, ks);
-  load_f<T, D, LD>(sV, v + koff, k0, kT, S, ks);
-  float dka[NJ], dva[NJ];
-#pragma unroll
-  for (int j = 0; j < NJ; ++j) dka[j] = dva[j] = 0.f;
-
-  const int nq = (S + kT - 1) / kT;
-  const int qt_begin = sh.causal ? kt : 0;
-  for (int hh = 0; hh < G; ++hh) {
-    const int h = kvh * G + hh;
-    const int64_t qoff = (static_cast<int64_t>(b) * S * H + h) * D;
-    const int64_t voff = (static_cast<int64_t>(b) * H + h) * S;
-    for (int qt = qt_begin; qt < nq; ++qt) {
-      const int q0 = qt * kT;
-      __syncthreads();
-      load_f<T, D, LD>(sQ, q + qoff, q0, kT, S, qs);
-      load_f<T, D, LD>(sO, dout + qoff, q0, kT, S, qs);
-      for (int i = tid; i < kT; i += kThreads) {
-        const bool in = q0 + i < S;
-        sLse[i] = in ? lse[voff + q0 + i] : 0.f;
-        sCorr[i] = in ? (glse != nullptr ? glse[voff + q0 + i] : 0.f) -
-                            delta[voff + q0 + i]
-                      : 0.f;
-      }
-      __syncthreads();
-      for (int e = tid; e < kT * kT; e += kThreads) {
-        const int r = e / kT, c = e % kT;  // q row, key
-        const bool keep = k0 + c < S && q0 + r < S &&
-                          !(sh.causal && q0 + r < k0 + c);
-        float p = 0.f, ds = 0.f;
-        if (keep) {
-          const float s = dot_rows<D, LD>(sQ + r * LD, sK + c * LD);
-          const float dp = dot_rows<D, LD>(sO + r * LD, sV + c * LD);
-          p = expf(s * sh.scale - sLse[r]);
-          ds = p * (dp + sCorr[r]) * sh.scale;
-        }
-        sP[r * kSL + c] = round_to<T>(p);
-        sDS[r * kSL + c] = round_to<T>(ds);
-      }
-      __syncthreads();
-      for (int r = 0; r < kT; ++r) {
-        const float p = sP[r * kSL + krow];
-        const float ds = sDS[r * kSL + krow];
-        const float* orow_p = sO + r * LD + oc;
-        const float* qrow_p = sQ + r * LD + oc;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          dva[j] += p * orow_p[4 * j];
-          dka[j] += ds * qrow_p[4 * j];
-        }
-      }
-    }
-  }
-  if (k0 + krow < S) {
-    const int64_t off = koff + (k0 + krow) * ks + oc;
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) {
-      dk[off + 4 * j] = from_f<T>(dka[j]);
-      dv[off + 4 * j] = from_f<T>(dva[j]);
-    }
-  }
-}
-
 // ----------------------------------------------------------- dispatch
 
 // Opt a kernel into more than 48 KB of dynamic shared memory, once per
@@ -941,67 +499,6 @@ cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dq_launch(const void* q, const void* k, const void* v,
-                      const void* dout, const float* lse, const float* delta,
-                      const float* glse, void* dq, int B, Shape sh,
-                      int dtype, cudaStream_t st) {
-  if (dtype == 1) {
-    static bool done = false;
-    const size_t smem = 4 * kTile * (D + 8) * sizeof(bf16);
-    cudaError_t e = allow_smem(dq_mma<D>, smem, done);
-    if (e != cudaSuccess) return e;
-    dq_mma<D><<<dim3(tiles(sh.S, kTile), sh.H, B), kThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, glse, static_cast<bf16*>(dq), sh);
-  } else if (dtype == 0) {
-    static bool done = false;
-    const size_t smem = (4 * kT * (D + 1) + kT * kSL + 2 * kT) * sizeof(float);
-    cudaError_t e = allow_smem(dq_fma<float, D>, smem, done);
-    if (e != cudaSuccess) return e;
-    dq_fma<float, D><<<dim3(tiles(sh.S, kT), sh.H, B), kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, glse, static_cast<float*>(dq), sh);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-template <int D>
-cudaError_t dkv_launch(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, const float* glse, void* dk,
-                       void* dv, int B, Shape sh, int dtype,
-                       cudaStream_t st) {
-  if (dtype == 1) {
-    static bool done = false;
-    const size_t smem = (2 * kTile + 2 * kQTileKV) * (D + 8) * sizeof(bf16) +
-                        2 * kQTileKV * sizeof(float);
-    cudaError_t e = allow_smem(dkv_mma<D>, smem, done);
-    if (e != cudaSuccess) return e;
-    dkv_mma<D><<<dim3(tiles(sh.S, kTile), sh.KV, B), kThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
-        delta, glse, static_cast<bf16*>(dk), static_cast<bf16*>(dv), sh);
-  } else if (dtype == 0) {
-    static bool done = false;
-    const size_t smem =
-        (4 * kT * (D + 1) + 2 * kT * kSL + 2 * kT) * sizeof(float);
-    cudaError_t e = allow_smem(dkv_fma<float, D>, smem, done);
-    if (e != cudaSuccess) return e;
-    dkv_fma<float, D><<<dim3(tiles(sh.S, kT), sh.KV, B), kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, glse, static_cast<float*>(dk), static_cast<float*>(dv), sh);
-  } else {
-    return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
 bool bad_shape(int B, int S, int H, int KV) {
   return B < 1 || B > 65535 || S < 1 || KV < 1 || H < KV || H % KV != 0 ||
          H > 65535;
@@ -1021,48 +518,6 @@ int dl_flash_fwd(const void* q, const void* k, const void* v, void* o,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (D == 64) return fwd_launch<64>(q, k, v, o, lse, B, sh, dtype, st);
   if (D == 128) return fwd_launch<128>(q, k, v, o, lse, B, sh, dtype, st);
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-// glse may be null (no lse cotangent); delta = rowsum(dO * O) [B, H, S].
-int dl_flash_bwd_dkv(const void* q, const void* k, const void* v,
-                     const void* dout, const void* lse, const void* delta,
-                     const void* glse, void* dk, void* dv, int B, int S,
-                     int H, int KV, int D, float scale, int causal,
-                     int dtype, void* stream) {
-  if (bad_shape(B, S, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
-  const Shape sh{S, H, KV, scale, causal};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const float* gl = static_cast<const float*>(glse);
-  if (D == 64) {
-    return dkv_launch<64>(q, k, v, dout, l, dl, gl, dk, dv, B, sh, dtype, st);
-  }
-  if (D == 128) {
-    return dkv_launch<128>(q, k, v, dout, l, dl, gl, dk, dv, B, sh, dtype,
-                           st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int dl_flash_bwd_dq(const void* q, const void* k, const void* v,
-                    const void* dout, const void* lse, const void* delta,
-                    const void* glse, void* dq, int B, int S, int H, int KV,
-                    int D, float scale, int causal, int dtype,
-                    void* stream) {
-  if (bad_shape(B, S, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
-  const Shape sh{S, H, KV, scale, causal};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* l = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  const float* gl = static_cast<const float*>(glse);
-  if (D == 64) {
-    return dq_launch<64>(q, k, v, dout, l, dl, gl, dq, B, sh, dtype, st);
-  }
-  if (D == 128) {
-    return dq_launch<128>(q, k, v, dout, l, dl, gl, dq, B, sh, dtype, st);
-  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

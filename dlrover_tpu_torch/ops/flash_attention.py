@@ -1,6 +1,7 @@
 """Flash attention forward and backward: the CUDA kernels
-``ops/csrc/flash_attention.cu`` and their plain PyTorch versions, bound
-to one ``torch.autograd.Function``.
+``ops/csrc/flash_attention.cu`` (forward) and
+``ops/csrc/flash_attention_bwd.cu`` (dK/dV and dQ) and their plain
+PyTorch versions, bound to one ``torch.autograd.Function``.
 
 Port of ``dlrover_tpu/ops/flash_attention.py:42-634`` (B2
 ``_flash_fwd_kernel``, B3 ``_flash_bwd_dkv_kernel``, B4
@@ -119,6 +120,9 @@ DQ_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
 ]
 
+#: ``dl_flash_bwd_smem(dkv, D)``
+SMEM_ARGTYPES = [ctypes.c_int, ctypes.c_int]
+
 
 def _check(q, k, v, what, *rest):
     """Raise on what the kernels do not take; ``rest`` are
@@ -156,8 +160,8 @@ def _check(q, k, v, what, *rest):
             raise ValueError(f"{what} kernel needs 16-byte aligned {name}")
 
 
-def _call(name, fn_name, argtypes, *args):
-    lib = _build.library("flash_attention")
+def _call(source, name, fn_name, argtypes, *args):
+    lib = _build.library(source)
     fn = getattr(lib, fn_name)
     fn.restype = ctypes.c_int
     fn.argtypes = argtypes
@@ -177,7 +181,7 @@ def flash_fwd_kernel(q, k, v, causal: bool, scale: float):
     o = torch.empty_like(q)
     b, s, h, _ = q.shape
     lse = torch.empty(b, h, s, dtype=torch.float32, device=q.device)
-    _call("flash_fwd", "dl_flash_fwd", FWD_ARGTYPES,
+    _call("flash_attention", "flash_fwd", "dl_flash_fwd", FWD_ARGTYPES,
           _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(o),
           _build.ptr(lse), *_dims(q, k, scale, causal))
     return o, lse
@@ -200,8 +204,8 @@ def flash_bwd_dkv_kernel(q, k, v, dout, lse, delta, glse, causal, scale):
     _check(q, k, v, "flash_bwd_dkv", *_bwd_rest(q, dout, lse, delta, glse))
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    _call("flash_bwd_dkv", "dl_flash_bwd_dkv", DKV_ARGTYPES,
-          _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
+    _call("flash_attention_bwd", "flash_bwd_dkv", "dl_flash_bwd_dkv",
+          DKV_ARGTYPES, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
           _build.ptr(lse), _build.ptr(delta), _opt_ptr(glse),
           _build.ptr(dk), _build.ptr(dv), *_dims(q, k, scale, causal))
     return dk, dv
@@ -211,11 +215,20 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, glse, causal, scale):
     """B4 on the card: ``dq`` in q's dtype."""
     _check(q, k, v, "flash_bwd_dq", *_bwd_rest(q, dout, lse, delta, glse))
     dq = torch.empty_like(q)
-    _call("flash_bwd_dq", "dl_flash_bwd_dq", DQ_ARGTYPES,
-          _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
+    _call("flash_attention_bwd", "flash_bwd_dq", "dl_flash_bwd_dq",
+          DQ_ARGTYPES, _build.ptr(q), _build.ptr(k), _build.ptr(v), _build.ptr(dout),
           _build.ptr(lse), _build.ptr(delta), _opt_ptr(glse),
           _build.ptr(dq), *_dims(q, k, scale, causal))
     return dq
+
+
+def bwd_smem_bytes(kind: str, d: int) -> int:
+    """Dynamic shared memory of one bf16 backward block (``kind`` "dkv"
+    or "dq"), as the launch asks for it (builds the library)."""
+    fn = _build.library("flash_attention_bwd").dl_flash_bwd_smem
+    fn.restype = ctypes.c_int
+    fn.argtypes = SMEM_ARGTYPES
+    return fn(int(kind == "dkv"), d)
 
 
 def flash_fwd(q, k, v, causal, scale):

@@ -183,10 +183,12 @@ def _c_signature(source: str, fn: str):
      "dlrover_tpu_torch.ops.paged_kernels", "ARGTYPES"),
     ("flash_attention", "dl_flash_fwd",
      "dlrover_tpu_torch.ops.flash_attention", "FWD_ARGTYPES"),
-    ("flash_attention", "dl_flash_bwd_dkv",
+    ("flash_attention_bwd", "dl_flash_bwd_dkv",
      "dlrover_tpu_torch.ops.flash_attention", "DKV_ARGTYPES"),
-    ("flash_attention", "dl_flash_bwd_dq",
+    ("flash_attention_bwd", "dl_flash_bwd_dq",
      "dlrover_tpu_torch.ops.flash_attention", "DQ_ARGTYPES"),
+    ("flash_attention_bwd", "dl_flash_bwd_smem",
+     "dlrover_tpu_torch.ops.flash_attention", "SMEM_ARGTYPES"),
     ("quantization", "dl_quantize",
      "dlrover_tpu_torch.ops.quantization", "QUANT_ARGTYPES"),
     ("quantization", "dl_dequantize",
@@ -201,6 +203,32 @@ def test_ctypes_argtypes_match_the_c_entry(source, fn, module, attr):
 
     argtypes = getattr(importlib.import_module(module), attr)
     assert [t.__name__ for t in argtypes] == _c_signature(source, fn)
+
+
+@pytest.mark.parametrize("fn", ["dl_flash_bwd_dkv", "dl_flash_bwd_dq"])
+def test_flash_backward_entries_live_in_their_own_source(fn):
+    """The backward kernels build from ``flash_attention_bwd.cu`` (one
+    ``nvcc`` beside the forward's), which declares each entry once; no
+    other source declares it, so no older body can be loaded instead."""
+    assert "flash_attention_bwd" in _build.SOURCES
+    decl = f"int {fn}("
+    where = {p.stem: p.read_text().count(decl)
+             for p in (PKG / "ops" / "csrc").glob("*.cu")}
+    assert where.pop("flash_attention_bwd") == 1
+    assert set(where.values()) == {0}
+
+
+def test_flash_backward_source_is_the_hopper_design():
+    """The bf16 backward issues wgmma and loads its tiles by TMA through
+    mbarriers; the mma.sync bodies of the first design are gone."""
+    text = (PKG / "ops" / "csrc" / "flash_attention_bwd.cu").read_text()
+    for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
+                   "mbarrier.try_wait", "cuTensorMapEncodeTiled",
+                   "__grid_constant__"):
+        assert needle in text, needle
+    for p in (PKG / "ops" / "csrc").glob("flash_attention*.cu"):
+        body = p.read_text()
+        assert "dq_mma" not in body and "dkv_mma" not in body, p.name
 
 
 def test_every_source_is_built_and_every_kernel_counted():
