@@ -22,11 +22,18 @@ Phases (any failed check raises, so the script exits nonzero):
    fp32, at full width (RMSNorm D=4096 and 8192, and bf16 x with an fp32
    weight; paged attention head_dim=128,
    GQA group 1/4/8, block_size 16, ragged lengths including 0 and a full
-   table, inactive lanes on the null block, 1e4 and NaN poison in the
-   null block and the guard blocks, verify window C=4; flash forward,
-   dK/dV and dQ over S 1-2048, D 64/128, groups 1/4/8, causal or not,
-   NaN past every input, each check also shown to reject a kernel that
-   drops one tile); blockwise int8 quantize, dequantize and the fused
+   table, verify horizons on the last and the first key of a split and
+   at position 0, inactive lanes on the null block, 1e4 and NaN poison
+   in the null block and the guard blocks, verify window C=4 (up to 32
+   rows), each check also shown to reject the plain version with each
+   lane's last page (decode) or last split (verify) dropped, and the
+   verify kernel at the serving shape, three runs bit for bit and timed;
+   flash forward, dK/dV and dQ over S 1-2048, D 64/128, groups 1/4/8,
+   causal or not, NaN past every input, each check also shown to reject
+   a kernel that drops one tile, and the three kernels at the training
+   shape, three runs bit for bit and timed against SDPA, with their
+   ``ptxas`` registers, spills and shared memory); blockwise int8
+   quantize, dequantize and the fused
    Adam update over ragged sizes, an all-zero block, a one-spike block
    and the half-way block, bit for bit, each check also shown to reject
    a plain version with one block left stale, and ``QuantizedMoments``
@@ -45,15 +52,16 @@ Phases (any failed check raises, so the script exits nonzero):
    The greedy tails of the two legs must be identical, and the K=4 leg
    must accept at least ``ACCEPT_FLOOR`` drafts per window.  One layer's
    inputs of one decode step and one verify step are captured, and each
-   kernel is held against its plain version on them and timed there.
+   kernel is held against its plain version on them (and must not match
+   the planted fault; verify three runs bit for bit) and timed there.
 5. training main path: Llama-2-7B width at ``--train-layers`` layers
    (default 8), fp32 masters, bf16 compute, through ``auto_accelerate``
    -> ``Trainer.train`` with AGD for ``--train-steps`` steps of 4 x 2048
    tokens.  Step 0's attention grads are held against dense attention,
    the loss must fall, launches per step must be as stated; step and
    optimizer times are on the card's clock.  Layer 0's RMSNorm and
-   flash inputs are captured, checked and timed against their plain
-   versions and SDPA.
+   flash inputs are captured, checked (flash three runs bit for bit)
+   and timed against their plain versions and SDPA.
 5b. int8 leg: Llama-2-7B at ``--int8-layers`` layers (default 32, full
    depth) trained the same way with ``QuantizedMoments(lr=3e-4,
    weight_decay=0.1)``: launches per step (B9 once per leaf) and at init
@@ -176,12 +184,20 @@ def check_rms(rms_fwd, rms_plain, dtype, n, d, gen) -> float:
     return err
 
 
-def attention_case(group, dtype, poison, gen, batch=6, kv=4, head_dim=128,
-                   block_size=16, max_blocks=8, window=4):
+def attention_case(pk, group, dtype, poison, gen, kv=4, head_dim=128,
+                   block_size=16, max_blocks=24, window=4):
     """Pools with normal K/V in lanes' blocks and poison in the null
     block and in the guard block every unused table entry points at;
-    ragged lengths including 0, a full table and an inactive lane
-    (length 1 on table row 0)."""
+    ragged lengths including 0 and a full table, lanes whose verify
+    horizon (pos + C - 1) ends on the last key of a split and on the
+    first key of the next, lanes at pos = 0, and an inactive lane (length
+    1 on table row 0).  C * G reaches 32 rows at group 8."""
+    pages, _, _ = pk.verify_plan(1, window * group, kv, max_blocks,
+                                 block_size)
+    split = pages * block_size  # keys of a verify split
+    lens = [1, 0, block_size + block_size // 2, block_size * max_blocks,
+            37, split, split + 1, 2 * split + 7, 1]
+    batch = len(lens)
     heads = kv * group
     used = batch * max_blocks
     num_blocks = 1 + used + 1
@@ -193,9 +209,7 @@ def attention_case(group, dtype, poison, gen, batch=6, kv=4, head_dim=128,
         pool[-1] = poison
     tables = (1 + torch.arange(used, device="cuda")).reshape(
         batch, max_blocks).to(torch.int32)
-    seq_lens = torch.tensor(
-        [1, 0, block_size + block_size // 2, block_size * max_blocks,
-         37, 1][:batch], dtype=torch.int32, device="cuda")
+    seq_lens = torch.tensor(lens, dtype=torch.int32, device="cuda")
     positions = torch.clamp(seq_lens - window, min=0).to(torch.int32)
     for b in range(batch):
         covered = max(int(seq_lens[b]), int(positions[b]) + window)
@@ -211,13 +225,54 @@ def attention_case(group, dtype, poison, gen, batch=6, kv=4, head_dim=128,
     )
 
 
-def check_attention(pk, kind, group, dtype, poison, gen) -> float:
-    c = attention_case(group, dtype, poison, gen)
+def dropped_page_ref(pk, q, k_pool, v_pool, tables, seq_lens):
+    """The planted fault of B5: the plain decode with each lane's last
+    page dropped, as when a kernel skips the last page of its loop."""
+    bs = k_pool.shape[1]
+    short = torch.where(seq_lens > 0, (seq_lens - 1) // bs * bs, seq_lens)
+    return pk.paged_decode_plain(q, k_pool, v_pool, tables,
+                                 short.to(torch.int32))
+
+
+def dropped_split_ref(pk, q, k_pool, v_pool, tables, positions):
+    """The planted fault of B6: the plain verify with each lane's last
+    split of pages dropped (keys from its first on hidden from every
+    row), as when a kernel loses one split or the merge one partial."""
+    b, c, nh, d = q.shape
+    _, bs, nkv, _ = k_pool.shape
+    mb = tables.shape[1]
+    pages, _, _ = pk.verify_plan(b, c * nh // nkv, nkv, mb, bs)
+    horizon = positions.long() + c - 1
+    n_pages = torch.clamp(horizon // bs + 1, max=mb)
+    first = (n_pages - 1) // pages * pages * bs
+    k = pk.gather_pool(k_pool, tables).float()
+    v = pk.gather_pool(v_pool, tables).float()
+    cols = torch.arange(k.shape[1], device=q.device)
+    q_pos = positions.long()[:, None] + torch.arange(c, device=q.device)
+    visible = ((cols[None, None] <= q_pos[:, :, None])
+               & (cols[None, None] < first[:, None, None]))
+    v = v.masked_fill(~visible[:, -1, :, None, None], 0.0)
+    qg = q.float().reshape(b, c, nkv, nh // nkv, d)
+    logits = torch.einsum("bckgd,btkd->bckgt", qg, k) * (d ** -0.5)
+    p, denom = pk._masked_weights(logits, visible[:, :, None, None])
+    out = torch.einsum("bckgt,btkd->bckgd", p, v) / denom
+    return out.to(q.dtype).reshape(b, c, nh, d)
+
+
+def paged_errs(out, ref, bad):
+    """(max |out - ref|, max |out - bad|) over the live lanes (all but
+    the last, inactive one, whose output the model discards)."""
+    return max_err(out[:-1], ref[:-1]), max_err(out[:-1], bad[:-1])
+
+
+def check_attention(pk, kind, group, dtype, poison, gen):
+    c = attention_case(pk, group, dtype, poison, gen)
     if kind == "decode":
         args = (c["q"], c["k_pool"], c["v_pool"], c["tables"], c["seq_lens"])
         out = pk.paged_decode_kernel(*args)
         torch.cuda.synchronize()
         ref = pk.paged_decode_plain(*args)
+        bad = dropped_page_ref(pk, *args)
         empty = out[1]
     else:
         args = (c["qv"], c["k_pool"], c["v_pool"], c["tables"],
@@ -225,20 +280,20 @@ def check_attention(pk, kind, group, dtype, poison, gen) -> float:
         out = pk.paged_verify_kernel(*args)
         torch.cuda.synchronize()
         ref = pk.paged_verify_plain(*args)
+        bad = dropped_split_ref(pk, *args)
         empty = None
-    # the last lane is inactive: its output is discarded by the model,
-    # so it only has to run without a fault
     live = out[:-1]
-    err = max_err(live, ref[:-1])
+    err, fault = paged_errs(out, ref, bad)
     ok = (
-        err <= ATTN_TOL[dtype]
+        err <= ATTN_TOL[dtype] < fault
         and bool(torch.isfinite(live).all())
         and float(live.float().abs().max()) < POISON / 10
         and (empty is None or bool((empty == 0).all()))
     )
+    what = "last page" if kind == "decode" else "last split"
     log(f"[check] paged_{kind} {str(dtype)[6:]} group={group} "
-        f"poison={poison} max_abs_err={err:.3g} tol={ATTN_TOL[dtype]} "
-        f"{'ok' if ok else 'FAIL'}")
+        f"poison={poison} max_abs_err={err:.3g} with the {what} dropped "
+        f"{fault:.3g} tol={ATTN_TOL[dtype]} {'ok' if ok else 'FAIL'}")
     require(ok, f"paged_{kind} {dtype} group={group} poison={poison}")
     return err
 
@@ -388,39 +443,64 @@ def bitwise_repeat(fn, runs: int = 3) -> bool:
     return all(torch.equal(a, b) for o in outs[1:] for a, b in zip(outs[0], o))
 
 
-def bwd_build_report(fa, d: int = 128):
-    """{kernel: registers, spills and shared memory per block} of the
-    bf16 backward kernels at head dim ``d``, from the ``-Xptxas -v`` log
-    (registers, spill bytes, static shared memory) and the launch's own
-    dynamic shared memory."""
+# kernel row name -> (source, a substring of the mangled name of the
+# bf16 instantiation at head dim 128)
+BUILT = {
+    "flash_fwd": ("flash_attention", "fwd_wgmmaILi128E"),
+    "flash_bwd_dkv": ("flash_attention_bwd", "dkv_wgmmaILi128E"),
+    "flash_bwd_dq": ("flash_attention_bwd", "dq_wgmmaILi128E"),
+    "paged_verify": ("paged_attention",
+                     "verify_splitI13__nv_bfloat16Li128ELi8E"),
+}
+
+
+def build_report(smem):
+    """{kernel row: registers, spills and shared memory per block} of the
+    Hopper-redesigned kernels from the ``-Xptxas -v`` log (registers,
+    spill bytes, static shared memory) and ``smem[kernel]``, the
+    launch's own dynamic shared memory."""
     from dlrover_tpu_torch.ops import _build
 
-    props, cur = {}, None
-    for line in _build.build_logs.get("flash_attention_bwd", "").splitlines():
-        m = re.search(r"(?:entry function '|Function properties for )"
-                      r"([\w$]+)", line)
-        if m:
-            cur = props.setdefault(m.group(1), {})
-            continue
-        if cur is None:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
-                      line)
-        if m:
-            cur["spill_stores"], cur["spill_loads"] = map(int, m.groups())
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            cur["registers"] = int(m.group(1))
-            m = re.search(r"(\d+) bytes smem", line)
-            cur["static_smem"] = int(m.group(1)) if m else 0
     report = {}
-    for kern, tag in (("flash_bwd_dkv", "dkv"), ("flash_bwd_dq", "dq")):
-        key = f"{tag}_wgmmaILi{d}E"
+    for kern, (source, key) in BUILT.items():
+        props, cur = {}, None
+        for line in _build.build_logs.get(source, "").splitlines():
+            m = re.search(r"(?:entry function '|Function properties for )"
+                          r"([\w$]+)", line)
+            if m:
+                cur = props.setdefault(m.group(1), {})
+                continue
+            if cur is None:
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = map(int,
+                                                              m.groups())
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                cur["static_smem"] = int(m.group(1)) if m else 0
         found = [v for n, v in props.items() if key in n]
         row = dict(found[0]) if found else {"ptxas": "not in the log"}
-        row["dynamic_smem"] = fa.bwd_smem_bytes(tag, d)
+        row["dynamic_smem"] = smem[kern]
         report[kern] = row
     return report
+
+
+def kernel_smem():
+    """The dynamic shared memory per block that each redesigned kernel's
+    launch asks for at the main paths' shapes (bf16, head dim 128; the
+    verify window's 4 rows over the serving pool's 16-key pages)."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.ops import paged_kernels as pk
+
+    return {"flash_fwd": fa.smem_bytes("fwd", 128),
+            "flash_bwd_dkv": fa.smem_bytes("dkv", 128),
+            "flash_bwd_dq": fa.smem_bytes("dq", 128),
+            "paged_verify": pk.verify_smem_bytes(
+                torch.bfloat16, 128, 4, pk.verify_plan(1, 4, 32, 128, 16)[0])}
 
 
 def flash_case(fa, dtype, b, s, kv, group, d, causal, gen):
@@ -508,10 +588,11 @@ def flash_checks():
 
 
 def flash_train_shape(fa, gen):
-    """The bf16 backward at the training path's shape [4, 2048, 32, 128]
-    causal on random inputs: three runs of each kernel equal bit for bit,
-    and its time against its bound and SDPA's backward (the captured
-    input of the training leg is checked and timed again there)."""
+    """B2-B4 in bf16 at the training path's shape [4, 2048, 32, 128]
+    causal on random inputs: three runs of each kernel equal bit for
+    bit, and its time against its bound and SDPA's forward and backward
+    (the captured input of the training leg is checked and timed again
+    there)."""
     import torch.nn.functional as F
 
     b, s, h, d = 4, 2048, 32, 128
@@ -522,31 +603,84 @@ def flash_train_shape(fa, gen):
     bargs = (q, k, v, dout, lse, fa.attention_delta(o, dout), None, True,
              scale)
     del o
-    same = {"flash_bwd_dkv": bitwise_repeat(
-                lambda: fa.flash_bwd_dkv_kernel(*bargs)),
-            "flash_bwd_dq": bitwise_repeat(
-                lambda: fa.flash_bwd_dq_kernel(*bargs))}
-    log(f"[check] flash backward [{b}, {s}, {h}, {d}] bf16 causal, random "
-        f"inputs, 3 runs equal bit for bit: {same}")
-    require(all(same.values()), "a flash backward kernel is not "
-            "deterministic")
-    ms = {"flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv_kernel(*bargs)),
-          "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_kernel(*bargs))}
-    bnd = {"flash_bwd_dkv": flash_bound_ms("dkv", q, k)[0],
+    fns = {"flash_fwd": lambda: fa.flash_fwd_kernel(q, k, v, True, scale),
+           "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_kernel(*bargs),
+           "flash_bwd_dq": lambda: fa.flash_bwd_dq_kernel(*bargs)}
+    same = {n: bitwise_repeat(fn) for n, fn in fns.items()}
+    log(f"[check] flash [{b}, {s}, {h}, {d}] bf16 causal, random inputs, "
+        f"3 runs of each kernel equal bit for bit: {same}")
+    require(all(same.values()), "a flash kernel is not deterministic")
+    ms = {n: cuda_ms(fn) for n, fn in fns.items()}
+    bnd = {"flash_fwd": flash_bound_ms("fwd", q, k)[0],
+           "flash_bwd_dkv": flash_bound_ms("dkv", q, k)[0],
            "flash_bwd_dq": flash_bound_ms("dq", q, k)[0]}
     qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
                   for t in (q, k, v))
+    with torch.no_grad():
+        sdpa_fwd_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
     out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     dout_t = dout.transpose(1, 2).contiguous()
     sdpa_ms = events_ms(lambda: torch.autograd.grad(
         out_t, (qt, kt, vt), dout_t, retain_graph=True))
-    log(f"[time] flash backward [{b}, {s}, {h}, {d}] bf16 causal, random "
-        f"inputs: " + " ".join(
-            f"{n} ms={ms[n]:.4f} bound_ms={bnd[n]:.4f} "
-            f"bound/ms={bnd[n] / ms[n]:.3f}" for n in ms)
-        + f" dkv+dq ms={sum(ms.values()):.4f} SDPA backward ms="
-        f"{sdpa_ms:.4f}; {bwd_build_report(fa)}")
-    del qt, kt, vt, out_t, dout_t, q, k, v, dout, lse, bargs
+    log(f"[time] flash [{b}, {s}, {h}, {d}] bf16 causal, random inputs: "
+        + " ".join(f"{n} ms={ms[n]:.4f} bound_ms={bnd[n]:.4f} "
+                   f"bound/ms={bnd[n] / ms[n]:.3f}" for n in ms)
+        + f" SDPA forward ms={sdpa_fwd_ms:.4f} dkv+dq ms="
+        f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f} SDPA backward ms="
+        f"{sdpa_ms:.4f}; {build_report(kernel_smem())}")
+    del qt, kt, vt, out_t, dout_t, q, k, v, dout, lse, bargs, fns
+    torch.cuda.empty_cache()
+
+
+def serving_window(gen, lanes=13, heads=32, head_dim=128, block_size=16,
+                   max_blocks=128, window=4):
+    """A verify window at the serving path's shape without the model:
+    Llama-2-7B's 32 KV heads of 128 over a 2049-block bf16 pool, 13
+    lanes at positions 142-1062 (prompts from the serving leg's seed plus
+    up to 64 new tokens), pages spread over the pool."""
+    rng = np.random.default_rng(SEED)
+    lens = rng.integers(128, 1025, size=16)[:lanes] + rng.integers(
+        0, 64, size=lanes)
+    num_blocks = 1 + 2048
+    shape = (num_blocks, block_size, heads, head_dim)
+    k_pool = torch.randn(shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    v_pool = torch.randn(shape, device="cuda", generator=gen).to(
+        torch.bfloat16)
+    perm = torch.from_numpy(1 + rng.permutation(2048)[:lanes * max_blocks])
+    tables = perm.reshape(lanes, max_blocks).to(torch.int32).cuda()
+    positions = torch.from_numpy(lens).to(torch.int32).cuda()
+    qv = torch.randn(lanes, window, heads, head_dim, device="cuda",
+                     generator=gen).to(torch.bfloat16)
+    return qv, k_pool, v_pool, tables, positions
+
+
+def paged_serving_shape(pk, gen):
+    """B6 at the serving shape on a synthetic window (``serving_window``):
+    against its plain version, three runs equal bit for bit, its time
+    beside its bound, the plain version and SDPA (the captured window of
+    the serving leg is checked and timed again there)."""
+    a = serving_window(gen)
+    out = pk.paged_verify_kernel(*a)
+    torch.cuda.synchronize()
+    ref = pk.paged_verify_plain(*a)
+    err, fault = max_err(out, ref), max_err(out, dropped_split_ref(pk, *a))
+    same = bitwise_repeat(lambda: pk.paged_verify_kernel(*a))
+    ok = err <= ATTN_TOL[torch.bfloat16] < fault and same
+    ms = cuda_ms(lambda: pk.paged_verify_kernel(*a))
+    plain_ms = cuda_ms(lambda: pk.paged_verify_plain(*a), reps=3)
+    lib_ms = cuda_ms(sdpa_decode_fn(*a, 4))
+    bnd = attn_bound_ms(a[0], a[1], a[4], 4)[0]
+    log(f"[check] paged_verify serving shape q={tuple(a[0].shape)} "
+        f"pos={a[4].tolist()} max_abs_err={err:.3g} with the last split "
+        f"dropped {fault:.3g} tol={ATTN_TOL[torch.bfloat16]}; 3 runs equal "
+        f"bit for bit: {same} {'ok' if ok else 'FAIL'}")
+    log(f"[time] paged_verify serving shape ms={ms:.4f} bound_ms={bnd:.4f} "
+        f"bound/ms={bnd / ms:.3f} plain_ms={plain_ms:.4f} library_ms="
+        f"{lib_ms:.4f}")
+    require(ok, "paged_verify at the serving shape")
+    del a, out, ref
     torch.cuda.empty_cache()
 
 
@@ -565,6 +699,7 @@ def kernel_checks():
             for group in (1, 4, 8):
                 for poison in (POISON, float("nan")):
                     check_attention(pk, kind, group, dtype, poison, gen)
+    paged_serving_shape(pk, gen)
 
 
 # ----------------------------------------------------------- main path
@@ -939,11 +1074,12 @@ def main_path(args):
         rms_bound_ms(x2, w),
     ))
 
-    for name, cap, window, replaces, kern, plain in (
+    report = build_report(kernel_smem())
+    for name, cap, window, replaces, kern, plain, faulted in (
         ("paged_decode", dec, None, "dlrover_tpu/ops/paged_kernels.py:128",
-         pk.paged_decode_kernel, pk.paged_decode_plain),
+         pk.paged_decode_kernel, pk.paged_decode_plain, dropped_page_ref),
         ("paged_verify", ver, 4, "dlrover_tpu/ops/paged_kernels.py:289",
-         pk.paged_verify_kernel, pk.paged_verify_plain),
+         pk.paged_verify_kernel, pk.paged_verify_plain, dropped_split_ref),
     ):
         a = cap.args
         out = kern(*a)
@@ -951,22 +1087,36 @@ def main_path(args):
         require(torch.equal(out, cap.out),
                 f"{name} rerun differs from the main path's output")
         err = max_err(out, ref)
+        fault = max_err(out, faulted(pk, *a))
         log(f"[captured] {name} q={tuple(a[0].shape)} "
-            f"lens/pos={a[4].tolist()} max_abs_err={err:.3g} "
-            f"tol={ATTN_TOL[a[0].dtype]}")
-        require(err <= ATTN_TOL[a[0].dtype], f"{name} on captured input")
-        rows.append(kernel_row(
+            f"lens/pos={a[4].tolist()} max_abs_err={err:.3g} with the "
+            f"{'last page' if window is None else 'last split'} dropped "
+            f"{fault:.3g} tol={ATTN_TOL[a[0].dtype]}")
+        require(err <= ATTN_TOL[a[0].dtype] < fault,
+                f"{name} on captured input, or its check cannot see the "
+                "planted fault")
+        if name == "paged_verify":
+            same = bitwise_repeat(lambda: kern(*a))
+            log(f"[check] paged_verify on the captured window, 3 runs equal "
+                f"bit for bit: {same}")
+            require(same, "paged_verify is not deterministic")
+        row = kernel_row(
             name, "dlrover_tpu_torch/ops/csrc/paged_attention.cu", replaces,
             launches[name], err, ATTN_TOL[a[0].dtype],
             lambda: kern(*a), lambda: plain(*a),
             sdpa_decode_fn(*a, window),
             attn_bound_ms(a[0], a[1], a[4], window),
-        ))
+        )
+        row["planted_fault_err"] = fault
+        if name in report:
+            row["build"] = report[name]
+        rows.append(row)
     for r in rows:
         log(f"[time] {r['name']} ms={r['ms']:.4f} plain_ms="
             f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
-            f"launches={r['launches']}")
+            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) bound/ms="
+            f"{r['bound_share']:.3f} launches={r['launches']} "
+            f"build={r.get('build', '-')}")
     return rows
 
 
@@ -1390,14 +1540,16 @@ def train_path(args):
         require(max(sound[n] for n in outs) <= 1.0
                 < max(fault[n] for n in outs),
                 f"{kern} on the captured input")
-    same = {"flash_bwd_dkv": bitwise_repeat(
+    same = {"flash_fwd": bitwise_repeat(
+                lambda: fa.flash_fwd_kernel(q, k, v, True, scale)),
+            "flash_bwd_dkv": bitwise_repeat(
                 lambda: fa.flash_bwd_dkv_kernel(*bargs)),
             "flash_bwd_dq": bitwise_repeat(
                 lambda: fa.flash_bwd_dq_kernel(*bargs))}
-    log(f"[check] flash backward on the captured input, 3 runs of each "
-        f"kernel equal bit for bit: {same}")
-    require(all(same.values()), "a flash backward kernel is not "
-            "deterministic on the captured input")
+    log(f"[check] flash on the captured input, 3 runs of each kernel "
+        f"equal bit for bit: {same}")
+    require(all(same.values()), "a flash kernel is not deterministic on "
+            "the captured input")
     del got, ref, o_ref, lse_ref, dk_ref, dv_ref, o, lse, dk, dv, dq
     torch.cuda.empty_cache()
 
@@ -1418,7 +1570,7 @@ def train_path(args):
         f"dk, dv in one call, eager, events) {sdpa_bwd_ms:.4f} ms")
 
     csrc = "dlrover_tpu_torch/ops/csrc/"
-    report = bwd_build_report(fa)
+    report = build_report(kernel_smem())
     for name, replaces, kind, fn, plain, lib in (
         ("flash_fwd", "dlrover_tpu/ops/flash_attention.py:42", "fwd",
          lambda: fa.flash_fwd_kernel(q, k, v, True, scale),

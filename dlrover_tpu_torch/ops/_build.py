@@ -12,10 +12,11 @@ takes seconds rather than the minutes of
 ``torch.utils.cpp_extension.load``.  All sources are compiled in
 parallel (one ``nvcc`` each, started together) at first CUDA use.
 
-The output is keyed by a hash of the source and the flags, so an edited
-kernel is rebuilt and an unchanged one is reused.  The build directory
-is ``build/dlrover_tpu_torch/`` at the root of the checkout (listed in
-``.gitignore``), or ``$DLROVER_TPU_TORCH_BUILD_DIR``.
+The output is keyed by a hash of the source, every header in ``csrc/``
+(``*.cuh``, which the sources include) and the flags, so an edited
+kernel or header is rebuilt and an unchanged one is reused.  The build
+directory is ``build/dlrover_tpu_torch/`` at the root of the checkout
+(listed in ``.gitignore``), or ``$DLROVER_TPU_TORCH_BUILD_DIR``.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the
 wrapper raises on a nonzero code (:func:`check`).  Importing this module
@@ -58,7 +59,8 @@ launches: Dict[str, int] = {
 }
 
 #: ``nvcc`` output of the last build of each source (``-Xptxas -v``
-#: register/shared-memory report when built with ``verbose=True``).
+#: register/shared-memory report when built with ``verbose=True``),
+#: kept beside the library and read back when the library is reused.
 build_logs: Dict[str, str] = {}
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -109,9 +111,12 @@ def find_nvcc() -> str:
 
 
 def _target(name: str, verbose: bool) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
     flags = " ".join(NVCC_FLAGS + (("-Xptxas", "-v") if verbose else ()))
-    digest = hashlib.sha256(src + flags.encode()).hexdigest()[:16]
+    h.update(flags.encode())
+    digest = h.hexdigest()[:16]
     return build_dir() / f"{name}-{digest}.so"
 
 
@@ -131,6 +136,9 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
         for name in todo:
             target = _target(name, verbose)
             if target.exists():
+                log = target.with_suffix(".log")
+                if log.exists():
+                    build_logs[name] = log.read_text()
                 continue
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
             cmd = [find_nvcc(), *NVCC_FLAGS]
@@ -151,6 +159,7 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
             if proc.returncode != 0:
                 failed.append(name)
                 continue
+            target.with_suffix(".log").write_text(build_logs[name])
             os.replace(tmp, target)
         if failed:
             raise RuntimeError(

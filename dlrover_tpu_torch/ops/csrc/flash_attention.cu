@@ -2,17 +2,18 @@
 //
 // Replaces the TPU kernel
 //   dlrover_tpu/ops/flash_attention.py:_flash_fwd_kernel      (B2, _flash_fwd)
-// The backward (B3, B4) is flash_attention_bwd.cu.
+// The backward (B3, B4) is flash_attention_bwd.cu; both include
+// hopper.cuh (mbarriers, TMA, wgmma, the tensor-map encoder).
 //
 // Layout: q, o [B, S, H, D]; k, v [B, S, KV, D] (H % KV == 0, query head
 // h reads KV head h / (H / KV)), all contiguous, so the public
 // [B, S, H, D] tensors are read in place (no transpose copy).  lse is
 // fp32 [B, H, S].
 //
-//   s = q k^T * scale (fp32), -1e30 where masked (col >= S, or col > row
-//   under causal), online softmax (m, l, acc in fp32), p cast to v's type
-//   before p v, o = acc / max(l, 1e-30) in q's type,
-//   lse = m + log(max(l, 1e-30)).
+//   s = q k^T * scale (fp32), masked where col >= S or (causal) col >
+//   row, online softmax (m, l, acc in fp32), p cast to v's type before
+//   p v, o = acc / max(l, 1e-30) in q's type, lse = m + log(max(l,
+//   1e-30)) (natural log: the backward reads it so).
 // Rows past S are zero-filled in shared memory and never read from device
 // memory, so garbage (NaN) past the end of a tensor cannot reach a
 // product.
@@ -20,38 +21,51 @@
 // What bounds it on the card: operations.  At Llama-2-7B training shapes
 // ([4, 32, 2048, 128] causal) the forward does 2 causal S x S x D
 // products against ~0.2 GB of inputs, far above the H100's ridge of ~295
-// operations per byte.  So the bf16 path runs on the tensor cores
-// (mma.sync m16n8k16, fp32 accumulators in registers) and causal tiles
-// above the diagonal are skipped.
+// operations per byte: the products have to reach the tensor cores at
+// their full rate, which on Hopper only wgmma does, and the tile loads
+// have to overlap them.  The first design (mma.sync from ldmatrix,
+// 64-row blocks of 4 warps, synchronous loads between two __syncthreads)
+// reached 15 % of that bound.
 //
-// Design (a first, simple design: no TMA, no wgmma, no pipelining):
-//   bf16: one block of 4 warps per (q tile of 64, head, batch).  Tiles
-//     are staged through shared memory (rows padded by 8 elements, so the
-//     8 rows an ldmatrix reads fall in distinct banks); each warp owns 16
-//     rows of the block's tile, loads its fragments with ldmatrix (.trans
-//     for v in p v) and keeps its accumulators in registers.  The fp32
-//     score fragment is re-packed in registers as the bf16 A operand of
-//     p v.
-//   fp32: the same grid with 32-row tiles and plain FMA (no TF32): the
-//     score tile goes through shared memory, each thread owns a quarter
-//     of one output row in registers.
+// bf16 design: one block per (q tile of 128, head, batch) of two consumer
+// warpgroups (64 rows each) and one producer warp.  One producer thread
+// loads Q once and streams K and V tiles of 128 keys by TMA, up to the
+// diagonal, through a ring of kFwdStages stages: 4-D tensor maps (D,
+// heads, S, B) over the tensors in place, boxes of 64 columns with the
+// 128-byte swizzle, rows past S arriving as zeros.  K and V of a stage
+// each have their own "full" mbarrier, so Q K^T starts before V lands;
+// an "empty" one collects every consumer warp.  Per tile a warpgroup
+//   s = Q K^T     SS wgmma (both operands K-major in shared memory),
+//   online softmax in registers, in log2 units (scale * log2 e folded
+//     into one FMA before ex2.approx); only the tiles that touch the
+//     diagonal or the sequence end are masked,
+//   o += p V      RS wgmma: p rounded to bf16 and packed in registers as
+//     the A operand, V read MN-major through the transpose bit.
+// A warpgroup holds one 64 x D fp32 sum and one 64 x 128 score tile.  The
+// epilogue writes o through the warpgroup's own (now free) rows of the Q
+// tile in shared memory, so the stores to device memory are 16-byte and
+// row-contiguous.  The tile is the fastest launch index, heaviest causal
+// tiles first, so the blocks of one head run together and share their
+// K/V tiles in L2.  No atomics: o and lse are deterministic.
+// fp32: plain FMA (no TF32), 32-row tiles, one block of 4 warps per (q
+// tile, head, batch): the score tile goes through shared memory, each
+// thread owns a quarter of one output row in registers.
 // D must be 64 or 128 (the wrapper checks).
 //
 // C interface (ctypes): the entry returns cudaGetLastError() after its
 // launch.  The caller allocates every output; the kernel launches on
-// `stream` and allocates nothing.
+// `stream` and allocates nothing.  The tensor maps are encoded on the
+// host at each call, through the driver's entry point (no -lcuda).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
-typedef __nv_bfloat16 bf16;
-
 constexpr float kNegInf = -1e30f;
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;  // the fp32 kernel
 
 // ------------------------------------------------------------ helpers
 
@@ -75,47 +89,6 @@ __device__ __forceinline__ float round_to(float x) {
   return to_f(from_f<T>(x));
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// c += a * b, m16n8k16, bf16 in, fp32 accumulate.
-// a: rows g / g+8, k cols 2t..2t+1 / +8; b: k rows 2t..2t+1 / +8, col g;
-// c: rows g (c0, c1) and g+8 (c2, c3), cols 2t, 2t+1
-// (g = lane / 4, t = lane % 4).
-__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2,
-                                         uint32_t a3, uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
-}
-
-// Copy `rows` rows of D elements starting at row r0 (row stride `stride`
-// elements in device memory) into shared memory with row stride LD;
-// rows at or past S are zero-filled.  16-byte vectors (LD * sizeof(T)
-// is a multiple of 16).
-template <typename T, int D, int LD>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0,
-                                          int rows, int S, int64_t stride) {
-  constexpr int kVec = 16 / sizeof(T);
-  constexpr int kPerRow = D / kVec;
-  for (int i = threadIdx.x; i < rows * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < S) {
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * stride + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * LD + c) = val;
-  }
-}
-
 __device__ __forceinline__ float quad_max(float v) {
   v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
   return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
@@ -132,209 +105,225 @@ struct Shape {
   int causal;
 };
 
-// =================================================== bf16, tensor cores
+// ====================================================== bf16, Hopper
 
-constexpr int kTile = 64;  // q and k tiles
+constexpr int kFwdStages = 2;     // depth of the ring of K/V tiles
+constexpr int kRows = 64;         // q rows of a consumer warpgroup
+constexpr int kBlockRows = 128;   // q rows of a block (two consumers)
+constexpr int kKeys = 128;        // keys of a streamed K/V tile
+constexpr float kLn2 = 0.6931471805599453f;
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  mma_bf16(c, a[0], a[1], a[2], a[3], b0, b1);
+// The block's shared memory from a 1024-byte aligned base (the swizzle
+// atoms); byte offsets.
+template <int D>
+struct FwdSmem {
+  static constexpr int kTile = kKeys * D * 2;          // one K or V tile
+  static constexpr int kQ = 0;                         // 128 rows, then o
+  static constexpr int kK = kQ + kBlockRows * D * 2;   // ring
+  static constexpr int kV = kK + kFwdStages * kTile;   // ring
+  static constexpr int kBar = kV + kFwdStages * kTile;  // full K, full V,
+                                                        // empty, once
+  static constexpr int kBytes = kBar + (3 * kFwdStages + 1) * 8 + 1024;
+};
+
+// A consumer warp is done with a stage of the ring (every warp of both
+// consumers arrives).
+__device__ __forceinline__ void release(uint32_t empty, int st, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty + 8 * st);
 }
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+// the 128 threads of one consumer warpgroup (named barrier `id`)
+__device__ __forceinline__ void warpgroup_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kWg) : "memory");
 }
-
-// Four 8x8 b16 matrices from shared memory, one row address per lane
-// (lanes 8i..8i+7 give the rows of matrix i); `.trans` hands each
-// thread the transposed elements.
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_u32(p))
-      : "memory");
-}
-
-// A fragment of the 16 x 16 tile at (row r0, col c0) of a row-major tile
-// with row stride LD.
-template <int LD>
-__device__ __forceinline__ void frag_a(uint32_t (&a)[4], const bf16* s,
-                                       int r0, int c0, int lane) {
-  ldsm_x4(a, s + (r0 + (lane & 15)) * LD + c0 + (lane >> 4) * 8);
-}
-
-// B fragments of two n-tiles (n0, n0 + 8) at k-step c0, from a tile
-// whose rows are n and whose columns are k (k^T for q k^T): b[0], b[1]
-// for n-tile n0, b[2], b[3] for n0 + 8.
-template <int LD>
-__device__ __forceinline__ void frag_b_nk(uint32_t (&b)[4], const bf16* s,
-                                          int n0, int c0, int lane) {
-  ldsm_x4(b, s + (n0 + (lane & 7) + (lane >> 4) * 8) * LD + c0 +
-                 ((lane >> 3) & 1) * 8);
-}
-
-// B fragments of two n-tiles (n0, n0 + 8) at k rows k0..k0+15, from a
-// tile whose rows are k and whose columns are n (v for p v): the
-// transposed load.
-template <int LD>
-__device__ __forceinline__ void frag_b_kn(uint32_t (&b)[4], const bf16* s,
-                                          int k0, int n0, int lane) {
-  ldsm_x4_t(b, s + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD + n0 +
-                   (lane >> 4) * 8);
-}
-
-// The fp32 accumulators of n-tiles 2j, 2j+1 re-packed as the bf16 A
-// fragment of k-step j of the next product.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4],
-                                         const float (&lo)[4],
-                                         const float (&hi)[4]) {
-  a[0] = pack_bf16(lo[0], lo[1]);
-  a[1] = pack_bf16(lo[2], lo[3]);
-  a[2] = pack_bf16(hi[0], hi[1]);
-  a[3] = pack_bf16(hi[2], hi[3]);
-}
-
-// ------------------------------------------------------------ forward
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-    fwd_mma(const bf16* __restrict__ q, const bf16* __restrict__ k,
-            const bf16* __restrict__ v, bf16* __restrict__ o,
-            float* __restrict__ lse, Shape sh) {
-  constexpr int LD = D + 8;
-  constexpr int NT = kTile / 8;  // score n-tiles per k tile
-  constexpr int KD = D / 16;     // k-steps over D
-  constexpr int ND = D / 8;      // output n-tiles over D
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + kTile * LD;
-  bf16* sV = sK + kTile * LD;
+__global__ void __launch_bounds__(kHopperThreads, 1)
+    fwd_wgmma(const __grid_constant__ CUtensorMap tm_q,
+              const __grid_constant__ CUtensorMap tm_k,
+              const __grid_constant__ CUtensorMap tm_v, bf16* __restrict__ o,
+              float* __restrict__ lse, Shape sh) {
+  using L = FwdSmem<D>;
+  constexpr int KD = D / 16;      // k-slices of s = Q K^T
+  constexpr int KN = kKeys / 16;  // k-slices of o += p V
+  extern __shared__ __align__(16) unsigned char fwd_smem[];
+  const uint32_t base = (smem_u32(fwd_smem) + 1023) & ~1023u;
+  unsigned char* gbase = fwd_smem + (base - smem_u32(fwd_smem));
+  const uint32_t full_k = base + L::kBar;
+  const uint32_t full_v = full_k + 8 * kFwdStages;
+  const uint32_t empty = full_v + 8 * kFwdStages;
+  const uint32_t once = empty + 8 * kFwdStages;
 
-  const int S = sh.S, H = sh.H, KV = sh.KV;
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int q0 = qt * kTile;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;
-  const int64_t qs = static_cast<int64_t>(H) * D;   // q row stride
-  const int64_t ks = static_cast<int64_t>(KV) * D;  // k/v row stride
-  const bf16* qb = q + (static_cast<int64_t>(b) * S * H + h) * D;
-  const bf16* kb = k + (static_cast<int64_t>(b) * S * KV + kvh) * D;
-  const bf16* vb = v + (static_cast<int64_t>(b) * S * KV + kvh) * D;
+  const int S = sh.S, H = sh.H;
+  // the q tiles of one head are neighbours in the launch order, so the
+  // K/V tiles they all read stay in L2; heaviest causal tiles (the last)
+  // first
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int qt = sh.causal ? gridDim.x - 1 - blockIdx.x : blockIdx.x;
+  const int q0 = qt * kBlockRows;
+  const int kvh = h / (H / sh.KV);
+  const int nk = (S + kKeys - 1) / kKeys;
+  const int n_k =
+      sh.causal ? min(nk, (q0 + kBlockRows + kKeys - 1) / kKeys) : nk;
+  const int wg = threadIdx.x / kWg;
 
-  load_rows<bf16, D, LD>(sQ, qb, q0, kTile, S, qs);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(full_k + 8 * s, 1);
+      mbar_init(full_v + 8 * s, 1);
+      mbar_init(empty + 8 * s, 2 * 4);  // one arrival per consumer warp
+    }
+    mbar_init(once, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  const int wr = warp * 16;  // warp's first row in the tile
-  uint32_t qa[KD][4];
-#pragma unroll
-  for (int kk = 0; kk < KD; ++kk) frag_a<LD>(qa[kk], sQ, wr, kk * 16, lane);
-  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
-  float m[2] = {kNegInf, kNegInf};
-  float l[2] = {0.f, 0.f};  // this thread's share of the row sums
-  float acc[ND][4];
-#pragma unroll
-  for (int j = 0; j < ND; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
 
-  const int nk = (S + kTile - 1) / kTile;
-  const int kt_end = sh.causal ? min(nk, qt + 1) : nk;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rows<bf16, D, LD>(sK, kb, k0, kTile, S, ks);
-    load_rows<bf16, D, LD>(sV, vb, k0, kTile, S, ks);
-    __syncthreads();
-
-    float s[NT][4];
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt) s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KD; ++kk) {
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bk[4];
-        frag_b_nk<LD>(bk, sK, np * 16, kk * 16, lane);
-        mma_bf16(s[2 * np], qa[kk], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qa[kk], bk[2], bk[3]);
+  if (wg == 2) {  // the producer warp
+    if (threadIdx.x == 2 * kWg) {
+      mbar_arrive_tx(once, kBlockRows * D * 2);
+      tma_tile<D>(base + L::kQ, &tm_q, once, h, q0, b, kBlockRows);
+      for (int it = 0; it < n_k; ++it) {
+        const int st = it % kFwdStages;
+        mbar_wait(empty + 8 * st, ((it / kFwdStages) & 1) ^ 1);
+        mbar_arrive_tx(full_k + 8 * st, kKeys * D * 2);
+        tma_tile<D>(base + L::kK + st * L::kTile, &tm_k, full_k + 8 * st,
+                    kvh, it * kKeys, b, kKeys);
+        mbar_arrive_tx(full_v + 8 * st, kKeys * D * 2);
+        tma_tile<D>(base + L::kV + st * L::kTile, &tm_v, full_v + 8 * st,
+                    kvh, it * kKeys, b, kKeys);
       }
     }
-    float mx[2] = {kNegInf, kNegInf};
+    return;
+  }
+
+  // consumers: warpgroup wg owns rows r_wg..r_wg + 63 of the q tile
+  const int tid = threadIdx.x % kWg;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r_wg = q0 + wg * kRows;
+  const int row[2] = {r_wg + warp * 16 + g, r_wg + warp * 16 + g + 8};
+  const float sl2 = sh.scale * kLog2e;
+  // the last key a row may see
+  int last[2];
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
+  for (int i = 0; i < 2; ++i) {
+    last[i] = sh.causal ? min(row[i], S - 1) : S - 1;
+  }
+  float m[2] = {kNegInf, kNegInf};  // running max of s * scale * log2 e
+  float l[2] = {0.f, 0.f};          // this thread's share of the row sums
+  float acc[D / 2];
+  zero(acc);
+  mbar_wait(once, 0);
+
+  for (int it = 0; it < n_k; ++it) {
+    const int st = it % kFwdStages;
+    const uint32_t par = (it / kFwdStages) & 1;
+    const int k0 = it * kKeys;
+    const uint32_t sK = base + L::kK + st * L::kTile;
+    const uint32_t sV = base + L::kV + st * L::kTile;
+    float s[kKeys / 2];
+    zero(s);
+    mbar_wait(full_k + 8 * st, par);
+    reg_fence(s);
+    wgmma_fence();
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = row[e >> 1];
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        float x = s[nt][e] * sh.scale;
-        if (col >= S || (sh.causal && col > r)) x = kNegInf;
-        s[nt][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    for (int kk = 0; kk < KD; ++kk) {
+      wgmma_ss(s, desc_k<kBlockRows>(base + L::kQ, wg * kRows, kk),
+               desc_k<kKeys>(sK, 0, kk), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(s);
+    // a tile inside the causal triangle and the sequence needs no mask
+    if ((sh.causal && k0 + kKeys - 1 > r_wg) || k0 + kKeys > S) {
+#pragma unroll
+      for (int j = 0; j < kKeys / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = k0 + j * 8 + 2 * t + (e & 1);
+          if (col > last[e >> 1]) s[4 * j + e] = -INFINITY;
+        }
       }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int x = 0; x < kKeys / 2; ++x) {
+      mx[(x >> 1) & 1] = fmaxf(mx[(x >> 1) & 1], s[x]);
     }
     float alpha[2];
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(m[i], quad_max(mx[i]));
-      alpha[i] = expf(m[i] - m_new);
+      const float m_new = fmaxf(m[i], quad_max(mx[i]) * sl2);
+      alpha[i] = ex2(m[i] - m_new);
       m[i] = m_new;
       l[i] *= alpha[i];
     }
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(s[nt][e] - m[e >> 1]);
-        l[e >> 1] += p;
-        s[nt][e] = p;
-      }
+    for (int x = 0; x < kKeys / 2; ++x) {
+      const int i = (x >> 1) & 1;
+      const float p = ex2(fmaf(s[x], sl2, -m[i]));
+      l[i] += p;
+      s[x] = p;
     }
 #pragma unroll
-    for (int j = 0; j < ND; ++j) {
-      acc[j][0] *= alpha[0];
-      acc[j][1] *= alpha[0];
-      acc[j][2] *= alpha[1];
-      acc[j][3] *= alpha[1];
-    }
-    // acc += p v: the score fragments as A, v through the transposed load
+    for (int x = 0; x < D / 2; ++x) acc[x] *= alpha[(x >> 1) & 1];
+    // o += p V, p as the bf16 A operand in registers
+    uint32_t a[KN][4];
 #pragma unroll
-    for (int j = 0; j < kTile / 16; ++j) {
-      uint32_t pa[4];
-      acc_to_a(pa, s[2 * j], s[2 * j + 1]);
+    for (int kk = 0; kk < KN; ++kk) acc_to_a(a[kk], s, kk);
+    mbar_wait(full_v + 8 * st, par);
+    reg_fence(acc);
+    wgmma_fence();
 #pragma unroll
-      for (int dp = 0; dp < ND / 2; ++dp) {
-        uint32_t bv[4];
-        frag_b_kn<LD>(bv, sV, j * 16, dp * 16, lane);
-        mma_bf16(acc[2 * dp], pa, bv[0], bv[1]);
-        mma_bf16(acc[2 * dp + 1], pa, bv[2], bv[3]);
-      }
+    for (int kk = 0; kk < KN; ++kk) {
+      wgmma_rs(acc, a[kk], desc_mn<kKeys>(sV, kk));
     }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(acc);
+    release(empty, st, lane);
   }
 
-  bf16* ob = o + (static_cast<int64_t>(b) * S * H + h) * D;
+  // o = acc / max(l, 1e-30) into the warpgroup's rows of the Q tile (its
+  // last product has read them), swizzled as TMA wrote Q: the 16-byte
+  // chunk c of row r at chunk c ^ (r % 8), so a warp's stores hit 32
+  // distinct banks
+  float inv[2];
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
-    const float denom = fmaxf(quad_sum(l[i]), 1e-30f);
-    const float inv = 1.f / denom;
-    if (row[i] < S) {
+    const float den = fmaxf(quad_sum(l[i]), 1e-30f);
+    inv[i] = 1.f / den;
+    if (t == 0 && row[i] < S) {
+      lse[(static_cast<int64_t>(b) * H + h) * S + row[i]] =
+          m[i] * kLn2 + logf(den);
+    }
+  }
+  unsigned char* s_o = gbase + L::kQ;
 #pragma unroll
-      for (int dn = 0; dn < ND; ++dn) {
-        *reinterpret_cast<uint32_t*>(ob + row[i] * qs + dn * 8 + 2 * t) =
-            pack_bf16(acc[dn][2 * i] * inv, acc[dn][2 * i + 1] * inv);
-      }
-      if (t == 0) {
-        lse[(static_cast<int64_t>(b) * H + h) * S + row[i]] =
-            m[i] + logf(denom);
-      }
+  for (int i = 0; i < 2; ++i) {
+    const int r = wg * kRows + warp * 16 + g + 8 * i;  // row of the tile
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const int off = (j >> 3) * kBlockRows * 128 + r * 128 +
+                      (((j & 7) ^ (r & 7)) << 4) + 4 * t;
+      *reinterpret_cast<uint32_t*>(s_o + off) =
+          pack_bf16(acc[4 * j + 2 * i] * inv[i],
+                    acc[4 * j + 2 * i + 1] * inv[i]);
+    }
+  }
+  warpgroup_sync(1 + wg);
+  // 16-byte chunks, consecutive threads along a row
+  constexpr int kChunks = D / 8;
+  const int64_t qs = static_cast<int64_t>(H) * D;
+  bf16* ob = o + (static_cast<int64_t>(b) * S * H + h) * D;
+  for (int c = tid; c < kRows * kChunks; c += kWg) {
+    const int r = wg * kRows + c / kChunks, j = c % kChunks;
+    if (q0 + r < S) {
+      const int off =
+          (j >> 3) * kBlockRows * 128 + r * 128 + (((j & 7) ^ (r & 7)) << 4);
+      *reinterpret_cast<uint4*>(ob + (q0 + r) * qs + j * 8) =
+          *reinterpret_cast<const uint4*>(s_o + off);
     }
   }
 }
@@ -458,33 +447,25 @@ __global__ void __launch_bounds__(kThreads)
 
 // ----------------------------------------------------------- dispatch
 
-// Opt a kernel into more than 48 KB of dynamic shared memory, once per
-// instantiation (before any CUDA-graph capture: the first call is eager).
-template <typename K>
-cudaError_t allow_smem(K* kern, size_t bytes, bool& done) {
-  if (done) return cudaSuccess;
-  const cudaError_t e = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(bytes));
-  done = e == cudaSuccess;
-  return e;
-}
-
-inline int tiles(int S, int t) { return (S + t - 1) / t; }
-
 template <int D>
 cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, Shape sh, int dtype,
                        cudaStream_t st) {
   float* l = static_cast<float*>(lse);
   if (dtype == 1) {
+    CUtensorMap m[3];
+    if (!tensor_map(&m[0], q, B, sh.S, sh.H, D, kBlockRows) ||
+        !tensor_map(&m[1], k, B, sh.S, sh.KV, D, kKeys) ||
+        !tensor_map(&m[2], v, B, sh.S, sh.KV, D, kKeys)) {
+      return cudaErrorInvalidValue;
+    }
     static bool done = false;
-    const size_t smem = 3 * kTile * (D + 8) * sizeof(bf16);
-    cudaError_t e = allow_smem(fwd_mma<D>, smem, done);
+    const size_t smem = FwdSmem<D>::kBytes;
+    cudaError_t e = allow_smem(fwd_wgmma<D>, smem, done);
     if (e != cudaSuccess) return e;
-    fwd_mma<D><<<dim3(tiles(sh.S, kTile), sh.H, B), kThreads, smem, st>>>(
-        static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-        static_cast<const bf16*>(v), static_cast<bf16*>(o), l, sh);
+    fwd_wgmma<D><<<dim3(tiles(sh.S, kBlockRows), sh.H, B), kHopperThreads,
+                   smem, st>>>(m[0], m[1], m[2], static_cast<bf16*>(o), l,
+                               sh);
   } else if (dtype == 0) {
     static bool done = false;
     const size_t smem = (3 * kT * (D + 1) + kT * kSL + 2 * kT) * sizeof(float);
@@ -497,11 +478,6 @@ cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
     return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
-}
-
-bool bad_shape(int B, int S, int H, int KV) {
-  return B < 1 || B > 65535 || S < 1 || KV < 1 || H < KV || H % KV != 0 ||
-         H > 65535;
 }
 
 }  // namespace
@@ -519,6 +495,14 @@ int dl_flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (D == 64) return fwd_launch<64>(q, k, v, o, lse, B, sh, dtype, st);
   if (D == 128) return fwd_launch<128>(q, k, v, o, lse, B, sh, dtype, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory of one bf16 block, for the build report; -1
+// for a D the kernel does not take.
+int dl_flash_fwd_smem(int D) {
+  if (D == 64) return FwdSmem<64>::kBytes;
+  if (D == 128) return FwdSmem<128>::kBytes;
+  return -1;
 }
 
 const char* dl_error_string(int code) {

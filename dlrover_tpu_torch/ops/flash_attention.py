@@ -122,6 +122,8 @@ DQ_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
 
 #: ``dl_flash_bwd_smem(dkv, D)``
 SMEM_ARGTYPES = [ctypes.c_int, ctypes.c_int]
+#: ``dl_flash_fwd_smem(D)``
+FWD_SMEM_ARGTYPES = [ctypes.c_int]
 
 
 def _check(q, k, v, what, *rest):
@@ -222,9 +224,15 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, glse, causal, scale):
     return dq
 
 
-def bwd_smem_bytes(kind: str, d: int) -> int:
-    """Dynamic shared memory of one bf16 backward block (``kind`` "dkv"
-    or "dq"), as the launch asks for it (builds the library)."""
+def smem_bytes(kind: str, d: int) -> int:
+    """Dynamic shared memory of one bf16 block of a kernel (``kind``
+    "fwd", "dkv" or "dq"), as the launch asks for it (builds the
+    library)."""
+    if kind == "fwd":
+        fn = _build.library("flash_attention").dl_flash_fwd_smem
+        fn.restype = ctypes.c_int
+        fn.argtypes = FWD_SMEM_ARGTYPES
+        return fn(d)
     fn = _build.library("flash_attention_bwd").dl_flash_bwd_smem
     fn.restype = ctypes.c_int
     fn.argtypes = SMEM_ARGTYPES

@@ -1,5 +1,6 @@
-"""Paged decode and K-step verify attention: the CUDA kernel
-``ops/csrc/paged_attention.cu`` and its plain PyTorch versions.
+"""Paged decode and K-step verify attention: the CUDA kernels of
+``ops/csrc/paged_attention.cu`` (decode: ``dl_paged_attention``; verify:
+the split-KV ``dl_paged_verify``) and their plain PyTorch versions.
 
 Port of ``dlrover_tpu/ops/paged_kernels.py:128-452``
 (``paged_decode_kernel``, ``paged_verify_kernel``).  Layouts are the
@@ -89,7 +90,34 @@ ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
 ]
 
 
-def _check_inputs(q, k_pool, v_pool, block_tables, lens, what):
+#: ``dl_paged_verify(q, k_pool, v_pool, out, tables, positions, ws_m,
+#: ws_l, ws_acc, B, C, H, KV, D, bs, MB, pages, scale, dtype, stream)``
+VERIFY_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+]
+
+#: ``dl_paged_verify_smem(dtype, D, rows, pages)``
+VERIFY_SMEM_ARGTYPES = [ctypes.c_int] * 4
+
+#: Keys per split of the verify kernel, rounded down to whole pages (at
+#: least one page).
+SPLIT_KEYS = 128
+
+
+def verify_plan(batch, rows, kv, max_blocks, block_size):
+    """Sizing of the split-KV verify kernel from shapes alone (the host
+    never reads the positions): ``(pages per split, splits, workspace
+    shape)``.  Each lane's table of ``max_blocks`` pages is cut into
+    ``splits`` splits of ``pages`` pages; the fp32 workspace holds each
+    split's running max and sum per row, ``[batch, kv, splits, rows]``
+    (``rows = C * H / KV``), and its accumulator, that shape plus
+    ``head_dim``."""
+    pages = max(1, SPLIT_KEYS // block_size)
+    splits = -(-max_blocks // pages)
+    return pages, splits, (batch, kv, splits, rows)
+
+
+def _check_inputs(q, k_pool, v_pool, block_tables, lens, what, align=None):
     if q.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what} kernel takes fp32/bf16, got {q.dtype}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
@@ -110,8 +138,9 @@ def _check_inputs(q, k_pool, v_pool, block_tables, lens, what):
         )
     if d not in (32, 64, 128, 256):
         raise ValueError(f"{what} kernel takes head_dim 32/64/128/256")
-    # each lane loads its d/32 elements of a row as one vector
-    vec = d // 32 * q.element_size()
+    # decode: each lane loads its d/32 elements of a row as one vector;
+    # verify: 16-byte cp.async copies of the pools' rows
+    vec = align or d // 32 * q.element_size()
     if any(t.data_ptr() % vec for t in (q, k_pool, v_pool)):
         raise ValueError(f"{what} kernel needs {vec}-byte aligned rows")
     if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
@@ -120,13 +149,11 @@ def _check_inputs(q, k_pool, v_pool, block_tables, lens, what):
         raise ValueError(f"{what}: lengths/positions must be [B]")
 
 
-def _launch(q, k_pool, v_pool, block_tables, lens, decode):
-    what = "paged_decode" if decode else "paged_verify"
-    _check_inputs(q, k_pool, v_pool, block_tables, lens, what)
+def _launch_decode(q, k_pool, v_pool, block_tables, seq_lens):
+    what = "paged_decode"
+    _check_inputs(q, k_pool, v_pool, block_tables, seq_lens, what)
     out = torch.empty_like(q)
-    b = q.shape[0]
-    c = 1 if decode else q.shape[1]
-    nh, d = q.shape[-2], q.shape[-1]
+    b, nh, d = q.shape[0], q.shape[-2], q.shape[-1]
     _, bs, nkv, _ = k_pool.shape
     mb = block_tables.shape[1]
     if b == 0:
@@ -137,13 +164,53 @@ def _launch(q, k_pool, v_pool, block_tables, lens, decode):
     fn.argtypes = ARGTYPES
     code = fn(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
-        _build.ptr(out), _build.ptr(block_tables), _build.ptr(lens),
-        int(decode), b, c, nh, nkv, d, bs, mb, float(d ** -0.5),
+        _build.ptr(out), _build.ptr(block_tables), _build.ptr(seq_lens),
+        1, b, 1, nh, nkv, d, bs, mb, float(d ** -0.5),
         _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
     )
     _build.check(code, lib, what)
     _build.launches[what] += 1
     return out
+
+
+def _launch_verify(q, k_pool, v_pool, block_tables, positions):
+    what = "paged_verify"
+    _check_inputs(q, k_pool, v_pool, block_tables, positions, what,
+                  align=16)
+    out = torch.empty_like(q)
+    b, c, nh, d = q.shape
+    _, bs, nkv, _ = k_pool.shape
+    mb = block_tables.shape[1]
+    if b == 0:
+        return out
+    pages, _, shape = verify_plan(b, c * (nh // nkv), nkv, mb, bs)
+    ws_m = torch.empty(shape, dtype=torch.float32, device=q.device)
+    ws_l = torch.empty_like(ws_m)
+    ws_acc = torch.empty(*shape, d, dtype=torch.float32, device=q.device)
+    lib = _build.library("paged_attention")
+    fn = lib.dl_paged_verify
+    fn.restype = ctypes.c_int
+    fn.argtypes = VERIFY_ARGTYPES
+    code = fn(
+        _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
+        _build.ptr(out), _build.ptr(block_tables), _build.ptr(positions),
+        _build.ptr(ws_m), _build.ptr(ws_l), _build.ptr(ws_acc),
+        b, c, nh, nkv, d, bs, mb, pages, float(d ** -0.5),
+        _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
+    )
+    _build.check(code, lib, what)
+    _build.launches[what] += 1
+    return out
+
+
+def verify_smem_bytes(dtype, d, rows, pages):
+    """Dynamic shared memory of one verify block at ``rows`` query rows
+    and ``pages`` pages per split, as the launch asks for it (builds the
+    library)."""
+    fn = _build.library("paged_attention").dl_paged_verify_smem
+    fn.restype = ctypes.c_int
+    fn.argtypes = VERIFY_SMEM_ARGTYPES
+    return fn(_build.DTYPE_CODES[dtype], d, rows, pages)
 
 
 def paged_decode_kernel(q, k_pool, v_pool, block_tables, seq_lens):
@@ -152,15 +219,17 @@ def paged_decode_kernel(q, k_pool, v_pool, block_tables, seq_lens):
     for CPU tensors."""
     if _build.on_cpu(q, k_pool, v_pool, block_tables, seq_lens):
         return paged_decode_plain(q, k_pool, v_pool, block_tables, seq_lens)
-    return _launch(q, k_pool, v_pool, block_tables, seq_lens, decode=True)
+    return _launch_decode(q, k_pool, v_pool, block_tables, seq_lens)
 
 
 def paged_verify_kernel(q, k_pool, v_pool, block_tables, positions):
     """Fused K-step verify, ``q [B, C, H, D]`` -> ``[B, C, H, D]``: one
     paged-prefix pass serves every window position of a lane.  The
-    CUDA kernel for CUDA tensors, the plain version for CPU tensors."""
+    split-KV CUDA kernel (a pass per split of the lane's pages, then a
+    merge of the splits) for CUDA tensors, the plain version for CPU
+    tensors."""
     if _build.on_cpu(q, k_pool, v_pool, block_tables, positions):
         return paged_verify_plain(
             q, k_pool, v_pool, block_tables, positions
         )
-    return _launch(q, k_pool, v_pool, block_tables, positions, decode=False)
+    return _launch_verify(q, k_pool, v_pool, block_tables, positions)

@@ -164,6 +164,23 @@ def test_build_target_is_keyed_by_source_and_flags(monkeypatch, tmp_path):
         "build/") == 1
 
 
+def test_build_target_changes_when_a_header_changes(monkeypatch, tmp_path):
+    """The sources include ``hopper.cuh``: an edit to a header must
+    rebuild every library, not reuse one built from the old header."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(PKG / "ops" / "csrc", csrc)
+    assert (csrc / "hopper.cuh").exists()
+    monkeypatch.setattr(_build, "CSRC", csrc)
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path / "build"))
+    before = {n: _build._target(n, verbose=False) for n in _build.SOURCES}
+    with open(csrc / "hopper.cuh", "a") as f:
+        f.write("// edited\n")
+    after = {n: _build._target(n, verbose=False) for n in _build.SOURCES}
+    assert all(before[n] != after[n] for n in _build.SOURCES)
+    assert after == {n: _build._target(n, verbose=False)
+                     for n in _build.SOURCES}
+
+
 _CTYPE = {"const void*": "c_void_p", "void*": "c_void_p",
           "int": "c_int", "float": "c_float",
           "int64_t": ctypes.c_int64.__name__}
@@ -181,8 +198,14 @@ def _c_signature(source: str, fn: str):
      "ARGTYPES"),
     ("paged_attention", "dl_paged_attention",
      "dlrover_tpu_torch.ops.paged_kernels", "ARGTYPES"),
+    ("paged_attention", "dl_paged_verify",
+     "dlrover_tpu_torch.ops.paged_kernels", "VERIFY_ARGTYPES"),
+    ("paged_attention", "dl_paged_verify_smem",
+     "dlrover_tpu_torch.ops.paged_kernels", "VERIFY_SMEM_ARGTYPES"),
     ("flash_attention", "dl_flash_fwd",
      "dlrover_tpu_torch.ops.flash_attention", "FWD_ARGTYPES"),
+    ("flash_attention", "dl_flash_fwd_smem",
+     "dlrover_tpu_torch.ops.flash_attention", "FWD_SMEM_ARGTYPES"),
     ("flash_attention_bwd", "dl_flash_bwd_dkv",
      "dlrover_tpu_torch.ops.flash_attention", "DKV_ARGTYPES"),
     ("flash_attention_bwd", "dl_flash_bwd_dq",
@@ -218,10 +241,41 @@ def test_flash_backward_entries_live_in_their_own_source(fn):
     assert set(where.values()) == {0}
 
 
+@pytest.mark.parametrize("fn,source", [
+    ("dl_flash_fwd", "flash_attention"),
+    ("dl_flash_fwd_smem", "flash_attention"),
+    ("dl_flash_bwd_dkv", "flash_attention_bwd"),
+    ("dl_flash_bwd_dq", "flash_attention_bwd"),
+    ("dl_flash_bwd_smem", "flash_attention_bwd"),
+])
+def test_each_flash_entry_is_declared_in_one_source(fn, source):
+    """Both flash sources include ``hopper.cuh``; each C entry is
+    declared in exactly one source (and in no header), so no other body
+    can be loaded under its name."""
+    decl = f"int {fn}("
+    csrc = PKG / "ops" / "csrc"
+    where = {p.name: p.read_text().count(decl)
+             for p in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))}
+    assert where.pop(f"{source}.cu") == 1
+    assert set(where.values()) == {0}
+
+
+def _with_headers(source: str) -> str:
+    """A source's text followed by that of every local header it
+    includes."""
+    csrc = PKG / "ops" / "csrc"
+    text = (csrc / f"{source}.cu").read_text()
+    headers = [line.split('"')[1] for line in text.splitlines()
+               if line.startswith('#include "')]
+    return "\n".join([text] + [(csrc / h).read_text() for h in headers])
+
+
 def test_flash_backward_source_is_the_hopper_design():
     """The bf16 backward issues wgmma and loads its tiles by TMA through
-    mbarriers; the mma.sync bodies of the first design are gone."""
-    text = (PKG / "ops" / "csrc" / "flash_attention_bwd.cu").read_text()
+    mbarriers (the helpers in ``hopper.cuh``, which it includes); the
+    mma.sync bodies of the first design are gone."""
+    text = _with_headers("flash_attention_bwd")
+    assert '#include "hopper.cuh"' in text
     for needle in ("wgmma.mma_async", "cp.async.bulk.tensor",
                    "mbarrier.try_wait", "cuTensorMapEncodeTiled",
                    "__grid_constant__"):
@@ -229,6 +283,29 @@ def test_flash_backward_source_is_the_hopper_design():
     for p in (PKG / "ops" / "csrc").glob("flash_attention*.cu"):
         body = p.read_text()
         assert "dq_mma" not in body and "dkv_mma" not in body, p.name
+
+
+def test_flash_forward_source_is_the_hopper_design():
+    """The bf16 forward runs on wgmma with its tiles loaded by TMA from
+    tensor maps through mbarriers; no mma.sync or ldmatrix is left in
+    it, and the shared helpers live only in ``hopper.cuh``."""
+    fwd = (PKG / "ops" / "csrc" / "flash_attention.cu").read_text()
+    text = _with_headers("flash_attention")
+    assert '#include "hopper.cuh"' in fwd
+    # the code, without its comments (the design note names the first
+    # design's instructions)
+    fwd = "\n".join(line.split("//")[0] for line in fwd.splitlines())
+    for needle in ("wgmma_ss(", "wgmma_rs(", "tma_tile<D>", "tensor_map(",
+                   "mbar_wait(", "__grid_constant__ CUtensorMap",
+                   "wgmma.mma_async", "cp.async.bulk.tensor"):
+        assert needle in text, needle
+    for gone in ("mma.sync", "ldmatrix", "fwd_mma"):
+        assert gone not in fwd, gone
+    for p in (PKG / "ops" / "csrc").glob("flash_attention*.cu"):
+        body = p.read_text()
+        for helper in ("asm volatile(\"wgmma.", "mbarrier.try_wait",
+                       "cuTensorMapEncodeTiled"):
+            assert helper not in body, (p.name, helper)
 
 
 def test_every_source_is_built_and_every_kernel_counted():

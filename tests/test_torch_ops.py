@@ -211,6 +211,43 @@ def test_verify_matches_pallas_interpret(group, block_size):
     np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5, rtol=0)
 
 
+@pytest.mark.parametrize("group,block_size,window,zero_pos", [
+    (8, 16, 4, False), (8, 8, 4, True), (1, 8, 4, True), (4, 16, 2, True),
+])
+def test_verify_window_matches_pallas_interpret(group, block_size, window,
+                                                zero_pos):
+    """Beyond ``GRID``: group 8 with a window of 4 (32 query rows per KV
+    head, the split-KV kernel's widest block) and every lane at position
+    0 (the window's own first key is the lane's only prefix)."""
+    c = _case(group, block_size, seed=9, window=window)
+    if zero_pos:
+        c["positions"] = np.zeros_like(c["positions"])
+    j, t = _jax(c), _torch(c)
+    ref = jax_verify_kernel(
+        j["qv"], j["k_pool"], j["v_pool"], j["tables"], j["positions"])
+    out = tpk.paged_verify_kernel(
+        t["qv"], t["k_pool"], t["v_pool"], t["tables"], t["positions"])
+    assert out.shape == (4, window, 2 * group, 8)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=1e-5, rtol=0)
+    assert float(out.abs().max()) < POISON / 10
+
+
+@pytest.mark.parametrize("max_blocks,block_size,pages,splits", [
+    (1, 16, 8, 1),      # a one-page table: one split
+    (128, 16, 8, 16),   # the serving pool's tables (2048 / 16)
+    (8, 16, 8, 1),      # one split per lane: the table fits in a split
+    (5, 8, 16, 1),
+    (300, 1, 128, 3),   # a split is at most 128 keys
+    (7, 256, 1, 7),     # a page larger than a split: one page each
+])
+def test_verify_plan_sizes_splits_and_workspace(max_blocks, block_size,
+                                                pages, splits):
+    plan = tpk.verify_plan(13, 32, 4, max_blocks, block_size)
+    assert plan == (pages, splits, (13, 4, splits, 32))
+    # every page of the table lies in exactly one split
+    assert (splits - 1) * pages < max_blocks <= splits * pages
+
+
 @pytest.mark.parametrize("kind", ["decode", "verify"])
 def test_bf16_matches_jax_reference(kind):
     c = _case(2, 8, seed=5)
@@ -358,6 +395,23 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(idx):
     name, args, err = _bad_inputs()[idx]
     with pytest.raises(err):
         tpk._check_inputs(*args, "paged_decode")
+
+
+def test_verify_wrapper_needs_16_byte_aligned_pools():
+    """The verify kernel copies pool rows 16 bytes at a time
+    (``cp.async``): a pool 8 bytes off a 16-byte boundary, which the
+    decode kernel's 8-byte vectors take at head_dim 64 in fp32, is
+    refused before any launch."""
+    c = _torch(_case(2, 8, head_dim=64))
+    kp = c["k_pool"]
+    off = torch.empty(kp.numel() + 2)[2:].view(kp.shape)
+    off.copy_(kp)
+    assert off.data_ptr() % 16 == 8
+    args = (c["qv"], off, c["v_pool"], c["tables"], c["positions"])
+    tpk._check_inputs(c["q"], off, c["v_pool"], c["tables"],
+                      c["seq_lens"], "paged_decode")
+    with pytest.raises(ValueError, match="16-byte"):
+        tpk._check_inputs(*args, "paged_verify", align=16)
 
 
 def test_kernel_wrapper_accepts_the_main_path_layout():
