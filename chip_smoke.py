@@ -9,6 +9,7 @@ card::
     python3 chip_smoke.py --layers 4 # main path at reduced depth
     python3 chip_smoke.py --profile  # + torch.profiler decode/train steps
     python3 chip_smoke.py --skip-serve --train-layers 2 --int8-layers 4
+    python3 chip_smoke.py --serve-only  # the serving legs alone
 
 Phases (any failed check raises, so the script exits nonzero):
 
@@ -20,15 +21,16 @@ Phases (any failed check raises, so the script exits nonzero):
    register report.
 3. kernels against their plain PyTorch versions on the card, bf16 and
    fp32, at full width (RMSNorm D=4096 and 8192, and bf16 x with an fp32
-   weight; paged attention head_dim=128,
+   weight; paged decode and verify at head_dim 16, 32, 64, 128 and 256,
    GQA group 1/4/8, block_size 16, ragged lengths including 0 and a full
    table, verify horizons on the last and the first key of a split and
    at position 0, inactive lanes on the null block, 1e4 and NaN poison
    in the null block and the guard blocks, verify window C=4 (up to 32
    rows), each check also shown to reject the plain version with each
-   lane's last page (decode) or last split (verify) dropped, and the
+   lane's last split dropped, and the
    verify kernel at the serving shape, three runs bit for bit and timed;
-   flash forward, dK/dV and dQ over S 1-2048, D 64/128, groups 1/4/8,
+   the T > 0 sampler's threefry bits on the card against the CPU's;
+   flash forward, dK/dV and dQ over S 1-2048, D 16/32/64/128, groups 1/4/8,
    causal or not, NaN past every input, each check also shown to reject
    a kernel that drops one tile, and the three kernels at the training
    shape, three runs bit for bit and timed against SDPA, with their
@@ -38,11 +40,12 @@ Phases (any failed check raises, so the script exits nonzero):
    and the half-way block, bit for bit, each check also shown to reject
    a plain version with one block left stale, and ``QuantizedMoments``
    on the card against its steps written with the plain version; then
-   a small fp32 Llama served on the card and on the CPU from the same
-   params, whose greedy tails and K=3 acceptance counts must agree (K=1
-   and K=3, with preemption), and one trained for 3 steps on both, with
-   AGD and with ``QuantizedMoments``, whose losses, grad norms and
-   params must agree.
+   ``LlamaConfig.tiny()`` at its own widths (head_dim 16) in fp32 served
+   on the card and on the CPU from the same params, whose tails (greedy
+   and at T=0.8) and K=3 acceptance counts must agree (K=1 and K=3, with
+   preemption), and trained for 3 steps on both, with AGD and with
+   ``QuantizedMoments`` in fp32 and with AGD in bf16, whose losses, grad
+   norms and params must agree.
 4. serving main path: Llama-2-7B at full width and depth (bf16, random weights
    from a seeded generator on the card) served by the continuous-batching
    scheduler over the paged pool: 16 requests with 128-1024-token prompts
@@ -50,10 +53,13 @@ Phases (any failed check raises, so the script exits nonzero):
    ``DLROVER_TPU_DECODE_STEPS=4``.  Launch counters are zeroed just
    before each leg and read just after; every kernel must have launched.
    The greedy tails of the two legs must be identical, and the K=4 leg
-   must accept at least ``ACCEPT_FLOOR`` drafts per window.  One layer's
-   inputs of one decode step and one verify step are captured, and each
-   kernel is held against its plain version on them (and must not match
-   the planted fault; verify three runs bit for bit) and timed there.
+   must accept at least ``ACCEPT_FLOOR`` drafts per window.  Each leg
+   prints its decode-step time on the card's clock and the device time
+   of its step's forwards (CUDA-graph replays of the captured full-batch
+   step).  One layer's inputs of one decode step and one verify step are
+   captured, and each kernel is held against its plain version on them
+   (and must not match the planted fault; three runs bit for bit) and
+   timed there.
 5. training main path: Llama-2-7B width at ``--train-layers`` layers
    (default 8), fp32 masters, bf16 compute, through ``auto_accelerate``
    -> ``Trainer.train`` with AGD for ``--train-steps`` steps of 4 x 2048
@@ -225,13 +231,20 @@ def attention_case(pk, group, dtype, poison, gen, kv=4, head_dim=128,
     )
 
 
-def dropped_page_ref(pk, q, k_pool, v_pool, tables, seq_lens):
+def dropped_decode_split_ref(pk, q, k_pool, v_pool, tables, seq_lens):
     """The planted fault of B5: the plain decode with each lane's last
-    page dropped, as when a kernel skips the last page of its loop."""
-    bs = k_pool.shape[1]
-    short = torch.where(seq_lens > 0, (seq_lens - 1) // bs * bs, seq_lens)
+    split of pages dropped (its keys hidden; a lane whose keys fit in one
+    split comes out as zeros), as when a kernel loses one split or the
+    merge one partial."""
+    bs, mb = k_pool.shape[1], tables.shape[1]
+    pages = pk.verify_plan(1, 1, 1, mb, bs)[0]
+    lens = seq_lens.long()
+    n_pages = torch.clamp(torch.div(lens - 1, bs, rounding_mode="floor")
+                          + 1, min=0, max=mb)
+    first = torch.clamp(torch.div(n_pages - 1, pages, rounding_mode="floor")
+                        * pages * bs, min=0)
     return pk.paged_decode_plain(q, k_pool, v_pool, tables,
-                                 short.to(torch.int32))
+                                 torch.minimum(lens, first).to(torch.int32))
 
 
 def dropped_split_ref(pk, q, k_pool, v_pool, tables, positions):
@@ -265,14 +278,14 @@ def paged_errs(out, ref, bad):
     return max_err(out[:-1], ref[:-1]), max_err(out[:-1], bad[:-1])
 
 
-def check_attention(pk, kind, group, dtype, poison, gen):
-    c = attention_case(pk, group, dtype, poison, gen)
+def check_attention(pk, kind, group, dtype, poison, gen, head_dim):
+    c = attention_case(pk, group, dtype, poison, gen, head_dim=head_dim)
     if kind == "decode":
         args = (c["q"], c["k_pool"], c["v_pool"], c["tables"], c["seq_lens"])
         out = pk.paged_decode_kernel(*args)
         torch.cuda.synchronize()
         ref = pk.paged_decode_plain(*args)
-        bad = dropped_page_ref(pk, *args)
+        bad = dropped_decode_split_ref(pk, *args)
         empty = out[1]
     else:
         args = (c["qv"], c["k_pool"], c["v_pool"], c["tables"],
@@ -290,11 +303,11 @@ def check_attention(pk, kind, group, dtype, poison, gen):
         and float(live.float().abs().max()) < POISON / 10
         and (empty is None or bool((empty == 0).all()))
     )
-    what = "last page" if kind == "decode" else "last split"
-    log(f"[check] paged_{kind} {str(dtype)[6:]} group={group} "
-        f"poison={poison} max_abs_err={err:.3g} with the {what} dropped "
+    log(f"[check] paged_{kind} {str(dtype)[6:]} D={head_dim} group={group} "
+        f"poison={poison} max_abs_err={err:.3g} with the last split dropped "
         f"{fault:.3g} tol={ATTN_TOL[dtype]} {'ok' if ok else 'FAIL'}")
-    require(ok, f"paged_{kind} {dtype} group={group} poison={poison}")
+    require(ok, f"paged_{kind} {dtype} D={head_dim} group={group} "
+            f"poison={poison}")
     return err
 
 
@@ -446,6 +459,8 @@ def bitwise_repeat(fn, runs: int = 3) -> bool:
 # kernel row name -> (source, a substring of the mangled name of the
 # bf16 instantiation at head dim 128)
 BUILT = {
+    "paged_decode": ("paged_attention",
+                     "decode_splitI13__nv_bfloat16Li128ELi1E"),
     "flash_fwd": ("flash_attention", "fwd_wgmmaILi128E"),
     "flash_bwd_dkv": ("flash_attention_bwd", "dkv_wgmmaILi128E"),
     "flash_bwd_dq": ("flash_attention_bwd", "dq_wgmmaILi128E"),
@@ -492,15 +507,20 @@ def build_report(smem):
 def kernel_smem():
     """The dynamic shared memory per block that each redesigned kernel's
     launch asks for at the main paths' shapes (bf16, head dim 128; the
-    verify window's 4 rows over the serving pool's 16-key pages)."""
+    decode and verify splits over the serving pool's 16-key pages, the
+    verify window's 4 rows).  ``None`` where the package beside this
+    script has no such report (an older tree run with ``--serve-only``)."""
     from dlrover_tpu_torch.ops import flash_attention as fa
     from dlrover_tpu_torch.ops import paged_kernels as pk
 
-    return {"flash_fwd": fa.smem_bytes("fwd", 128),
+    pages = pk.verify_plan(1, 4, 32, 128, 16)[0]
+    decode = getattr(pk, "decode_smem_bytes", None)
+    return {"paged_decode": decode and decode(torch.bfloat16, 128, pages),
+            "flash_fwd": fa.smem_bytes("fwd", 128),
             "flash_bwd_dkv": fa.smem_bytes("dkv", 128),
             "flash_bwd_dq": fa.smem_bytes("dq", 128),
-            "paged_verify": pk.verify_smem_bytes(
-                torch.bfloat16, 128, 4, pk.verify_plan(1, 4, 32, 128, 16)[0])}
+            "paged_verify": pk.verify_smem_bytes(torch.bfloat16, 128, 4,
+                                                 pages)}
 
 
 def flash_case(fa, dtype, b, s, kv, group, d, causal, gen):
@@ -560,7 +580,8 @@ def flash_case(fa, dtype, b, s, kv, group, d, causal, gen):
 
 def flash_checks():
     """B2-B4 over S in {1, 100, 128, 1000, 2048} (tails, a partly
-    visible diagonal tile, one row), D in {64, 128}, GQA groups 1/4/8,
+    visible diagonal tile, one row), D in {16, 32, 64, 128} (bf16 runs
+    the FMA kernels at 16 and 32, wgmma at 64 and 128), GQA groups 1/4/8,
     causal and not, bf16 and fp32, NaN past the end of every input; a
     dropped tile must be caught wherever S holds two tiles."""
     from dlrover_tpu_torch.ops import flash_attention as fa
@@ -569,7 +590,7 @@ def flash_checks():
     summary = {}
     for dtype in (torch.bfloat16, torch.float32):
         worst = {k: [0.0, float("inf")] for k in FLASH_OUT}
-        for d in (64, 128):
+        for d in (16, 32, 64, 128):
             for s in (1, 100, 128, 1000, 2048):
                 for group in (1, 4, 8):
                     for causal in (True, False):
@@ -585,6 +606,7 @@ def flash_checks():
         f"tiles through rings of 3 stages, so S = 1000 (16 tiles, the "
         f"last of 40 rows) and 2048 (32) wrap them many times")
     flash_train_shape(fa, gen)
+    flash_small_d_times(fa, gen)
 
 
 def flash_train_shape(fa, gen):
@@ -630,6 +652,51 @@ def flash_train_shape(fa, gen):
         f"{ms['flash_bwd_dkv'] + ms['flash_bwd_dq']:.4f} SDPA backward ms="
         f"{sdpa_ms:.4f}; {build_report(kernel_smem())}")
     del qt, kt, vt, out_t, dout_t, q, k, v, dout, lse, bargs, fns
+    torch.cuda.empty_cache()
+
+
+def flash_small_d_times(fa, gen):
+    """B2-B4 at head_dim 16 and 32, where bf16 runs the FMA kernels (no
+    tensor cores): times at ``[4, 2048, 4, D]`` causal with 2 KV heads
+    (``LlamaConfig.tiny()``'s heads at a training sequence length), bf16,
+    random inputs, beside their bounds and SDPA's forward and backward
+    (SDPA on the KV heads repeated to 4)."""
+    import torch.nn.functional as F
+
+    b, s, h, kv = 4, 2048, 4, 2
+    for d in (16, 32):
+        scale = d ** -0.5
+        q, dout = (torch.randn(b, s, h, d, device="cuda", generator=gen)
+                   .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(b, s, kv, d, device="cuda", generator=gen)
+                .to(torch.bfloat16) for _ in range(2))
+        o, lse = fa.flash_fwd_plain(q, k, v, True, scale)
+        bargs = (q, k, v, dout, lse, fa.attention_delta(o, dout), None,
+                 True, scale)
+        fns = {"flash_fwd": lambda: fa.flash_fwd_kernel(q, k, v, True, scale),
+               "flash_bwd_dkv": lambda: fa.flash_bwd_dkv_kernel(*bargs),
+               "flash_bwd_dq": lambda: fa.flash_bwd_dq_kernel(*bargs)}
+        ms = {n: cuda_ms(fn) for n, fn in fns.items()}
+        bnd = {n: flash_bound_ms(kind, q, k)[0] for n, kind in (
+            ("flash_fwd", "fwd"), ("flash_bwd_dkv", "dkv"),
+            ("flash_bwd_dq", "dq"))}
+        qt, kt, vt = (t.transpose(1, 2).repeat_interleave(h // t.shape[2], 1)
+                      .contiguous().requires_grad_(True) for t in (q, k, v))
+        with torch.no_grad():
+            sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True))
+        out_t = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        dout_t = dout.transpose(1, 2).contiguous()
+        sdpa_bwd = events_ms(lambda: torch.autograd.grad(
+            out_t, (qt, kt, vt), dout_t, retain_graph=True))
+        log(f"[time] flash [{b}, {s}, {h}, {d}] KV={kv} bf16 causal (FMA "
+            f"kernels), random inputs: "
+            + " ".join(f"{n} ms={ms[n]:.4f} bound_ms={bnd[n]:.4f} "
+                       f"bound/ms={bnd[n] / ms[n]:.3f}" for n in ms)
+            + f" SDPA forward ms={sdpa_fwd:.4f} SDPA backward ms="
+            f"{sdpa_bwd:.4f}; smem per block fwd/dkv/dq "
+            f"{[fa.smem_bytes(x, d) for x in ('fwd', 'dkv', 'dq')]}")
+        del q, k, v, dout, o, lse, bargs, fns, qt, kt, vt, out_t, dout_t
     torch.cuda.empty_cache()
 
 
@@ -684,6 +751,34 @@ def paged_serving_shape(pk, gen):
     torch.cuda.empty_cache()
 
 
+def sampling_check():
+    """The T > 0 sampler on the card against the CPU, same (seed,
+    position, vocab): the threefry noise bits equal bit for bit, and
+    the sampled tokens of the same logits equal; the Gumbel noise's
+    largest difference (each side's own ``log``) is printed."""
+    from dlrover_tpu_torch.rl import sampling
+
+    seeds = torch.tensor([0, 2**31 + 5, 2**32 + 3])[:, None]
+    pos = torch.tensor([0, 7, 10**6])[None]
+    vocab = 32000
+    bits = sampling.noise_bits(seeds, pos, vocab)
+    bits_card = sampling.noise_bits(seeds.cuda(), pos.cuda(), vocab)
+    g = sampling.gumbel_noise(seeds, pos, vocab)
+    g_card = sampling.gumbel_noise(seeds.cuda(), pos.cuda(), vocab)
+    logits = torch.randn(3, 3, vocab, generator=torch.Generator()
+                         .manual_seed(SEED))
+    toks = sampling.sample_tokens(logits, seeds, pos, 0.8)
+    toks_card = sampling.sample_tokens(logits.cuda(), seeds.cuda(),
+                                       pos.cuda(), 0.8)
+    same_bits = torch.equal(bits_card.cpu(), bits)
+    same_toks = torch.equal(toks_card.cpu(), toks)
+    log(f"[check] sampling noise bits card == CPU bit for bit over seeds "
+        f"{seeds.flatten().tolist()} x positions {pos.flatten().tolist()} x "
+        f"vocab {vocab}: {same_bits}; Gumbel max |card - CPU| "
+        f"{max_err(g_card.cpu(), g):.3g}; T=0.8 tokens equal: {same_toks}")
+    require(same_bits and same_toks, "the sampler differs on the card")
+
+
 def kernel_checks():
     from dlrover_tpu_torch.ops import fused
     from dlrover_tpu_torch.ops import paged_kernels as pk
@@ -696,71 +791,78 @@ def kernel_checks():
             check_rms(fused.rms_norm_fwd, fused.rms_norm_plain, dtype, n, d,
                       gen)
         for kind in ("decode", "verify"):
-            for group in (1, 4, 8):
-                for poison in (POISON, float("nan")):
-                    check_attention(pk, kind, group, dtype, poison, gen)
+            for head_dim in (16, 32, 64, 128, 256):
+                for group in (1, 4, 8):
+                    for poison in (POISON, float("nan")):
+                        check_attention(pk, kind, group, dtype, poison, gen,
+                                        head_dim)
     paged_serving_shape(pk, gen)
+    sampling_check()
 
 
 # ----------------------------------------------------------- main path
 
 
 def tiny_parity():
-    """End to end against the plain path: a small fp32 Llama served on
-    the card (kernels) and on the CPU (plain versions) from the same
-    params must give the same greedy tails, for K=1 and the K=3 window,
-    on a pool small enough to force preemption and resume."""
+    """End to end against the plain path: ``LlamaConfig.tiny()`` at its
+    own widths (dim 64, 4 heads, 2 KV heads, head_dim 16) in fp32, served
+    on the card (kernels) and on the CPU (plain versions) from the same
+    params, must give the same tails, greedy and at temperature 0.8, for
+    K=1 and the K=3 window, on a pool small enough to force preemption
+    and resume."""
     from dlrover_tpu_torch.models.llama import LlamaConfig, init_params
     from dlrover_tpu_torch.rl.scheduler import (
         ContinuousBatchingScheduler,
         SchedulerConfig,
     )
 
-    cfg = LlamaConfig.tiny(vocab_size=97, dim=128, n_heads=4, n_kv_heads=2,
-                           mlp_dim=256, dtype=torch.float32)
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
     cpu = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu")
     gpu = {k: ({n: t.cuda() for n, t in v.items()} if isinstance(v, dict)
                else v.cuda()) for k, v in cpu.items()}
     rng = np.random.default_rng(SEED)
-    prompts = [rng.integers(1, 97, size=int(n)).astype(np.int32)
+    prompts = [rng.integers(1, cfg.vocab_size, size=int(n)).astype(np.int32)
                for n in rng.integers(2, 10, size=6)]
-    sched = SchedulerConfig(max_slots=4, block_size=4, num_blocks=9,
-                            max_seq_len=64, prefill_chunk=3,
-                            temperature=0.0)
     env = {"DLROVER_TPU_KV_ADMIT_WATERMARK": "0",
            "DLROVER_TPU_KV_GROW_BLOCKS": "1"}
     saved = {k: os.environ.get(k) for k in [*env, "DLROVER_TPU_DECODE_STEPS"]}
     os.environ.update(env)
     try:
-        for k in (1, 3):
-            os.environ["DLROVER_TPU_DECODE_STEPS"] = str(k)
-            tails, counts = [], []
-            for device, params in (("cpu", cpu), ("cuda", gpu)):
-                sch = ContinuousBatchingScheduler(cfg, sched, device=device)
-                sch.sync_weights(params)
-                for i, p in enumerate(prompts):
-                    sch.submit(p, max_new=12, seed=i)
-                tails.append({r.req_id: r.tokens for r in sch.run()})
-                st = sch.stats()
-                counts.append({n: st[n] for n in (
-                    "preemptions", "accepted_tokens", "lane_windows")})
-            same = tails[0].keys() == tails[1].keys() and all(
-                np.array_equal(tails[0][i], tails[1][i]) for i in tails[0])
-            # at temperature 0 the tails are the draft (decode) stream;
-            # only the acceptance counts read the verify kernel's output
-            log(f"[parity] tiny fp32 K={k}: card tails == CPU tails: {same}; "
-                f"cpu {counts[0]} card {counts[1]}")
-            require(same and counts[0] == counts[1]
-                    and counts[1]["preemptions"] >= 1,
-                    f"tiny fp32 K={k}: card and CPU disagree")
+        for temp in (0.0, 0.8):
+            sched = SchedulerConfig(max_slots=4, block_size=4, num_blocks=9,
+                                    max_seq_len=64, prefill_chunk=3,
+                                    temperature=temp)
+            for k in (1, 3):
+                os.environ["DLROVER_TPU_DECODE_STEPS"] = str(k)
+                tails, counts = [], []
+                for device, params in (("cpu", cpu), ("cuda", gpu)):
+                    sch = ContinuousBatchingScheduler(cfg, sched,
+                                                      device=device)
+                    sch.sync_weights(params)
+                    for i, p in enumerate(prompts):
+                        sch.submit(p, max_new=12, seed=i)
+                    tails.append({r.req_id: r.tokens for r in sch.run()})
+                    st = sch.stats()
+                    counts.append({n: st[n] for n in (
+                        "preemptions", "accepted_tokens", "lane_windows")})
+                same = tails[0].keys() == tails[1].keys() and all(
+                    np.array_equal(tails[0][i], tails[1][i])
+                    for i in tails[0])
+                # at temperature 0 the tails are the draft (decode)
+                # stream; only the acceptance counts read the verify
+                # kernel's output
+                log(f"[parity] tiny fp32 head_dim={cfg.head_dim} T={temp} "
+                    f"K={k}: card tails == CPU tails: {same}; cpu "
+                    f"{counts[0]} card {counts[1]}")
+                require(same and counts[0] == counts[1]
+                        and counts[1]["preemptions"] >= 1,
+                        f"tiny fp32 T={temp} K={k}: card and CPU disagree")
     finally:
         for name, value in saved.items():
             if value is None:
                 os.environ.pop(name, None)
             else:
                 os.environ[name] = value
-
-
 
 
 class Capture:
@@ -791,7 +893,8 @@ class Capture:
                     a.detach().clone() if isinstance(a, torch.Tensor) else a
                     for a in args
                 )
-                self.out = out.detach().clone()
+                self.out = (out.detach().clone()
+                            if isinstance(out, torch.Tensor) else None)
         self.calls += 1
         return out
 
@@ -832,6 +935,14 @@ def profile_step(step, label):
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
+    # where the host's time goes: its own ops and the CUDA runtime calls
+    # (a synchronising call names what holds the host back)
+    host = [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) != DeviceType.CUDA]
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total,
+                    reverse=True)[:10]:
+        log(f"[profile]   host {e.self_cpu_time_total / 1e3:9.3f} ms  "
+            f"x{e.count:<5d} {e.key[:90]}")
     return n
 
 
@@ -844,7 +955,7 @@ def serve_leg(cfg, params, sched_cfg, prompts, k, max_new, captures,
     os.environ["DLROVER_TPU_DECODE_STEPS"] = str(k)
     sch = ContinuousBatchingScheduler(cfg, sched_cfg)
     sch.sync_weights(params)
-    decode_s, full_s = [], []
+    decode_s, full_s, step_events = [], [], []
     inner = sch._decode_multi_once if k > 1 else sch._decode_once
     lanes = sched_cfg.max_slots
     profiled = []
@@ -856,9 +967,13 @@ def serve_leg(cfg, params, sched_cfg, prompts, k, max_new, captures,
             return profile_step(lambda: inner(finished),
                                 f"K={k} decode step, {lanes} lanes")
         t0 = time.perf_counter()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
         n = inner(finished)
+        ev[1].record()
         if n:  # the step ends in a host copy of the sampled tokens
             decode_s.append(time.perf_counter() - t0)
+            step_events.append(ev)
             if full:
                 full_s.append(decode_s[-1])
         return n
@@ -869,6 +984,11 @@ def serve_leg(cfg, params, sched_cfg, prompts, k, max_new, captures,
         sch._decode_once = timed
     active = lambda: int(sch._active.sum())  # noqa: E731
     caps = [Capture(llama, score=active, **c) for c in captures]
+    # the model forwards of the step with the most lanes decoding, for
+    # their device time (CUDA-graph replays, no host gaps)
+    fwds = [Capture(llama, "paged_decode_step", active)]
+    if k > 1:
+        fwds.append(Capture(llama, "paged_verify_step", active))
     for i, p in enumerate(prompts):
         sch.submit(p, max_new=max_new, seed=100 + i)
     torch.cuda.synchronize()
@@ -878,10 +998,18 @@ def serve_leg(cfg, params, sched_cfg, prompts, k, max_new, captures,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     counts = dict(_build.launches)
-    for c in caps:
+    for c in caps + fwds:
         c.restore()
     stats = sch.stats()
-    del sch
+    # the card's clock from each step's start to its end, host gaps
+    # included; and the device time of the step's forwards alone: K
+    # decode forwards (+ the verify forward) at the captured inputs
+    events_ms = statistics.median(a.elapsed_time(b) for a, b in step_events)
+    fwd_ms = [cuda_ms(lambda c=c: getattr(llama, c.attr)(*c.args), reps=3)
+              for c in fwds]
+    device_ms = k * fwd_ms[0] + sum(fwd_ms[1:])
+    fwd_lanes = fwds[0].best
+    del sch, fwds
     torch.cuda.empty_cache()
     tails = {r.req_id: r.tokens[len(prompts[r.req_id]):] for r in results}
     require(len(tails) == len(prompts), f"K={k}: not every request ended")
@@ -896,6 +1024,12 @@ def serve_leg(cfg, params, sched_cfg, prompts, k, max_new, captures,
         f"decode_{what}_ms_median={step_ms:.3f} "
         f"decode_{what}_ms_median_all_{lanes}_lanes={full_ms:.3f} "
         f"decode_{what}s={len(decode_s)} (all lanes: {len(full_s)}) "
+        f"decode_{what}_events_ms_median={events_ms:.3f} (card clock, host "
+        f"gaps included) decode_{what}_device_ms={device_ms:.3f} ({k} x "
+        f"decode forward {fwd_ms[0]:.3f}"
+        + (f" + verify forward {fwd_ms[1]:.3f}" if k > 1 else "")
+        + f", CUDA-graph replays of the captured step, {fwd_lanes} lanes "
+        f"decoding) "
         f"iterations={stats['iterations']} "
         f"accepted_per_window={stats['accepted_per_step']} "
         f"preemptions={stats['preemptions']} launches={counts}")
@@ -1077,7 +1211,8 @@ def main_path(args):
     report = build_report(kernel_smem())
     for name, cap, window, replaces, kern, plain, faulted in (
         ("paged_decode", dec, None, "dlrover_tpu/ops/paged_kernels.py:128",
-         pk.paged_decode_kernel, pk.paged_decode_plain, dropped_page_ref),
+         pk.paged_decode_kernel, pk.paged_decode_plain,
+         dropped_decode_split_ref),
         ("paged_verify", ver, 4, "dlrover_tpu/ops/paged_kernels.py:289",
          pk.paged_verify_kernel, pk.paged_verify_plain, dropped_split_ref),
     ):
@@ -1090,16 +1225,14 @@ def main_path(args):
         fault = max_err(out, faulted(pk, *a))
         log(f"[captured] {name} q={tuple(a[0].shape)} "
             f"lens/pos={a[4].tolist()} max_abs_err={err:.3g} with the "
-            f"{'last page' if window is None else 'last split'} dropped "
-            f"{fault:.3g} tol={ATTN_TOL[a[0].dtype]}")
+            f"last split dropped {fault:.3g} tol={ATTN_TOL[a[0].dtype]}")
         require(err <= ATTN_TOL[a[0].dtype] < fault,
                 f"{name} on captured input, or its check cannot see the "
                 "planted fault")
-        if name == "paged_verify":
-            same = bitwise_repeat(lambda: kern(*a))
-            log(f"[check] paged_verify on the captured window, 3 runs equal "
-                f"bit for bit: {same}")
-            require(same, "paged_verify is not deterministic")
+        same = bitwise_repeat(lambda: kern(*a))
+        log(f"[check] {name} on the captured input, 3 runs equal bit for "
+            f"bit: {same}")
+        require(same, f"{name} is not deterministic")
         row = kernel_row(
             name, "dlrover_tpu_torch/ops/csrc/paged_attention.cu", replaces,
             launches[name], err, ATTN_TOL[a[0].dtype],
@@ -1141,6 +1274,10 @@ INT8_TRAIN_TOL = {"payload_frac": 1e-3, "update_rel": 1e-2}
 # between the sound reading and that of a planted fault, dq zeroed (q
 # detached before the flash call), which must exceed it.
 STEP0_TOL = {"loss": 1e-2, "grad_norm": 3e-2, "attn_grads": 0.1}
+# tiny bf16 card against CPU (bf16_train_parity): step 0's grads per leaf
+# (the limit sits between the sound reading and that of dq zeroed), and
+# loss and grad norm over 3 AGD steps
+BF16_TRAIN_TOL = {"grads": 0.1, "loss": 2e-2, "grad_norm": 5e-2}
 TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
 
 
@@ -1150,14 +1287,15 @@ def _clone_to(tree, device):
     return tree.detach().clone().to(device)
 
 
-def _train_run(cfg, params, batches, device, make_opt):
+def _train_run(cfg, params, batches, device, make_opt, attention_fn=None):
     """``auto_accelerate`` + ``train_step`` from a copy of ``params`` on
     ``device``: per-step metrics, the final params and the optimizer."""
     from dlrover_tpu_torch.accelerate import auto_accelerate
     from dlrover_tpu_torch.models.llama import loss_fn
 
+    kw = {} if attention_fn is None else {"attention_fn": attention_fn}
     result = auto_accelerate(
-        loss_fn=lambda p, b: loss_fn(p, b, cfg),
+        loss_fn=lambda p, b: loss_fn(p, b, cfg, **kw),
         optimizer=make_opt,
         init_params_fn=lambda gen, dev: _clone_to(params, dev),
         device=device,
@@ -1172,17 +1310,17 @@ def _train_run(cfg, params, batches, device, make_opt):
 
 
 def train_parity():
-    """A small fp32 Llama trained for 3 steps on the card (flash,
-    RMSNorm and, for the int8 optimizer, B7/B9 kernels) and on the CPU
-    (plain versions) from the same params and batches, with AGD and with
-    ``QuantizedMoments``: losses, grad norms and final params agree.
-    head_dim 64 and GQA group 2, so the card runs the kernels."""
+    """``LlamaConfig.tiny()`` at its own widths (head_dim 16, GQA group
+    2) trained for 3 steps on the card (flash, RMSNorm and, for the int8
+    optimizer, B7/B9 kernels) and on the CPU (plain versions) from the
+    same params and batches, with AGD and with ``QuantizedMoments`` in
+    fp32: losses, grad norms and final params agree; then AGD in bf16
+    (``bf16_train_parity``)."""
     from dlrover_tpu_torch.models.llama import LlamaConfig, init_params
     from dlrover_tpu_torch.ops import _build
     from dlrover_tpu_torch.optimizers import AGD, QuantizedMoments
 
-    cfg = LlamaConfig.tiny(dim=128, n_heads=2, n_kv_heads=1,
-                           dtype=torch.float32)
+    cfg = LlamaConfig.tiny(dtype=torch.float32)
     params = init_params(cfg, torch.Generator().manual_seed(SEED), "cpu",
                          dtype=torch.float32)
     rng = np.random.default_rng(SEED)
@@ -1235,13 +1373,91 @@ def train_parity():
         ok = (d_loss <= TRAIN_TOL["loss"]
               and d_norm <= TRAIN_TOL["grad_norm"] and params_ok
               and all(v > 0 for v in counts.values()))
-        log(f"[parity] tiny fp32 training, 3 {label} steps: cpu losses "
+        log(f"[parity] tiny fp32 head_dim={cfg.head_dim} training, 3 {label} "
+            f"steps: cpu losses "
             f"{[round(m[0], 6) for m in cpu_metrics]} card "
             f"{[round(m[0], 6) for m in card_metrics]}; max |d loss|="
             f"{d_loss:.3g} max rel d grad_norm={d_norm:.3g} max |d param|="
             f"{d_params:.3g} (tol {TRAIN_TOL});{extra} card launches "
             f"{counts} {'ok' if ok else 'FAIL'}")
         require(ok, f"tiny fp32 {label} training: card and CPU disagree")
+    bf16_train_parity(params, batches)
+
+
+def _leaf_names(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}{k}.")]
+    return [prefix[:-1]]
+
+
+def _step0_grads(cfg, params, tokens, device, attention_fn=None):
+    """{leaf name: grad on the CPU} of one loss on ``device`` from a copy
+    of ``params``."""
+    from dlrover_tpu_torch.models import llama
+
+    p = _clone_to(params, device)
+    leaves = _leaves(p)
+    for t in leaves:
+        t.requires_grad_(True)
+    kw = {} if attention_fn is None else {"attention_fn": attention_fn}
+    loss = llama.loss_fn(p, {"tokens": torch.from_numpy(tokens).to(device)},
+                         cfg, **kw)
+    grads = torch.autograd.grad(loss, leaves)
+    return {n: g.detach().float().cpu()
+            for n, g in zip(_leaf_names(p), grads)}
+
+
+def bf16_train_parity(params, batches):
+    """``LlamaConfig.tiny()`` in bf16 compute (fp32 masters) on the card
+    and on the CPU from the same params: both round activations, p and
+    ds to bf16 at the same points from fp32 values that differ in their
+    last bits, so AGD's sign-like step would turn those bits into whole
+    steps of lr in the params after a few steps.  The two are held by
+    step 0's grads per leaf (|g_card - g_cpu| / |g_cpu|, L2), whose limit
+    sits between the sound reading and that of the card with dq zeroed
+    (wq's grad 0), and over 3 AGD steps by loss and grad norm."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.optimizers import AGD
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.bfloat16)
+    make_opt = lambda ps: AGD(ps, lr=1e-3)  # noqa: E731
+    g_cpu = _step0_grads(cfg, params, batches[0], "cpu")
+    g_card = _step0_grads(cfg, params, batches[0], "cuda")
+    # q's value unchanged, its gradient (and so wq's) zero
+    g_bad = _step0_grads(cfg, params, batches[0], "cuda",
+                         attention_fn=lambda q, k, v, **kw:
+                         llama.flash_attention(q.detach() + 0 * q, k, v,
+                                               **kw))
+
+    def rel(g):
+        return {n: float(torch.linalg.vector_norm(g[n] - r)
+                         / torch.linalg.vector_norm(r))
+                for n, r in g_cpu.items()}
+
+    sound, bad = rel(g_card), rel(g_bad)
+    worst = max(sound, key=sound.get)
+    cpu_m, _, _ = _train_run(cfg, params, batches, "cpu", make_opt)
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    card_m, _, _ = _train_run(cfg, params, batches, "cuda", make_opt)
+    counts = {k: _build.launches[k] for k in TRAIN_KERNELS}
+    d_loss = max(abs(a[0] - b[0]) for a, b in zip(cpu_m, card_m))
+    d_norm = max(abs(a[1] - b[1]) / a[1] for a, b in zip(cpu_m, card_m))
+    ok = (sound[worst] <= BF16_TRAIN_TOL["grads"] < bad["layers.wq"]
+          and d_loss <= BF16_TRAIN_TOL["loss"]
+          and d_norm <= BF16_TRAIN_TOL["grad_norm"]
+          and all(v > 0 for v in counts.values()))
+    log(f"[parity] tiny bf16 head_dim={cfg.head_dim} training: step 0 "
+        f"grads, worst leaf |d g| / |g| {sound[worst]:.3g} ({worst}), with "
+        f"dq zeroed: wq {bad['layers.wq']:.3g}; 3 AGD steps: cpu losses "
+        f"{[round(m[0], 6) for m in cpu_m]} card "
+        f"{[round(m[0], 6) for m in card_m]}; max |d loss|={d_loss:.3g} "
+        f"max rel d grad_norm={d_norm:.3g} (tol {BF16_TRAIN_TOL}); card "
+        f"launches {counts} {'ok' if ok else 'FAIL'}")
+    require(ok, "tiny bf16 AGD training: card and CPU disagree, or the "
+            "check cannot see dq zeroed")
 
 
 def _leaves(tree):
@@ -2115,6 +2331,10 @@ def main() -> int:
     ap.add_argument("--skip-int8", action="store_true",
                     help="leave out the int8-moment training leg")
     ap.add_argument("--int8-layers", type=int, default=32)
+    ap.add_argument("--serve-only", action="store_true",
+                    help="only the serving main path (its legs and "
+                    "captured kernel rows), also against an older tree's "
+                    "package placed beside a copy of this script")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2153,6 +2373,10 @@ def main() -> int:
                     or "error" in line.lower()):
                 log(f"[build] {name}: {line.strip()}")
 
+    if args.serve_only:
+        main_path(args)
+        log(smi_line())
+        return 0
     kernel_checks()
     flash_checks()
     int8_checks()

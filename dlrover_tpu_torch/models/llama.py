@@ -173,9 +173,11 @@ def rope_frequencies(cfg: LlamaConfig, positions: torch.Tensor):
     half = cfg.head_dim // 2
     exponent = -torch.arange(0, half, dtype=torch.float32,
                              device=positions.device) / half
+    # a fill, not a host-to-device copy: a decode step issues no copy or
+    # sync of its own, so it can be captured in a CUDA graph
     freqs = torch.pow(
-        torch.tensor(cfg.rope_theta, dtype=torch.float32,
-                     device=positions.device),
+        torch.full((), cfg.rope_theta, dtype=torch.float32,
+                   device=positions.device),
         exponent,
     )
     angles = positions.to(torch.float32)[..., None] * freqs

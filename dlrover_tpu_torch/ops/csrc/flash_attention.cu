@@ -47,10 +47,13 @@
 // row-contiguous.  The tile is the fastest launch index, heaviest causal
 // tiles first, so the blocks of one head run together and share their
 // K/V tiles in L2.  No atomics: o and lse are deterministic.
-// fp32: plain FMA (no TF32), 32-row tiles, one block of 4 warps per (q
-// tile, head, batch): the score tile goes through shared memory, each
-// thread owns a quarter of one output row in registers.
-// D must be 64 or 128 (the wrapper checks).
+// fp32 at every D, and bf16 at D = 16 and 32 (too narrow for the wgmma
+// tiles and the 128-byte swizzle): plain FMA (no TF32), 32-row tiles, one
+// block of 4 warps per (q tile, head, batch): the score tile goes through
+// shared memory, each thread owns a quarter of one output row in
+// registers; in bf16 p is rounded to bf16 before p v, as in the wgmma
+// kernel.  This path is right, not fast: no tensor cores.
+// D must be 16, 32, 64 or 128 (the wrapper checks).
 //
 // C interface (ctypes): the entry returns cudaGetLastError() after its
 // launch.  The caller allocates every output; the kernel launches on
@@ -447,12 +450,39 @@ __global__ void __launch_bounds__(kThreads)
 
 // ----------------------------------------------------------- dispatch
 
+// The FMA kernel's dynamic shared memory: Q, K, V tiles, the score
+// tile, the rescale factors and the denominators, all fp32.
+constexpr int fwd_fma_smem(int D) {
+  return (3 * kT * (D + 1) + kT * kSL + 2 * kT) * 4;
+}
+
+template <typename T, int D>
+cudaError_t fwd_fma_launch(const void* q, const void* k, const void* v,
+                           void* o, float* lse, int B, Shape sh,
+                           cudaStream_t st) {
+  static bool done = false;
+  const size_t smem = fwd_fma_smem(D);
+  cudaError_t e = allow_smem(fwd_fma<T, D>, smem, done);
+  if (e != cudaSuccess) return e;
+  fwd_fma<T, D><<<dim3(tiles(sh.S, kT), sh.H, B), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(o), lse, sh);
+  return cudaGetLastError();
+}
+
+// bf16 at D = 64 and 128: the wgmma kernel; bf16 at D = 16 and 32 (below
+// a 64-byte row, under the 128-byte swizzle's box) and fp32 at every D:
+// the FMA kernel.
 template <int D>
 cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
                        void* lse, int B, Shape sh, int dtype,
                        cudaStream_t st) {
   float* l = static_cast<float*>(lse);
-  if (dtype == 1) {
+  if (dtype == 0) return fwd_fma_launch<float, D>(q, k, v, o, l, B, sh, st);
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if constexpr (D < 64) {
+    return fwd_fma_launch<bf16, D>(q, k, v, o, l, B, sh, st);
+  } else {
     CUtensorMap m[3];
     if (!tensor_map(&m[0], q, B, sh.S, sh.H, D, kBlockRows) ||
         !tensor_map(&m[1], k, B, sh.S, sh.KV, D, kKeys) ||
@@ -466,18 +496,8 @@ cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
     fwd_wgmma<D><<<dim3(tiles(sh.S, kBlockRows), sh.H, B), kHopperThreads,
                    smem, st>>>(m[0], m[1], m[2], static_cast<bf16*>(o), l,
                                sh);
-  } else if (dtype == 0) {
-    static bool done = false;
-    const size_t smem = (3 * kT * (D + 1) + kT * kSL + 2 * kT) * sizeof(float);
-    cudaError_t e = allow_smem(fwd_fma<float, D>, smem, done);
-    if (e != cudaSuccess) return e;
-    fwd_fma<float, D><<<dim3(tiles(sh.S, kT), sh.H, B), kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<float*>(o), l, sh);
-  } else {
-    return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -485,24 +505,33 @@ cudaError_t fwd_launch(const void* q, const void* k, const void* v, void* o,
 extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, o share it); lse fp32.
-// D: 64 or 128.  causal: 0 or 1.
+// D: 16, 32, 64 or 128.  causal: 0 or 1.
 int dl_flash_fwd(const void* q, const void* k, const void* v, void* o,
                  void* lse, int B, int S, int H, int KV, int D, float scale,
                  int causal, int dtype, void* stream) {
   if (bad_shape(B, S, H, KV)) return static_cast<int>(cudaErrorInvalidValue);
   const Shape sh{S, H, KV, scale, causal};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == 64) return fwd_launch<64>(q, k, v, o, lse, B, sh, dtype, st);
-  if (D == 128) return fwd_launch<128>(q, k, v, o, lse, B, sh, dtype, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+    case 16: return fwd_launch<16>(q, k, v, o, lse, B, sh, dtype, st);
+    case 32: return fwd_launch<32>(q, k, v, o, lse, B, sh, dtype, st);
+    case 64: return fwd_launch<64>(q, k, v, o, lse, B, sh, dtype, st);
+    case 128: return fwd_launch<128>(q, k, v, o, lse, B, sh, dtype, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
-// The dynamic shared memory of one bf16 block, for the build report; -1
-// for a D the kernel does not take.
+// The dynamic shared memory of one bf16 block (the wgmma kernel at D = 64
+// and 128, the FMA kernel at 16 and 32), for the build report; -1 for a D
+// the kernels do not take.
 int dl_flash_fwd_smem(int D) {
-  if (D == 64) return FwdSmem<64>::kBytes;
-  if (D == 128) return FwdSmem<128>::kBytes;
-  return -1;
+  switch (D) {
+    case 16: return fwd_fma_smem(16);
+    case 32: return fwd_fma_smem(32);
+    case 64: return FwdSmem<64>::kBytes;
+    case 128: return FwdSmem<128>::kBytes;
+    default: return -1;
+  }
 }
 
 const char* dl_error_string(int code) {

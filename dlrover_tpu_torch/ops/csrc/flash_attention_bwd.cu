@@ -58,9 +58,13 @@
 //   the blocks of one head run together and share their streamed tiles in
 //   L2.  No atomics: every output element is summed in one thread's
 //   registers and written once, so dk, dv and dq are deterministic.
-// fp32: plain FMA (no TF32), 32-row tiles, one block of 4 warps per (q
-// tile, head, batch) for dQ and per (k tile, KV head, batch) for dK/dV.
-// D must be 64 or 128 (the wrapper checks).
+// fp32 at every D, and bf16 at D = 16 and 32 (too narrow for the wgmma
+// tiles and the 128-byte swizzle): plain FMA (no TF32), 32-row tiles, one
+// block of 4 warps per (q tile, head, batch) for dQ and per (k tile, KV
+// head, batch) for dK/dV; p and ds are rounded to the input type before
+// they enter a product, as in the wgmma kernels.  This path is right, not
+// fast: no tensor cores.
+// D must be 16, 32, 64 or 128 (the wrapper checks).
 //
 // C interface (ctypes): each entry returns cudaGetLastError() after its
 // launch.  The caller allocates every output; the kernels launch on
@@ -743,12 +747,64 @@ bool bwd_maps(CUtensorMap (&m)[4], const void* q, const void* dout,
          tensor_map(&m[3], v, B, sh.S, sh.KV, D, k_rows);
 }
 
+// The FMA kernels' dynamic shared memory (fp32): dQ holds Q, dO, K, V
+// tiles and one score tile; dK/dV the same tiles and two (p and ds); both
+// the rows' lse and correction.
+constexpr int dq_fma_smem(int D) {
+  return (4 * kT * (D + 1) + kT * kSL + 2 * kT) * 4;
+}
+constexpr int dkv_fma_smem(int D) {
+  return (4 * kT * (D + 1) + 2 * kT * kSL + 2 * kT) * 4;
+}
+
+template <typename T, int D>
+cudaError_t dq_fma_launch(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, const float* glse, void* dq,
+                          int B, Shape sh, cudaStream_t st) {
+  static bool done = false;
+  const size_t smem = dq_fma_smem(D);
+  cudaError_t e = allow_smem(dq_fma<T, D>, smem, done);
+  if (e != cudaSuccess) return e;
+  dq_fma<T, D><<<dim3(tiles(sh.S, kT), sh.H, B), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      glse, static_cast<T*>(dq), sh);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t dkv_fma_launch(const void* q, const void* k, const void* v,
+                           const void* dout, const float* lse,
+                           const float* delta, const float* glse, void* dk,
+                           void* dv, int B, Shape sh, cudaStream_t st) {
+  static bool done = false;
+  const size_t smem = dkv_fma_smem(D);
+  cudaError_t e = allow_smem(dkv_fma<T, D>, smem, done);
+  if (e != cudaSuccess) return e;
+  dkv_fma<T, D><<<dim3(tiles(sh.S, kT), sh.KV, B), kThreads, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+      glse, static_cast<T*>(dk), static_cast<T*>(dv), sh);
+  return cudaGetLastError();
+}
+
+// bf16 at D = 64 and 128: the wgmma kernels; bf16 at D = 16 and 32 and
+// fp32 at every D: the FMA kernels.
 template <int D>
 cudaError_t dq_launch(const void* q, const void* k, const void* v,
                       const void* dout, const float* lse, const float* delta,
                       const float* glse, void* dq, int B, Shape sh,
                       int dtype, cudaStream_t st) {
-  if (dtype == 1) {
+  if (dtype == 0) {
+    return dq_fma_launch<float, D>(q, k, v, dout, lse, delta, glse, dq, B,
+                                   sh, st);
+  }
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if constexpr (D < 64) {
+    return dq_fma_launch<bf16, D>(q, k, v, dout, lse, delta, glse, dq, B,
+                                  sh, st);
+  } else {
     CUtensorMap m[4];
     if (!bwd_maps(m, q, dout, k, v, B, sh, D, kBlockRows, kRows)) {
       return cudaErrorInvalidValue;
@@ -760,19 +816,8 @@ cudaError_t dq_launch(const void* q, const void* k, const void* v,
     dq_wgmma<D><<<dim3(tiles(sh.S, kBlockRows), sh.H, B), kHopperThreads,
                   smem, st>>>(m[0], m[1], m[2], m[3], lse, delta, glse,
                               static_cast<bf16*>(dq), sh);
-  } else if (dtype == 0) {
-    static bool done = false;
-    const size_t smem = (4 * kT * (D + 1) + kT * kSL + 2 * kT) * sizeof(float);
-    cudaError_t e = allow_smem(dq_fma<float, D>, smem, done);
-    if (e != cudaSuccess) return e;
-    dq_fma<float, D><<<dim3(tiles(sh.S, kT), sh.H, B), kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, glse, static_cast<float*>(dq), sh);
-  } else {
-    return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <int D>
@@ -781,7 +826,15 @@ cudaError_t dkv_launch(const void* q, const void* k, const void* v,
                        const float* delta, const float* glse, void* dk,
                        void* dv, int B, Shape sh, int dtype,
                        cudaStream_t st) {
-  if (dtype == 1) {
+  if (dtype == 0) {
+    return dkv_fma_launch<float, D>(q, k, v, dout, lse, delta, glse, dk, dv,
+                                    B, sh, st);
+  }
+  if (dtype != 1) return cudaErrorInvalidValue;
+  if constexpr (D < 64) {
+    return dkv_fma_launch<bf16, D>(q, k, v, dout, lse, delta, glse, dk, dv,
+                                   B, sh, st);
+  } else {
     CUtensorMap m[4];
     if (!bwd_maps(m, q, dout, k, v, B, sh, D, kRows, kRows)) {
       return cudaErrorInvalidValue;
@@ -794,20 +847,8 @@ cudaError_t dkv_launch(const void* q, const void* k, const void* v,
                    smem, st>>>(m[0], m[1], m[2], m[3], lse, delta, glse,
                                static_cast<bf16*>(dk),
                                static_cast<bf16*>(dv), sh);
-  } else if (dtype == 0) {
-    static bool done = false;
-    const size_t smem =
-        (4 * kT * (D + 1) + 2 * kT * kSL + 2 * kT) * sizeof(float);
-    cudaError_t e = allow_smem(dkv_fma<float, D>, smem, done);
-    if (e != cudaSuccess) return e;
-    dkv_fma<float, D><<<dim3(tiles(sh.S, kT), sh.KV, B), kThreads, smem, st>>>(
-        static_cast<const float*>(q), static_cast<const float*>(k),
-        static_cast<const float*>(v), static_cast<const float*>(dout), lse,
-        delta, glse, static_cast<float*>(dk), static_cast<float*>(dv), sh);
-  } else {
-    return cudaErrorInvalidValue;
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -816,7 +857,7 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, dout, dk, dv, dq share it);
 // lse, delta, glse fp32 [B, H, S], glse may be null (no lse cotangent),
-// delta = rowsum(dO * O).  D: 64 or 128.  causal: 0 or 1.
+// delta = rowsum(dO * O).  D: 16, 32, 64 or 128.  causal: 0 or 1.
 int dl_flash_bwd_dkv(const void* q, const void* k, const void* v,
                      const void* dout, const void* lse, const void* delta,
                      const void* glse, void* dk, void* dv, int B, int S,
@@ -828,14 +869,22 @@ int dl_flash_bwd_dkv(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const float* gl = static_cast<const float*>(glse);
-  if (D == 64) {
-    return dkv_launch<64>(q, k, v, dout, l, dl, gl, dk, dv, B, sh, dtype, st);
+  switch (D) {
+    case 16:
+      return dkv_launch<16>(q, k, v, dout, l, dl, gl, dk, dv, B, sh, dtype,
+                            st);
+    case 32:
+      return dkv_launch<32>(q, k, v, dout, l, dl, gl, dk, dv, B, sh, dtype,
+                            st);
+    case 64:
+      return dkv_launch<64>(q, k, v, dout, l, dl, gl, dk, dv, B, sh, dtype,
+                            st);
+    case 128:
+      return dkv_launch<128>(q, k, v, dout, l, dl, gl, dk, dv, B, sh, dtype,
+                             st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (D == 128) {
-    return dkv_launch<128>(q, k, v, dout, l, dl, gl, dk, dv, B, sh, dtype,
-                           st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 int dl_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -849,21 +898,31 @@ int dl_flash_bwd_dq(const void* q, const void* k, const void* v,
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
   const float* gl = static_cast<const float*>(glse);
-  if (D == 64) {
-    return dq_launch<64>(q, k, v, dout, l, dl, gl, dq, B, sh, dtype, st);
+  switch (D) {
+    case 16:
+      return dq_launch<16>(q, k, v, dout, l, dl, gl, dq, B, sh, dtype, st);
+    case 32:
+      return dq_launch<32>(q, k, v, dout, l, dl, gl, dq, B, sh, dtype, st);
+    case 64:
+      return dq_launch<64>(q, k, v, dout, l, dl, gl, dq, B, sh, dtype, st);
+    case 128:
+      return dq_launch<128>(q, k, v, dout, l, dl, gl, dq, B, sh, dtype, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (D == 128) {
-    return dq_launch<128>(q, k, v, dout, l, dl, gl, dq, B, sh, dtype, st);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // The dynamic shared memory of one bf16 block (dkv: 1 for dK/dV, 0 for
-// dQ), for the build report; -1 for a D the kernels do not take.
+// dQ; the wgmma kernels at D = 64 and 128, the FMA kernels at 16 and 32),
+// for the build report; -1 for a D the kernels do not take.
 int dl_flash_bwd_smem(int dkv, int D) {
-  if (D == 64) return dkv ? DkvSmem<64>::kBytes : DqSmem<64>::kBytes;
-  if (D == 128) return dkv ? DkvSmem<128>::kBytes : DqSmem<128>::kBytes;
-  return -1;
+  switch (D) {
+    case 16:
+    case 32: return dkv ? dkv_fma_smem(D) : dq_fma_smem(D);
+    case 64: return dkv ? DkvSmem<64>::kBytes : DqSmem<64>::kBytes;
+    case 128: return dkv ? DkvSmem<128>::kBytes : DqSmem<128>::kBytes;
+    default: return -1;
+  }
 }
 
 const char* dl_error_string(int code) {

@@ -25,34 +25,43 @@
 // So the design is about keeping many independent row loads in flight
 // and spending few instructions between them.
 //
-// Decode (dl_paged_attention, the first design): one thread block (4
-// warps) per (lane, KV head).  The block reads its lane's seq_len and its
-// table row itself (no scalar prefetch) and covers exactly the
-// ceil(seq_len / bs) pages that hold visible keys, never max_blocks.  The
-// warps take the pages round-robin, each with its own online softmax, so
-// four pages stream at once with no barrier in the loop; a warp loads the
-// K and V rows of 8 keys (4 at D=256) before using them, reduces their 8
-// dot products side by side and rescales its running state once per 8
-// keys.  Lane i holds dims [i*D/32, (i+1)*D/32) of every row (one vector
-// load per row), a dot product is a warp-shuffle sum, and the running
-// (m, l, acc) of up to 4 query rows stay in registers.  The warps' states
-// are merged through shared memory at the end.  (The entry still takes
-// decode = 0, the verify window through this body, as the first design
-// launched it.)
+// Both kernels cut each lane's visible pages into splits of `pages` pages
+// (about 128 keys; the host sizes them from bs and the grid from the
+// table width MB, so it never reads the lengths or positions), run one
+// block of 128 threads per (KV head, split, lane), heads the fastest
+// launch index, and return at once from a block whose split starts past
+// the lane's end.  Each split writes its fp32 partial (m, l, acc) to a
+// workspace that the caller allocates; merge_splits combines the splits
+// of each (lane, head, row) in split order.  No atomics: the kernels are
+// deterministic.
+//
+// Decode (dl_paged_decode, split-KV).  The first design ran one block per
+// (lane, KV head) over all of the lane's pages: 16 x 32 = 512 blocks at
+// the serving shape, each as long as its lane's chain of pages, with
+// plain loads (25 % of the byte bound).  Here the block carries the G
+// query rows of its KV head (G = 1 at Llama-2-7B, MHA), and its four warps
+// take the split's keys in chunks of 4 (2 at 1 KB rows), in turn.  Each
+// warp streams its chunks by cp.async (16 bytes) through its own ring of 2
+// stages in shared memory, so it needs only __syncwarp, never a block
+// barrier, in its loop.  Small chunks and short rings keep a block at
+// 16 KB of shared memory and 48 registers a thread, so ~10 blocks share an
+// SM: at the serving shape that beat 8-key chunks in 3-stage rings (4
+// blocks an SM) by ~10 % (scripts/torch_paged_decode_variants.py).  The
+// kLpk lanes on a key (32 from D = 64 on, D / 2 below, so a warp takes 2
+// or 4 keys at once at D = 32 or 16) each hold D / kLpk of its dims; a
+// score is their shuffle sum, the online softmax (log2 units, q
+// pre-scaled by D^-1/2 log2 e) keeps one max per warp, and p v lands in
+// the lane's dims of each row's sum.  The warps' states meet
+// in shared memory at the split's end and are merged in warp order.
 //
 // Verify (dl_paged_verify, split-KV).  The first design ran it through
-// the decode body: one block per (lane, KV head), so the call lasted as
-// long as the longest lane's serial chain of pages (13 x 32 blocks on
-// 132 SMs at the serving shape, ~12 of 64 warp slots per SM busy), and
-// it re-read every page once per 4 query rows.  Here each lane's visible
-// pages, (pos + C - 1) / bs + 1 of them, are cut into splits of `pages`
-// pages (about 128 keys; the host sizes them from bs and the grid from
-// the table width MB, so it never reads the positions).  A block of 128
-// threads per (KV head, split, lane), heads the fastest launch index,
+// the first decode body: one block per (lane, KV head), so the call
+// lasted as long as the longest lane's serial chain of pages, and it
+// re-read every page once per 4 query rows.  Here each lane's visible
+// pages, (pos + C - 1) / bs + 1 of them, are cut into splits, and a block
 // carries every one of the lane's C * G rows (up to 8, or 32 per block
 // when there are more, further rows taking further blocks) in one pass
-// over its pages; a block whose split starts past the lane's horizon
-// returns at once.  K and V rows stream by cp.async (16 bytes) into a
+// over its pages.  K and V rows stream by cp.async (16 bytes) into a
 // ring of 2 steps of 32 keys (16 at 1 KB rows) in shared memory, rows
 // padded by 16 bytes so that neighbouring rows start in other banks.
 // Per step:
@@ -64,10 +73,6 @@
 //     one group of 32 (16) lanes per row;
 //   acc += p v: a thread takes 4 dims of 2 rows over every ks-th key,
 //     the key groups' sums added in group order at the end.
-// Each split writes its fp32 partial (m, l, acc) to a workspace that the
-// caller allocates; a second kernel merges the splits of each (lane,
-// head, row) in split order.  No atomics: both kernels are deterministic.
-//
 // A page past the lane's end, the null block behind an inactive lane's
 // padding and the rows of the last page past the horizon are never
 // loaded, and a masked key never enters the softmax (it is skipped, not
@@ -76,8 +81,9 @@
 //
 // Offsets into the pool are 64-bit: at Llama-2-7B with 2049 blocks one
 // layer holds 134M elements and the stacked pool 4.3G.  The TPU kernel's
-// tuning knobs (kv_span, q_rows) have no counterpart here.  D must be 32,
-// 64, 128 or 256 and every row 16-byte aligned (the wrappers check).
+// tuning knobs (kv_span, q_rows) have no counterpart here.  D must be 16,
+// 32, 64, 128 or 256 and every row 16-byte aligned (the wrappers check;
+// at D = 16 a bf16 row is 32 bytes, two copies).
 //
 // C interface (ctypes): each entry returns cudaGetLastError() after its
 // launches.  The caller allocates the output and the workspace; the
@@ -88,11 +94,9 @@
 #include <math.h>
 #include <stdint.h>
 
-namespace {
+#include <type_traits>
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 4;  // query rows a warp carries at once
+namespace {
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -115,212 +119,18 @@ struct alignas(sizeof(T) * N) Vec {
   T v[N];
 };
 
-// N consecutive elements at p (aligned to N * sizeof(T)) as floats.
+// N consecutive elements at p as floats, in vector loads of at most 16
+// bytes (p aligned to min(N * sizeof(T), 16)).
 template <typename T, int N>
 __device__ __forceinline__ void load_row(const T* __restrict__ p,
                                          float (&out)[N]) {
-  const Vec<T, N> x = *reinterpret_cast<const Vec<T, N>*>(p);
+  constexpr int kPer =
+      N * sizeof(T) > 16 ? 16 / static_cast<int>(sizeof(T)) : N;
 #pragma unroll
-  for (int i = 0; i < N; ++i) out[i] = to_f(x.v[i]);
-}
-
-// decode != 0: lens_or_pos holds seq_lens and C == 1 (the query sits at
-// seq_len - 1); decode == 0: it holds each lane's first window position.
-// DPL = D / 32 dims per lane.
-template <typename T, int DPL>
-__global__ void __launch_bounds__(kThreads)
-    paged_attention_kernel(const T* __restrict__ q,
-                           const T* __restrict__ k_pool,
-                           const T* __restrict__ v_pool, T* __restrict__ out,
-                           const int* __restrict__ tables,
-                           const int* __restrict__ lens_or_pos, int decode,
-                           int C, int H, int KV, int bs, int MB,
-                           float scale) {
-  constexpr int D = 32 * DPL;
-  constexpr int kAhead = DPL >= 8 ? 4 : 8;  // K/V rows loaded per step
-  __shared__ float m_sh[kWarps][kRows];
-  __shared__ float l_sh[kWarps][kRows];
-  __shared__ float acc_sh[kWarps][kRows][D];
-
-  const int b = blockIdx.x / KV;
-  const int h = blockIdx.x % KV;
-  const int G = H / KV;
-  const int R = C * G;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-
-  const int pos = decode ? lens_or_pos[b] - 1 : lens_or_pos[b];
-  const int horizon = pos + C - 1;  // last key any row may see
-  const int n_pages = horizon < 0 ? 0 : min(horizon / bs + 1, MB);
-  const int64_t tok_stride = static_cast<int64_t>(KV) * D;
-  const int64_t page_stride = static_cast<int64_t>(bs) * tok_stride;
-  const int* table = tables + static_cast<int64_t>(b) * MB;
-
-  for (int r0 = 0; r0 < R; r0 += kRows) {
-    const int nr = min(kRows, R - r0);
-    float qf[kRows][DPL];
-    int last[kRows];  // last key position each row may see
+  for (int j = 0; j < N; j += kPer) {
+    const Vec<T, kPer> x = *reinterpret_cast<const Vec<T, kPer>*>(p + j);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (r < nr) {
-        const int c = (r0 + r) / G;
-        const int g = (r0 + r) - c * G;
-        const int64_t qi =
-            ((static_cast<int64_t>(b) * C + c) * H + h * G + g) * D;
-        load_row<T, DPL>(q + qi + lane * DPL, qf[r]);
-        last[r] = pos + c;
-      } else {
-#pragma unroll
-        for (int i = 0; i < DPL; ++i) qf[r][i] = 0.f;
-        last[r] = -1;  // sees nothing
-      }
-    }
-    float m[kRows], l[kRows], acc[kRows][DPL];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      m[r] = -1e30f;
-      l[r] = 0.f;
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
-    }
-
-    for (int j = warp; j < n_pages; j += kWarps) {
-      const int start = j * bs;
-      const int n_valid = min(bs, horizon - start + 1);
-      const int64_t base = static_cast<int64_t>(table[j]) * page_stride +
-                           static_cast<int64_t>(h) * D + lane * DPL;
-      for (int t0 = 0; t0 < n_valid; t0 += kAhead) {
-        const int nv = min(kAhead, n_valid - t0);
-        float kf[kAhead][DPL], vf[kAhead][DPL];
-#pragma unroll
-        for (int u = 0; u < kAhead; ++u) {
-          if (u < nv) {
-            const int64_t off = base + (t0 + u) * tok_stride;
-            load_row<T, DPL>(k_pool + off, kf[u]);
-            load_row<T, DPL>(v_pool + off, vf[u]);
-          } else {  // past the horizon: never loaded, never weighted
-#pragma unroll
-            for (int i = 0; i < DPL; ++i) kf[u][i] = vf[u][i] = 0.f;
-          }
-        }
-        const int col0 = start + t0;
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          if (r >= nr || col0 > last[r]) continue;  // warp-uniform
-          // the group's scores: lane partial dots, then all the warp
-          // reductions side by side; a masked key is -inf
-          float s[kAhead];
-#pragma unroll
-          for (int u = 0; u < kAhead; ++u) {
-            s[u] = 0.f;
-#pragma unroll
-            for (int i = 0; i < DPL; ++i) s[u] += qf[r][i] * kf[u][i];
-          }
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1) {
-#pragma unroll
-            for (int u = 0; u < kAhead; ++u) {
-              s[u] += __shfl_xor_sync(0xffffffffu, s[u], off);
-            }
-          }
-          float mx = -INFINITY;
-#pragma unroll
-          for (int u = 0; u < kAhead; ++u) {
-            s[u] = (u < nv && col0 + u <= last[r]) ? s[u] * scale
-                                                     : -INFINITY;
-            mx = fmaxf(mx, s[u]);
-          }
-          // one rescale per group; a masked key is skipped, never
-          // weighted by 0, and a NaN score still reaches l and acc
-          const float m_new = fmaxf(m[r], mx);
-          const float alpha = expf(m[r] - m_new);
-          float psum = 0.f;
-          float pv[DPL];
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) pv[i] = 0.f;
-#pragma unroll
-          for (int u = 0; u < kAhead; ++u) {
-            if (s[u] == -INFINITY) continue;
-            const float p = expf(s[u] - m_new);
-            psum += p;
-#pragma unroll
-            for (int i = 0; i < DPL; ++i) pv[i] += p * vf[u][i];
-          }
-          l[r] = l[r] * alpha + psum;
-#pragma unroll
-          for (int i = 0; i < DPL; ++i) acc[r][i] = acc[r][i] * alpha + pv[i];
-          m[r] = m_new;
-        }
-      }
-    }
-
-    // merge the warps' (m, l, acc) and write the rows
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      if (lane == 0) {
-        m_sh[warp][r] = m[r];
-        l_sh[warp][r] = l[r];
-      }
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc_sh[warp][r][lane * DPL + i] = acc[r][i];
-    }
-    __syncthreads();
-    for (int idx = threadIdx.x; idx < nr * D; idx += kThreads) {
-      const int r = idx / D;
-      const int d = idx - r * D;
-      float mx = m_sh[0][r];
-#pragma unroll
-      for (int w = 1; w < kWarps; ++w) mx = fmaxf(mx, m_sh[w][r]);
-      float den = 0.f, num = 0.f;
-#pragma unroll
-      for (int w = 0; w < kWarps; ++w) {
-        const float e = expf(m_sh[w][r] - mx);
-        den += l_sh[w][r] * e;
-        num += acc_sh[w][r][d] * e;
-      }
-      const int c = (r0 + r) / G;
-      const int g = (r0 + r) - c * G;
-      const int64_t oi =
-          ((static_cast<int64_t>(b) * C + c) * H + h * G + g) * D + d;
-      out[oi] = from_f<T>(num / fmaxf(den, 1e-30f));
-    }
-    __syncthreads();
-  }
-}
-
-template <typename T, int DPL>
-int launch(const void* q, const void* k_pool, const void* v_pool, void* out,
-           const void* tables, const void* lens_or_pos, int decode, int B,
-           int C, int H, int KV, int bs, int MB, float scale,
-           cudaStream_t stream) {
-  paged_attention_kernel<T, DPL><<<B * KV, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<T*>(out),
-      static_cast<const int*>(tables), static_cast<const int*>(lens_or_pos),
-      decode, C, H, KV, bs, MB, scale);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(const void* q, const void* k_pool, const void* v_pool,
-             void* out, const void* tables, const void* lens_or_pos,
-             int decode, int B, int C, int H, int KV, int D, int bs, int MB,
-             float scale, cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return launch<T, 1>(q, k_pool, v_pool, out, tables, lens_or_pos,
-                          decode, B, C, H, KV, bs, MB, scale, s);
-    case 64:
-      return launch<T, 2>(q, k_pool, v_pool, out, tables, lens_or_pos,
-                          decode, B, C, H, KV, bs, MB, scale, s);
-    case 128:
-      return launch<T, 4>(q, k_pool, v_pool, out, tables, lens_or_pos,
-                          decode, B, C, H, KV, bs, MB, scale, s);
-    case 256:
-      return launch<T, 8>(q, k_pool, v_pool, out, tables, lens_or_pos,
-                          decode, B, C, H, KV, bs, MB, scale, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+    for (int i = 0; i < kPer; ++i) out[j + i] = to_f(x.v[i]);
   }
 }
 
@@ -329,8 +139,8 @@ int dispatch(const void* q, const void* k_pool, const void* v_pool,
 constexpr int kVerifyThreads = 128;
 constexpr int kVerifyStages = 2;  // steps in the ring (1 loading, 1 in use)
 
-// The shape of one verify call.
-struct Verify {
+// The shape of one call (decode: C = 1).
+struct Paged {
   int C, H, KV, bs, MB, pages;
   float scale;
 };
@@ -419,6 +229,34 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// cp.async the K and V rows of keys [key0, key0 + nk) of a split (key
+// offsets within the split; pages from the split's table entries in
+// s_tab) into a stage: kKeys K rows, then kKeys V rows, `pitch` bytes
+// apart, 16 bytes a copy.  The `n` threads from `t` share the copies;
+// keys past nk are never loaded.
+template <typename T, int D, int kKeys>
+__device__ __forceinline__ void stage_rows(
+    uint32_t stage, int pitch, const T* __restrict__ k_pool,
+    const T* __restrict__ v_pool, const int* s_tab, int key0, int nk,
+    int bs, int64_t tok_stride, int h, int t, int n) {
+  constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+  constexpr int kChunks = D / kVec;  // 16-byte chunks of a row
+  for (int i = t; i < 2 * kKeys * kChunks; i += n) {
+    const int kv = i / (kKeys * kChunks);
+    const int u = (i / kChunks) % kKeys;
+    const int c = i % kChunks;
+    if (u < nk) {
+      const int key = key0 + u;
+      const int page = key / bs;
+      const int64_t row =
+          static_cast<int64_t>(s_tab[page]) * bs + (key - page * bs);
+      const T* src = (kv ? v_pool : k_pool) + row * tok_stride +
+                     static_cast<int64_t>(h) * D + c * kVec;
+      cp_async16(stage + (kv * kKeys + u) * pitch + c * 16, src);
+    }
+  }
+}
+
 // max and sum over the W lanes of an aligned group (W = 16 or 32)
 template <int W>
 __device__ __forceinline__ float group_max(float v) {
@@ -449,7 +287,7 @@ __global__ void __launch_bounds__(kVerifyThreads)
                  const T* __restrict__ v_pool, const int* __restrict__ tables,
                  const int* __restrict__ positions, float* __restrict__ ws_m,
                  float* __restrict__ ws_l, float* __restrict__ ws_acc,
-                 Verify vs) {
+                 Paged vs) {
   using L = VerifyCfg<T, D, MR>;
   constexpr int kKeys = L::kKeys, kSlots = L::kSlots;
   constexpr int kVec = L::kVec, kChunks = L::kChunks;
@@ -505,23 +343,11 @@ __global__ void __launch_bounds__(kVerifyThreads)
   // K and V rows of step `it` into its stage; keys past k_end are never
   // loaded
   auto issue = [&](int it) {
-    const int key0 = k_begin + it * kKeys;
-    const int nk = min(kKeys, k_end - key0);
-    const uint32_t stage = ring + (it % kVerifyStages) * L::kStage;
-    for (int i = tid; i < 2 * kKeys * kChunks; i += kVerifyThreads) {
-      const int kv = i / (kKeys * kChunks);
-      const int u = (i / kChunks) % kKeys;
-      const int c = i % kChunks;
-      if (u < nk) {
-        const int key = key0 + u - k_begin;  // within the split
-        const int page = key / bs;
-        const int64_t row =
-            static_cast<int64_t>(s_tab[page]) * bs + (key - page * bs);
-        const T* src = (kv ? v_pool : k_pool) + row * tok_stride +
-                       static_cast<int64_t>(h) * D + c * kVec;
-        cp_async16(stage + (kv * kKeys + u) * L::kRow + c * 16, src);
-      }
-    }
+    const int key0 = it * kKeys;  // within the split
+    stage_rows<T, D, kKeys>(ring + (it % kVerifyStages) * L::kStage, L::kRow,
+                            k_pool, v_pool, s_tab, key0,
+                            min(kKeys, k_end - k_begin - key0), bs,
+                            tok_stride, h, tid, kVerifyThreads);
   };
 
 #pragma unroll
@@ -718,22 +544,274 @@ __global__ void __launch_bounds__(kVerifyThreads)
   }
 }
 
-// One block per (KV head, lane): every row of the lane's window merged
-// over its splits in split order, o = acc / max(l, 1e-30).  A thread
-// owns 4 dims of a row (16-byte loads of the partial sums); the split
-// loops are unrolled so their loads are in flight together.
+// ============================================ decode, split-KV (B5)
+
+constexpr int kDecodeWarps = 4;
+constexpr int kDecodeThreads = kDecodeWarps * 32;
+constexpr int kDecodeStages = 2;  // chunks in a warp's ring
+
+// A decode block's constants.  A step of kKeys keys is cut into one chunk
+// of kKpw keys per warp; a warp streams its chunks through its own ring of
+// kDecodeStages stages (K rows, then V rows, unpadded: a warp reads whole
+// rows).  kLpk lanes share one key, each holding kDpl of its dims (all 32
+// lanes from D = 64 on; at D = 16 and 32, 8 and 16 lanes, so a warp takes
+// kKpi keys at once).
+template <typename T, int D>
+struct DecodeCfg {
+  static constexpr int kKeys = D * sizeof(T) >= 1024 ? 8 : 16;  // a step
+  static constexpr int kKpw = kKeys / kDecodeWarps;
+  static constexpr int kLpk = D >= 64 ? 32 : D / 2;
+  static constexpr int kDpl = D / kLpk;
+  static constexpr int kKpi = 32 / kLpk;
+  static constexpr int kIters = kKpw / kKpi;  // key slots of a lane a chunk
+  static constexpr int kRow = D * static_cast<int>(sizeof(T));
+  static constexpr int kChunk = 2 * kKpw * kRow;
+  static constexpr int kWarpRing = kDecodeStages * kChunk;
+  static int bytes(int pages) { return kDecodeWarps * kWarpRing + pages * 4; }
+};
+
+// Grid (KV head + KV * row group, split, lane), as verify_split.  The block
+// carries the MR (or fewer) query rows of its KV head; its four warps
+// take the split's keys chunk by chunk in turn (warp w: keys [(j * 4 + w)
+// * kKpw, + kKpw) of its j-th chunk), each with its own online softmax.
+// Per chunk a lane forms its dot products with its dims of q (registers)
+// and of the chunk's K rows (shared memory), the kLpk lanes of a key sum
+// them by shuffles, and p v goes into the lane's kDpl dims of each row's
+// sum.  At the split's end the warps' states meet in shared memory and
+// are merged in warp order into the split's partial.
+template <typename T, int D, int MR>
+__global__ void __launch_bounds__(kDecodeThreads)
+    decode_split(const T* __restrict__ q, const T* __restrict__ k_pool,
+                 const T* __restrict__ v_pool, const int* __restrict__ tables,
+                 const int* __restrict__ seq_lens, float* __restrict__ ws_m,
+                 float* __restrict__ ws_l, float* __restrict__ ws_acc,
+                 Paged ps) {
+  using L = DecodeCfg<T, D>;
+  constexpr int kKpw = L::kKpw, kLpk = L::kLpk, kDpl = L::kDpl;
+  constexpr int kKpi = L::kKpi, kIters = L::kIters;
+  static_assert(kIters >= 1 && kKpw % kKpi == 0,
+                "a warp's chunk is whole sets of the keys it takes at once");
+  static_assert(MR * D * 4 <= L::kWarpRing,
+                "a warp's partial sums fit its ring");
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  __shared__ float s_m[kDecodeWarps][MR];
+  __shared__ float s_l[kDecodeWarps][MR];
+
+  const int H = ps.H, KV = ps.KV, bs = ps.bs;
+  const int G = H / KV;
+  const int h = blockIdx.x % KV, split = blockIdx.y, b = blockIdx.z;
+  const int r0 = (blockIdx.x / KV) * MR;
+  const int nr = min(MR, G - r0);
+  const int seq_len = seq_lens[b];
+  const int n_pages = seq_len < 1 ? 0 : min((seq_len - 1) / bs + 1, ps.MB);
+  const int p0 = split * ps.pages;
+  if (p0 >= n_pages) return;  // past the lane's end
+  const int n_tab = min(p0 + ps.pages, n_pages) - p0;
+  const int n_keys = min(n_tab * bs, seq_len - p0 * bs);  // all visible
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = lane / kLpk;  // the lane's key of each kKpi
+  const int dim0 = (lane % kLpk) * kDpl;
+  const int64_t tok_stride = static_cast<int64_t>(KV) * D;
+  unsigned char* ring = dsmem + warp * L::kWarpRing;
+  int* s_tab = reinterpret_cast<int*>(dsmem + kDecodeWarps * L::kWarpRing);
+
+  const int* table = tables + static_cast<int64_t>(b) * ps.MB + p0;
+  for (int j = tid; j < n_tab; j += kDecodeThreads) s_tab[j] = table[j];
+  // the lane's dims of q, pre-scaled so the scores are in log2 units
+  const float sl2 = ps.scale * 1.4426950408889634f;
+  float qf[MR][kDpl];
+#pragma unroll
+  for (int r = 0; r < MR; ++r) {
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i) qf[r][i] = 0.f;
+    if (r < nr) {
+      load_row<T, kDpl>(
+          q + (static_cast<int64_t>(b) * H + h * G + r0 + r) * D + dim0,
+          qf[r]);
+#pragma unroll
+      for (int i = 0; i < kDpl; ++i) qf[r][i] *= sl2;
+    }
+  }
+  __syncthreads();  // s_tab
+
+  // chunk j of this warp: keys [(j * warps + warp) * kKpw, + kKpw)
+  const int first = warp * kKpw;
+  const int n_chunks = n_keys <= first ? 0
+      : (n_keys - first + kDecodeWarps * kKpw - 1) / (kDecodeWarps * kKpw);
+  auto issue = [&](int j) {
+    const int key0 = (j * kDecodeWarps + warp) * kKpw;
+    stage_rows<T, D, kKpw>(smem_u32(ring + (j % kDecodeStages) * L::kChunk),
+                           L::kRow, k_pool, v_pool, s_tab, key0,
+                           min(kKpw, n_keys - key0), bs, tok_stride, h, lane,
+                           32);
+  };
+#pragma unroll
+  for (int j = 0; j < kDecodeStages - 1; ++j) {
+    if (j < n_chunks) issue(j);
+    cp_async_commit();
+  }
+
+  float m[MR], l[MR], acc[MR][kDpl];
+#pragma unroll
+  for (int r = 0; r < MR; ++r) {
+    m[r] = -1e30f;
+    l[r] = 0.f;
+#pragma unroll
+    for (int i = 0; i < kDpl; ++i) acc[r][i] = 0.f;
+  }
+
+  for (int j = 0; j < n_chunks; ++j) {
+    cp_async_wait<kDecodeStages - 2>();
+    __syncwarp();  // chunk j landed for every lane; chunk j - 1's stage free
+    if (j + kDecodeStages - 1 < n_chunks) issue(j + kDecodeStages - 1);
+    cp_async_commit();
+    const int nk = min(kKpw, n_keys - (j * kDecodeWarps + warp) * kKpw);
+    const T* rows =
+        reinterpret_cast<const T*>(ring + (j % kDecodeStages) * L::kChunk);
+
+    // scores: the lane's part of each of its keys' dots, summed over the
+    // key's kLpk lanes (a key past nk: stale shared memory, never used)
+    float sc[kIters][MR];
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      float kx[kDpl];
+      load_row<T, kDpl>(rows + (it * kKpi + grp) * D + dim0, kx);
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+        float x = 0.f;
+#pragma unroll
+        for (int i = 0; i < kDpl; ++i) x += qf[r][i] * kx[i];
+        sc[it][r] = x;
+      }
+    }
+#pragma unroll
+    for (int o = kLpk / 2; o > 0; o >>= 1) {
+#pragma unroll
+      for (int it = 0; it < kIters; ++it) {
+#pragma unroll
+        for (int r = 0; r < MR; ++r) {
+          sc[it][r] += __shfl_xor_sync(0xffffffffu, sc[it][r], o);
+        }
+      }
+    }
+
+    // online softmax over the chunk's keys, the max shared by the warp:
+    // a key past nk is skipped (never exp'd, never weighted by 0)
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int it = 0; it < kIters; ++it) {
+        if (it * kKpi + grp < nk) mx = fmaxf(mx, sc[it][r]);
+      }
+#pragma unroll
+      for (int o = kLpk; o < 32; o <<= 1) {
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+      }
+      const float m_new = fmaxf(m[r], mx);
+      const float alpha = exp2f(m[r] - m_new);
+      m[r] = m_new;
+      l[r] *= alpha;
+#pragma unroll
+      for (int i = 0; i < kDpl; ++i) acc[r][i] *= alpha;
+#pragma unroll
+      for (int it = 0; it < kIters; ++it) {
+        if (it * kKpi + grp < nk) {
+          sc[it][r] = exp2f(sc[it][r] - m_new);
+          l[r] += sc[it][r];
+        }
+      }
+    }
+#pragma unroll
+    for (int it = 0; it < kIters; ++it) {
+      const int u = it * kKpi + grp;
+      if (u >= nk) continue;
+      float vx[kDpl];
+      load_row<T, kDpl>(rows + (kKpw + u) * D + dim0, vx);
+#pragma unroll
+      for (int r = 0; r < MR; ++r) {
+#pragma unroll
+        for (int i = 0; i < kDpl; ++i) acc[r][i] += sc[it][r] * vx[i];
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncwarp();  // the warp is done with its ring
+
+  // the lanes of the kKpi keys summed different keys: add their l and acc
+#pragma unroll
+  for (int o = kLpk; o < 32; o <<= 1) {
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], o);
+#pragma unroll
+      for (int i = 0; i < kDpl; ++i) {
+        acc[r][i] += __shfl_xor_sync(0xffffffffu, acc[r][i], o);
+      }
+    }
+  }
+  // the warp's state: (m, l) beside, acc [MR][D] in its own ring
+  float* w_acc = reinterpret_cast<float*>(ring);
+  if (lane < kLpk) {
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      if (r < nr) {
+#pragma unroll
+        for (int i = 0; i < kDpl; ++i) w_acc[r * D + dim0 + i] = acc[r][i];
+      }
+    }
+  }
+  if (lane == 0) {
+#pragma unroll
+    for (int r = 0; r < MR; ++r) {
+      s_m[warp][r] = m[r];
+      s_l[warp][r] = l[r];
+    }
+  }
+  __syncthreads();
+
+  // the split's partial: the warps' states merged in warp order
+  const int64_t row0 =
+      ((static_cast<int64_t>(b) * KV + h) * gridDim.y + split) * G + r0;
+  for (int i = tid; i < nr * D; i += kDecodeThreads) {
+    const int r = i / D, d = i - r * D;
+    float mx = s_m[0][r];
+#pragma unroll
+    for (int w = 1; w < kDecodeWarps; ++w) mx = fmaxf(mx, s_m[w][r]);
+    float den = 0.f, num = 0.f;
+#pragma unroll
+    for (int w = 0; w < kDecodeWarps; ++w) {
+      const float e = exp2f(s_m[w][r] - mx);
+      den += s_l[w][r] * e;
+      num += reinterpret_cast<const float*>(dsmem + w * L::kWarpRing)[i] * e;
+    }
+    ws_acc[(row0 + r) * D + d] = num;
+    if (d == 0) {
+      ws_m[row0 + r] = mx;
+      ws_l[row0 + r] = den;
+    }
+  }
+}
+
+// One block per (KV head, lane), for both kernels: every row of the
+// lane's window (decode: its G rows) merged over its splits in split
+// order, o = acc / max(l, 1e-30); a lane with no key has no active split
+// and comes out as exact zeros.  A thread owns 4 dims of a row (16-byte
+// loads of the partial sums); the split loops are unrolled so their loads
+// are in flight together.  lens_or_pos: seq_lens (decode, C = 1: the last
+// key is seq_len - 1) or the windows' first positions (verify).
 template <typename T, int D>
 __global__ void __launch_bounds__(kVerifyThreads)
-    verify_merge(const float* __restrict__ ws_m,
+    merge_splits(const float* __restrict__ ws_m,
                  const float* __restrict__ ws_l,
                  const float* __restrict__ ws_acc,
-                 const int* __restrict__ positions, T* __restrict__ out,
-                 Verify vs, int splits) {
+                 const int* __restrict__ lens_or_pos, T* __restrict__ out,
+                 Paged vs, int splits, int decode) {
   const int C = vs.C, H = vs.H, KV = vs.KV;
   const int G = H / KV;
   const int R = C * G;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int horizon = positions[b] + C - 1;
+  const int horizon = lens_or_pos[b] + (decode ? -1 : C - 1);
   const int n_pages = horizon < 0 ? 0 : min(horizon / vs.bs + 1, vs.MB);
   const int n_act = (n_pages + vs.pages - 1) / vs.pages;
   const int64_t row0 = (static_cast<int64_t>(b) * KV + h) * splits * R;
@@ -768,7 +846,7 @@ template <typename T, int D, int MR>
 int verify_split_launch(const void* q, const void* k_pool,
                         const void* v_pool, const void* tables,
                         const void* positions, void* ws_m, void* ws_l,
-                        void* ws_acc, int B, Verify vs, int splits,
+                        void* ws_acc, int B, Paged vs, int splits,
                         cudaStream_t stream) {
   using L = VerifyCfg<T, D, MR>;
   const int R = vs.C * (vs.H / vs.KV);
@@ -796,7 +874,7 @@ int verify_split_launch(const void* q, const void* k_pool,
 template <typename T, int D>
 int verify_launch(const void* q, const void* k_pool, const void* v_pool,
                   void* out, const void* tables, const void* positions,
-                  void* ws_m, void* ws_l, void* ws_acc, int B, Verify vs,
+                  void* ws_m, void* ws_l, void* ws_acc, int B, Paged vs,
                   cudaStream_t stream) {
   const int R = vs.C * (vs.H / vs.KV);
   const int splits = (vs.MB + vs.pages - 1) / vs.pages;
@@ -808,70 +886,136 @@ int verify_launch(const void* q, const void* k_pool, const void* v_pool,
                                              positions, ws_m, ws_l, ws_acc,
                                              B, vs, splits, stream);
   if (e != 0) return e;
-  verify_merge<T, D><<<dim3(vs.KV, B), kVerifyThreads, 0, stream>>>(
+  merge_splits<T, D><<<dim3(vs.KV, B), kVerifyThreads, 0, stream>>>(
       static_cast<const float*>(ws_m), static_cast<const float*>(ws_l),
       static_cast<const float*>(ws_acc), static_cast<const int*>(positions),
-      static_cast<T*>(out), vs, splits);
+      static_cast<T*>(out), vs, splits, 0);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int MR>
-int verify_smem(int D, int rows, int pages) {
-  if (D == 32) return VerifyCfg<T, 32, MR>::bytes(rows, pages);
-  if (D == 64) return VerifyCfg<T, 64, MR>::bytes(rows, pages);
-  if (D == 128) return VerifyCfg<T, 128, MR>::bytes(rows, pages);
-  if (D == 256) return VerifyCfg<T, 256, MR>::bytes(rows, pages);
-  return -1;
+// f(std::integral_constant<int, D>) at the head dims the kernels take,
+// `bad` at any other
+template <typename F>
+int by_head_dim(int D, int bad, F f) {
+  switch (D) {
+    case 16: return f(std::integral_constant<int, 16>());
+    case 32: return f(std::integral_constant<int, 32>());
+    case 64: return f(std::integral_constant<int, 64>());
+    case 128: return f(std::integral_constant<int, 128>());
+    case 256: return f(std::integral_constant<int, 256>());
+    default: return bad;
+  }
 }
+
+constexpr int kBad = static_cast<int>(cudaErrorInvalidValue);
 
 template <typename T>
 int verify_dispatch(const void* q, const void* k_pool, const void* v_pool,
                     void* out, const void* tables, const void* positions,
                     void* ws_m, void* ws_l, void* ws_acc, int B, int D,
-                    Verify vs, cudaStream_t s) {
-  switch (D) {
-    case 32:
-      return verify_launch<T, 32>(q, k_pool, v_pool, out, tables, positions,
-                                  ws_m, ws_l, ws_acc, B, vs, s);
-    case 64:
-      return verify_launch<T, 64>(q, k_pool, v_pool, out, tables, positions,
-                                  ws_m, ws_l, ws_acc, B, vs, s);
-    case 128:
-      return verify_launch<T, 128>(q, k_pool, v_pool, out, tables, positions,
-                                   ws_m, ws_l, ws_acc, B, vs, s);
-    case 256:
-      return verify_launch<T, 256>(q, k_pool, v_pool, out, tables, positions,
-                                   ws_m, ws_l, ws_acc, B, vs, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+                    Paged vs, cudaStream_t s) {
+  return by_head_dim(D, kBad, [&](auto d) {
+    return verify_launch<T, decltype(d)::value>(
+        q, k_pool, v_pool, out, tables, positions, ws_m, ws_l, ws_acc, B, vs,
+        s);
+  });
+}
+
+template <typename T, int D, int MR>
+int decode_split_launch(const void* q, const void* k_pool,
+                        const void* v_pool, const void* tables,
+                        const void* seq_lens, void* ws_m, void* ws_l,
+                        void* ws_acc, int B, Paged ps, int splits,
+                        cudaStream_t stream) {
+  using L = DecodeCfg<T, D>;
+  const int groups = (ps.H / ps.KV + MR - 1) / MR;
+  if (splits > 65535 || ps.pages > 128) return kBad;
+  static bool done = false;
+  if (!done) {  // once per instantiation, before any graph capture
+    const cudaError_t e = cudaFuncSetAttribute(
+        decode_split<T, D, MR>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        L::bytes(128));
+    if (e != cudaSuccess) return static_cast<int>(e);
+    done = true;
   }
+  decode_split<T, D, MR><<<dim3(ps.KV * groups, splits, B), kDecodeThreads,
+                           L::bytes(ps.pages), stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool),
+      static_cast<const T*>(v_pool), static_cast<const int*>(tables),
+      static_cast<const int*>(seq_lens), static_cast<float*>(ws_m),
+      static_cast<float*>(ws_l), static_cast<float*>(ws_acc), ps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rows a decode block carries: 1 at MHA, 4 up to group 4, else 8 (and
+// further row groups as further blocks).
+template <typename T, int D>
+int decode_launch(const void* q, const void* k_pool, const void* v_pool,
+                  void* out, const void* tables, const void* seq_lens,
+                  void* ws_m, void* ws_l, void* ws_acc, int B, Paged ps,
+                  cudaStream_t stream) {
+  const int G = ps.H / ps.KV;
+  const int splits = (ps.MB + ps.pages - 1) / ps.pages;
+  const int e =
+      G == 1   ? decode_split_launch<T, D, 1>(q, k_pool, v_pool, tables,
+                                              seq_lens, ws_m, ws_l, ws_acc,
+                                              B, ps, splits, stream)
+      : G <= 4 ? decode_split_launch<T, D, 4>(q, k_pool, v_pool, tables,
+                                              seq_lens, ws_m, ws_l, ws_acc,
+                                              B, ps, splits, stream)
+               : decode_split_launch<T, D, 8>(q, k_pool, v_pool, tables,
+                                              seq_lens, ws_m, ws_l, ws_acc,
+                                              B, ps, splits, stream);
+  if (e != 0) return e;
+  merge_splits<T, D><<<dim3(ps.KV, B), kVerifyThreads, 0, stream>>>(
+      static_cast<const float*>(ws_m), static_cast<const float*>(ws_l),
+      static_cast<const float*>(ws_acc), static_cast<const int*>(seq_lens),
+      static_cast<T*>(out), ps, splits, 1);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int decode_dispatch(const void* q, const void* k_pool, const void* v_pool,
+                    void* out, const void* tables, const void* seq_lens,
+                    void* ws_m, void* ws_l, void* ws_acc, int B, int D,
+                    Paged ps, cudaStream_t s) {
+  return by_head_dim(D, kBad, [&](auto d) {
+    return decode_launch<T, decltype(d)::value>(
+        q, k_pool, v_pool, out, tables, seq_lens, ws_m, ws_l, ws_acc, B, ps,
+        s);
+  });
+}
+
+bool bad_call(int B, int C, int H, int KV, int bs, int MB, int pages) {
+  return B < 1 || B > 65535 || C < 1 || KV < 1 || H % KV != 0 || bs < 1 ||
+         MB < 1 || pages < 1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, pools and out share it).
-// decode: 1 -> lens_or_pos = seq_lens and C must be 1; 0 -> verify.
-int dl_paged_attention(const void* q, const void* k_pool, const void* v_pool,
-                       void* out, const void* tables, const void* lens_or_pos,
-                       int decode, int B, int C, int H, int KV, int D, int bs,
-                       int MB, float scale, int dtype, void* stream) {
-  if (B < 1 || C < 1 || KV < 1 || H % KV != 0 || bs < 1 || MB < 1 ||
-      (decode && C != 1)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+// Split-KV decode (B5).  dtype: 0 = float32, 1 = bfloat16 (q, pools and
+// out share it).  pages: pages per split; the workspace holds fp32 ws_m,
+// ws_l [B, KV, ceil(MB / pages), H / KV] and ws_acc [..., D].
+int dl_paged_decode(const void* q, const void* k_pool, const void* v_pool,
+                    void* out, const void* tables, const void* seq_lens,
+                    void* ws_m, void* ws_l, void* ws_acc, int B, int H,
+                    int KV, int D, int bs, int MB, int pages, float scale,
+                    int dtype, void* stream) {
+  if (bad_call(B, 1, H, KV, bs, MB, pages)) return kBad;
+  const Paged ps{1, H, KV, bs, MB, pages, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return dispatch<float>(q, k_pool, v_pool, out, tables, lens_or_pos,
-                           decode, B, C, H, KV, D, bs, MB, scale, s);
+    return decode_dispatch<float>(q, k_pool, v_pool, out, tables, seq_lens,
+                                  ws_m, ws_l, ws_acc, B, D, ps, s);
   }
   if (dtype == 1) {
-    return dispatch<__nv_bfloat16>(q, k_pool, v_pool, out, tables,
-                                   lens_or_pos, decode, B, C, H, KV, D, bs,
-                                   MB, scale, s);
+    return decode_dispatch<__nv_bfloat16>(q, k_pool, v_pool, out, tables,
+                                          seq_lens, ws_m, ws_l, ws_acc, B, D,
+                                          ps, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return kBad;
 }
 
 // Split-KV verify (B6).  dtype: 0 = float32, 1 = bfloat16 (q, pools and
@@ -882,11 +1026,8 @@ int dl_paged_verify(const void* q, const void* k_pool, const void* v_pool,
                     void* ws_m, void* ws_l, void* ws_acc, int B, int C,
                     int H, int KV, int D, int bs, int MB, int pages,
                     float scale, int dtype, void* stream) {
-  if (B < 1 || B > 65535 || C < 1 || KV < 1 || H % KV != 0 || bs < 1 ||
-      MB < 1 || pages < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const Verify vs{C, H, KV, bs, MB, pages, scale};
+  if (bad_call(B, C, H, KV, bs, MB, pages)) return kBad;
+  const Paged vs{C, H, KV, bs, MB, pages, scale};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
     return verify_dispatch<float>(q, k_pool, v_pool, out, tables, positions,
@@ -897,17 +1038,35 @@ int dl_paged_verify(const void* q, const void* k_pool, const void* v_pool,
                                           positions, ws_m, ws_l, ws_acc, B,
                                           D, vs, s);
   }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return kBad;
+}
+
+// The dynamic shared memory of one decode block at `pages` pages per
+// split, for the build report; -1 for a dtype or D the kernel does not
+// take.
+int dl_paged_decode_smem(int dtype, int D, int pages) {
+  if (dtype != 0 && dtype != 1) return -1;
+  return by_head_dim(D, -1, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    return dtype == 0 ? DecodeCfg<float, kD>::bytes(pages)
+                      : DecodeCfg<__nv_bfloat16, kD>::bytes(pages);
+  });
 }
 
 // The dynamic shared memory of one verify block at `rows` query rows and
 // `pages` pages per split, for the build report; -1 for a dtype or D the
 // kernel does not take.
 int dl_paged_verify_smem(int dtype, int D, int rows, int pages) {
-  if (rows > 8) return dtype == 0 ? verify_smem<float, 32>(D, 32, pages)
-                                  : verify_smem<__nv_bfloat16, 32>(D, 32, pages);
-  return dtype == 0 ? verify_smem<float, 8>(D, rows, pages)
-                    : verify_smem<__nv_bfloat16, 8>(D, rows, pages);
+  if (dtype != 0 && dtype != 1) return -1;
+  return by_head_dim(D, -1, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (rows > 8) {
+      return dtype == 0 ? VerifyCfg<float, kD, 32>::bytes(32, pages)
+                        : VerifyCfg<__nv_bfloat16, kD, 32>::bytes(32, pages);
+    }
+    return dtype == 0 ? VerifyCfg<float, kD, 8>::bytes(rows, pages)
+                      : VerifyCfg<__nv_bfloat16, kD, 8>::bytes(rows, pages);
+  });
 }
 
 const char* dl_error_string(int code) {

@@ -28,7 +28,9 @@ import torch
 from dlrover_tpu_torch.ops import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 128)
+#: The head dims the kernels take: bf16 runs on wgmma at 64 and 128 and
+#: on the FMA kernels at 16 and 32; fp32 on the FMA kernels at all four.
+HEAD_DIMS = (16, 32, 64, 128)
 
 
 def _scores(q, k, causal, scale):
@@ -142,7 +144,8 @@ def _check(q, k, v, what, *rest):
             f"{what}: q {tuple(q.shape)} does not fit k {tuple(k.shape)}"
         )
     if d not in HEAD_DIMS:
-        raise ValueError(f"{what} kernel takes head_dim 64 or 128, got {d}")
+        raise ValueError(
+            f"{what} kernel takes head_dim 16, 32, 64 or 128, got {d}")
     if b > 65535 or h > 65535:
         raise ValueError(f"{what} kernel takes at most 65535 rows of heads")
     tensors = [("q", q), ("k", k), ("v", v)]
@@ -226,8 +229,9 @@ def flash_bwd_dq_kernel(q, k, v, dout, lse, delta, glse, causal, scale):
 
 def smem_bytes(kind: str, d: int) -> int:
     """Dynamic shared memory of one bf16 block of a kernel (``kind``
-    "fwd", "dkv" or "dq"), as the launch asks for it (builds the
-    library)."""
+    "fwd", "dkv" or "dq") at head dim ``d`` (the wgmma kernels at 64 and
+    128, the FMA kernels at 16 and 32), as the launch asks for it
+    (builds the library)."""
     if kind == "fwd":
         fn = _build.library("flash_attention").dl_flash_fwd_smem
         fn.restype = ctypes.c_int

@@ -128,12 +128,34 @@ def rms_norm(
 # ---------------------------------------- fused linear cross entropy
 
 
+class _MmF32(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=float32)``, which has no derivative of
+    its own, with the backward that autograd gives the CPU's cast-then-mm:
+    the grads in fp32, each rounded to its operand's dtype."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        da = db = None
+        if ctx.needs_input_grad[0]:
+            da = torch.mm(g, b.float().t()).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            db = torch.mm(a.float().t(), g).to(b.dtype)
+        return da, db
+
+
 def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """``a @ b`` with fp32 accumulation and an fp32 result (JAX's
     ``preferred_element_type=float32``): cuBLAS writes fp32 straight
-    from bf16 operands; the CPU, which has no such mm, casts first."""
+    from bf16 operands (differentiable through ``_MmF32``); the CPU,
+    which has no such mm, casts first."""
     if a.is_cuda and a.dtype != torch.float32:
-        return torch.mm(a, b, out_dtype=torch.float32)
+        return _MmF32.apply(a, b)
     return torch.mm(a.float(), b.float())
 
 

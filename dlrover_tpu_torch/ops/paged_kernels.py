@@ -1,6 +1,6 @@
-"""Paged decode and K-step verify attention: the CUDA kernels of
-``ops/csrc/paged_attention.cu`` (decode: ``dl_paged_attention``; verify:
-the split-KV ``dl_paged_verify``) and their plain PyTorch versions.
+"""Paged decode and K-step verify attention: the split-KV CUDA kernels of
+``ops/csrc/paged_attention.cu`` (``dl_paged_decode``, ``dl_paged_verify``)
+and their plain PyTorch versions.
 
 Port of ``dlrover_tpu/ops/paged_kernels.py:128-452``
 (``paged_decode_kernel``, ``paged_verify_kernel``).  Layouts are the
@@ -83,12 +83,14 @@ def paged_verify_plain(q, k_pool, v_pool, block_tables, positions):
     return out.to(q.dtype).reshape(b, c, nh, d)
 
 
-#: ``dl_paged_attention(q, k_pool, v_pool, out, tables, lens_or_pos,
-#: decode, B, C, H, KV, D, bs, MB, scale, dtype, stream)``
-ARGTYPES = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [
+#: ``dl_paged_decode(q, k_pool, v_pool, out, tables, seq_lens, ws_m,
+#: ws_l, ws_acc, B, H, KV, D, bs, MB, pages, scale, dtype, stream)``
+DECODE_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
 ]
 
+#: ``dl_paged_decode_smem(dtype, D, pages)``
+DECODE_SMEM_ARGTYPES = [ctypes.c_int] * 3
 
 #: ``dl_paged_verify(q, k_pool, v_pool, out, tables, positions, ws_m,
 #: ws_l, ws_acc, B, C, H, KV, D, bs, MB, pages, scale, dtype, stream)``
@@ -99,9 +101,12 @@ VERIFY_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [
 #: ``dl_paged_verify_smem(dtype, D, rows, pages)``
 VERIFY_SMEM_ARGTYPES = [ctypes.c_int] * 4
 
-#: Keys per split of the verify kernel, rounded down to whole pages (at
-#: least one page).
+#: Keys per split of both kernels, rounded down to whole pages (at least
+#: one page).
 SPLIT_KEYS = 128
+
+#: The head dims both kernels take.
+HEAD_DIMS = (16, 32, 64, 128, 256)
 
 
 def verify_plan(batch, rows, kv, max_blocks, block_size):
@@ -117,7 +122,13 @@ def verify_plan(batch, rows, kv, max_blocks, block_size):
     return pages, splits, (batch, kv, splits, rows)
 
 
-def _check_inputs(q, k_pool, v_pool, block_tables, lens, what, align=None):
+def decode_plan(batch, heads, kv, max_blocks, block_size):
+    """Sizing of the split-KV decode kernel: ``verify_plan`` with the
+    ``heads / kv`` query rows of one KV head (one row at MHA)."""
+    return verify_plan(batch, heads // kv, kv, max_blocks, block_size)
+
+
+def _check_inputs(q, k_pool, v_pool, block_tables, lens, what):
     if q.dtype not in _build.DTYPE_CODES:
         raise TypeError(f"{what} kernel takes fp32/bf16, got {q.dtype}")
     if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
@@ -136,37 +147,46 @@ def _check_inputs(q, k_pool, v_pool, block_tables, lens, what, align=None):
             f"{what}: q {tuple(q.shape)} does not fit pools "
             f"{tuple(k_pool.shape)}"
         )
-    if d not in (32, 64, 128, 256):
-        raise ValueError(f"{what} kernel takes head_dim 32/64/128/256")
-    # decode: each lane loads its d/32 elements of a row as one vector;
-    # verify: 16-byte cp.async copies of the pools' rows
-    vec = align or d // 32 * q.element_size()
-    if any(t.data_ptr() % vec for t in (q, k_pool, v_pool)):
-        raise ValueError(f"{what} kernel needs {vec}-byte aligned rows")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{what} kernel takes head_dim 16/32/64/128/256")
+    # both kernels copy the pools' rows 16 bytes at a time (cp.async)
+    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
+        raise ValueError(f"{what} kernel needs 16-byte aligned rows")
     if block_tables.dim() != 2 or block_tables.shape[0] != q.shape[0]:
         raise ValueError(f"{what}: tables must be [B, max_blocks]")
     if lens.shape != (q.shape[0],):
         raise ValueError(f"{what}: lengths/positions must be [B]")
 
 
+def _workspace(q, shape, d):
+    """The fp32 partials of the splits: running max and sum, and the
+    unnormalised sums ``[..., d]``."""
+    ws_m = torch.empty(shape, dtype=torch.float32, device=q.device)
+    ws_l = torch.empty_like(ws_m)
+    ws_acc = torch.empty(*shape, d, dtype=torch.float32, device=q.device)
+    return ws_m, ws_l, ws_acc
+
+
 def _launch_decode(q, k_pool, v_pool, block_tables, seq_lens):
     what = "paged_decode"
     _check_inputs(q, k_pool, v_pool, block_tables, seq_lens, what)
     out = torch.empty_like(q)
-    b, nh, d = q.shape[0], q.shape[-2], q.shape[-1]
+    b, nh, d = q.shape
     _, bs, nkv, _ = k_pool.shape
     mb = block_tables.shape[1]
     if b == 0:
         return out
+    pages, _, shape = decode_plan(b, nh, nkv, mb, bs)
+    ws = _workspace(q, shape, d)
     lib = _build.library("paged_attention")
-    fn = lib.dl_paged_attention
+    fn = lib.dl_paged_decode
     fn.restype = ctypes.c_int
-    fn.argtypes = ARGTYPES
+    fn.argtypes = DECODE_ARGTYPES
     code = fn(
         _build.ptr(q), _build.ptr(k_pool), _build.ptr(v_pool),
         _build.ptr(out), _build.ptr(block_tables), _build.ptr(seq_lens),
-        1, b, 1, nh, nkv, d, bs, mb, float(d ** -0.5),
-        _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
+        *(_build.ptr(t) for t in ws), b, nh, nkv, d, bs, mb, pages,
+        float(d ** -0.5), _build.DTYPE_CODES[q.dtype], _build.stream_of(q),
     )
     _build.check(code, lib, what)
     _build.launches[what] += 1
@@ -175,8 +195,7 @@ def _launch_decode(q, k_pool, v_pool, block_tables, seq_lens):
 
 def _launch_verify(q, k_pool, v_pool, block_tables, positions):
     what = "paged_verify"
-    _check_inputs(q, k_pool, v_pool, block_tables, positions, what,
-                  align=16)
+    _check_inputs(q, k_pool, v_pool, block_tables, positions, what)
     out = torch.empty_like(q)
     b, c, nh, d = q.shape
     _, bs, nkv, _ = k_pool.shape
@@ -184,9 +203,7 @@ def _launch_verify(q, k_pool, v_pool, block_tables, positions):
     if b == 0:
         return out
     pages, _, shape = verify_plan(b, c * (nh // nkv), nkv, mb, bs)
-    ws_m = torch.empty(shape, dtype=torch.float32, device=q.device)
-    ws_l = torch.empty_like(ws_m)
-    ws_acc = torch.empty(*shape, d, dtype=torch.float32, device=q.device)
+    ws_m, ws_l, ws_acc = _workspace(q, shape, d)
     lib = _build.library("paged_attention")
     fn = lib.dl_paged_verify
     fn.restype = ctypes.c_int
@@ -203,6 +220,15 @@ def _launch_verify(q, k_pool, v_pool, block_tables, positions):
     return out
 
 
+def decode_smem_bytes(dtype, d, pages):
+    """Dynamic shared memory of one decode block at ``pages`` pages per
+    split, as the launch asks for it (builds the library)."""
+    fn = _build.library("paged_attention").dl_paged_decode_smem
+    fn.restype = ctypes.c_int
+    fn.argtypes = DECODE_SMEM_ARGTYPES
+    return fn(_build.DTYPE_CODES[dtype], d, pages)
+
+
 def verify_smem_bytes(dtype, d, rows, pages):
     """Dynamic shared memory of one verify block at ``rows`` query rows
     and ``pages`` pages per split, as the launch asks for it (builds the
@@ -214,9 +240,10 @@ def verify_smem_bytes(dtype, d, rows, pages):
 
 
 def paged_decode_kernel(q, k_pool, v_pool, block_tables, seq_lens):
-    """Streamed paged GQA decode attention, ``q [B, H, D]`` ->
-    ``[B, H, D]``: the CUDA kernel for CUDA tensors, the plain version
-    for CPU tensors."""
+    """Paged GQA decode attention, ``q [B, H, D]`` -> ``[B, H, D]``: the
+    split-KV CUDA kernel (a pass per split of the lane's pages, then a
+    merge of the splits) for CUDA tensors, the plain version for CPU
+    tensors."""
     if _build.on_cpu(q, k_pool, v_pool, block_tables, seq_lens):
         return paged_decode_plain(q, k_pool, v_pool, block_tables, seq_lens)
     return _launch_decode(q, k_pool, v_pool, block_tables, seq_lens)

@@ -97,6 +97,31 @@ def test_flash_attention_grads_match_jax_without_lse(causal, s):
         _close(got, want)
 
 
+@pytest.mark.parametrize("d", [16, 32])
+def test_small_head_dims_match_jax(d):
+    """head_dim 16 (``LlamaConfig.tiny()``) and 32, which the kernels
+    take since the FMA path covers them in bf16 too: O, lse and the
+    three grads against the Pallas kernels in interpret mode, GQA group
+    2, causal, a ragged tail block."""
+    q, k, v, go, glse = _inputs(40 + d, 1, 100, 4, 2, d)
+
+    def jax_loss(q, k, v):
+        o, lse = jfa.flash_attention_lse(q, k, v, causal=True,
+                                         block_q=BLOCK, block_k=BLOCK)
+        return jnp.sum(o * go) + jnp.sum(lse * glse), (o, lse)
+
+    (_, (jo, jlse)), jg = jax.value_and_grad(
+        jax_loss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    o, lse = tfa.flash_attention_lse(tq, tk, tv, causal=True)
+    ((o * torch.from_numpy(go)).sum()
+     + (lse * torch.from_numpy(glse)).sum()).backward()
+    assert d in tfa.HEAD_DIMS and o.shape[-1] == d
+    for got, want in zip((o, lse, tq.grad, tk.grad, tv.grad),
+                         (jo, jlse) + tuple(jg)):
+        _close(got, want)
+
+
 def test_flash_matches_dense_reference_of_both_packages():
     """``flash_attention`` equals the JAX package's
     ``dot_product_attention`` and the port's, with S = 1 included."""
@@ -152,9 +177,9 @@ def test_cpu_takes_the_plain_version_and_counts_no_launch():
 
 
 def test_kernel_wrappers_refuse_what_the_kernels_do_not_take():
-    q = torch.zeros(1, 8, 2, 16)
-    k = torch.zeros(1, 8, 1, 16)
-    with pytest.raises(ValueError, match="head_dim 64 or 128"):
+    q = torch.zeros(1, 8, 2, 8)
+    k = torch.zeros(1, 8, 1, 8)
+    with pytest.raises(ValueError, match="head_dim 16, 32, 64 or 128"):
         tfa.flash_fwd_kernel(q, k, k, True, 0.25)
     q64 = torch.zeros(1, 8, 3, 64)
     k64 = torch.zeros(1, 8, 2, 64)

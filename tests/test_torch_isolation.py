@@ -196,8 +196,10 @@ def _c_signature(source: str, fn: str):
 @pytest.mark.parametrize("source,fn,module,attr", [
     ("rms_norm", "dl_rms_norm_fwd", "dlrover_tpu_torch.ops.fused",
      "ARGTYPES"),
-    ("paged_attention", "dl_paged_attention",
-     "dlrover_tpu_torch.ops.paged_kernels", "ARGTYPES"),
+    ("paged_attention", "dl_paged_decode",
+     "dlrover_tpu_torch.ops.paged_kernels", "DECODE_ARGTYPES"),
+    ("paged_attention", "dl_paged_decode_smem",
+     "dlrover_tpu_torch.ops.paged_kernels", "DECODE_SMEM_ARGTYPES"),
     ("paged_attention", "dl_paged_verify",
      "dlrover_tpu_torch.ops.paged_kernels", "VERIFY_ARGTYPES"),
     ("paged_attention", "dl_paged_verify_smem",
@@ -258,6 +260,51 @@ def test_each_flash_entry_is_declared_in_one_source(fn, source):
              for p in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))}
     assert where.pop(f"{source}.cu") == 1
     assert set(where.values()) == {0}
+
+
+def test_paged_decode_is_the_split_kv_entry_and_the_first_design_is_gone():
+    """B5 runs through ``dl_paged_decode``, declared once, in
+    ``paged_attention.cu`` only; the first design's entry
+    ``dl_paged_attention`` (and its decode flag) is named nowhere in the
+    port, its wrappers or ``chip_smoke.py``, so no path can reach it."""
+    csrc = PKG / "ops" / "csrc"
+    where = {p.name: p.read_text().count("int dl_paged_decode(")
+             for p in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))}
+    assert where.pop("paged_attention.cu") == 1
+    assert set(where.values()) == {0}
+    files = [p for p in PKG.rglob("*") if p.suffix in (".py", ".cu", ".cuh")]
+    files.append(PKG.parent / "chip_smoke.py")
+    for p in files:
+        assert "dl_paged_attention" not in p.read_text(), p.name
+    kernels = (csrc / "paged_attention.cu").read_text()
+    for needle in ("decode_split<", "merge_splits<", "cp.async.cg.shared",
+                   "stage_rows<"):
+        assert needle in kernels, needle
+
+
+def _entry_body(source: str, fn: str) -> str:
+    text = (PKG / "ops" / "csrc" / f"{source}.cu").read_text()
+    start = text.index(f"int {fn}(")
+    return text[start:text.index("\n}\n", start)]
+
+
+@pytest.mark.parametrize("source,fn", [
+    ("flash_attention", "dl_flash_fwd"),
+    ("flash_attention", "dl_flash_fwd_smem"),
+    ("flash_attention_bwd", "dl_flash_bwd_dkv"),
+    ("flash_attention_bwd", "dl_flash_bwd_dq"),
+    ("flash_attention_bwd", "dl_flash_bwd_smem"),
+])
+def test_flash_dispatch_names_every_head_dim(source, fn):
+    """Each flash entry dispatches D = 16, 32, 64 and 128 (the head dims
+    of the reference's presets; ``LlamaConfig.tiny()`` has 16), as the
+    wrapper's ``HEAD_DIMS`` says."""
+    from dlrover_tpu_torch.ops import flash_attention as fa
+
+    assert fa.HEAD_DIMS == (16, 32, 64, 128)
+    body = _entry_body(source, fn)
+    for d in fa.HEAD_DIMS:
+        assert f"case {d}:" in body, (fn, d)
 
 
 def _with_headers(source: str) -> str:

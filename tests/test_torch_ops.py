@@ -248,6 +248,54 @@ def test_verify_plan_sizes_splits_and_workspace(max_blocks, block_size,
     assert (splits - 1) * pages < max_blocks <= splits * pages
 
 
+@pytest.mark.parametrize("max_blocks,block_size,heads,kv,pages,splits", [
+    (128, 16, 32, 32, 8, 16),  # the serving shape: Llama-2-7B, MHA
+    (1, 16, 4, 2, 8, 1),       # a one-page table
+    (24, 16, 32, 4, 8, 3),     # group 8
+    (300, 1, 8, 8, 128, 3),    # a split is at most 128 keys
+    (7, 256, 4, 1, 1, 7),      # a page larger than a split
+])
+def test_decode_plan_sizes_splits_and_workspace(max_blocks, block_size,
+                                                heads, kv, pages, splits):
+    """The decode kernel's splits are the verify kernel's, from the
+    table width and page size alone, with the G = heads / kv query rows
+    of one KV head as the workspace's rows."""
+    plan = tpk.decode_plan(16, heads, kv, max_blocks, block_size)
+    assert plan == (pages, splits, (16, kv, splits, heads // kv))
+    assert plan == tpk.verify_plan(16, heads // kv, kv, max_blocks,
+                                   block_size)
+    assert (splits - 1) * pages < max_blocks <= splits * pages
+
+
+@pytest.mark.parametrize("kind", ["decode", "verify"])
+@pytest.mark.parametrize("head_dim", [16, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_small_head_dims_match_pallas_interpret(kind, head_dim, dtype):
+    """head_dim 16 (``LlamaConfig.tiny()``) and 32, which the kernels now
+    take: the port's decode and verify against the Pallas kernels in
+    interpret mode, GQA group 2, fp32 and bf16 (bf16 within the JAX
+    package's own kernel-vs-reference bound)."""
+    c = _case(2, 8, seed=11, head_dim=head_dim)
+    j, t = _jax(c, dtype), _torch(c, dtype)
+    tpk._check_inputs(t["q"], t["k_pool"], t["v_pool"], t["tables"],
+                      t["seq_lens"], f"paged_{kind}")
+    if kind == "decode":
+        ref = jax_decode_kernel(j["q"], j["k_pool"], j["v_pool"],
+                                j["tables"], j["seq_lens"])
+        out = tpk.paged_decode_kernel(t["q"], t["k_pool"], t["v_pool"],
+                                      t["tables"], t["seq_lens"])
+        assert bool((out[1] == 0).all())  # the empty lane: exact zeros
+    else:
+        ref = jax_verify_kernel(j["qv"], j["k_pool"], j["v_pool"],
+                                j["tables"], j["positions"])
+        out = tpk.paged_verify_kernel(t["qv"], t["k_pool"], t["v_pool"],
+                                      t["tables"], t["positions"])
+    assert out.shape[-1] == head_dim
+    atol = 1e-5 if dtype == "float32" else 6e-2
+    np.testing.assert_allclose(_np(out), _np(ref), atol=atol, rtol=0)
+    assert float(out.float().abs().max()) < POISON / 10
+
+
 @pytest.mark.parametrize("kind", ["decode", "verify"])
 def test_bf16_matches_jax_reference(kind):
     c = _case(2, 8, seed=5)
@@ -378,9 +426,9 @@ def _bad_inputs():
         ("int64 tables", (q, kp, vp, tb.long(), ln), TypeError),
         ("strided q", (q.transpose(0, 1).contiguous().transpose(0, 1),
                        kp, vp, tb, ln), ValueError),
-        ("head_dim 16", (q[..., :16].contiguous(),
-                         kp[..., :16].contiguous(),
-                         vp[..., :16].contiguous(), tb, ln), ValueError),
+        ("head_dim 48", (q[..., :48].contiguous(),
+                         kp[..., :48].contiguous(),
+                         vp[..., :48].contiguous(), tb, ln), ValueError),
         ("heads % kv", (q[:, :3].contiguous(), kp, vp, tb, ln),
          ValueError),
         ("lens shape", (q, kp, vp, tb, ln[:2]), ValueError),
@@ -398,20 +446,24 @@ def test_kernel_wrapper_refuses_what_the_kernel_does_not_take(idx):
 
 
 def test_verify_wrapper_needs_16_byte_aligned_pools():
-    """The verify kernel copies pool rows 16 bytes at a time
-    (``cp.async``): a pool 8 bytes off a 16-byte boundary, which the
-    decode kernel's 8-byte vectors take at head_dim 64 in fp32, is
-    refused before any launch."""
+    """Both split-KV kernels copy pool rows 16 bytes at a time
+    (``cp.async``): a pool 8 bytes off a 16-byte boundary (whole rows of
+    head_dim 64 in fp32 still start 8-byte aligned) is refused by the
+    verify wrapper and, since the decode kernel went split-KV, by the
+    decode wrapper too, before any launch; the aligned pool passes."""
     c = _torch(_case(2, 8, head_dim=64))
     kp = c["k_pool"]
     off = torch.empty(kp.numel() + 2)[2:].view(kp.shape)
     off.copy_(kp)
     assert off.data_ptr() % 16 == 8
-    args = (c["qv"], off, c["v_pool"], c["tables"], c["positions"])
-    tpk._check_inputs(c["q"], off, c["v_pool"], c["tables"],
-                      c["seq_lens"], "paged_decode")
+    tpk._check_inputs(c["qv"], kp, c["v_pool"], c["tables"],
+                      c["positions"], "paged_verify")
     with pytest.raises(ValueError, match="16-byte"):
-        tpk._check_inputs(*args, "paged_verify", align=16)
+        tpk._check_inputs(c["qv"], off, c["v_pool"], c["tables"],
+                          c["positions"], "paged_verify")
+    with pytest.raises(ValueError, match="16-byte"):
+        tpk._check_inputs(c["q"], off, c["v_pool"], c["tables"],
+                          c["seq_lens"], "paged_decode")
 
 
 def test_kernel_wrapper_accepts_the_main_path_layout():

@@ -6,10 +6,14 @@ finish for the same reasons and leave the block pool in the same state
 (``BlockPool.stats()``), for K=1 and the K=3 self-draft + verify window,
 under plain mixed-length traffic, a starved pool that forces preemption
 and resume, shared-prefix prompts, an EOS id, and reservation
-admission.  At temperature > 0 the samplers differ by design (a
-counter-based hash here, threefry there), so the port is held to its own
-contract: a tail is a pure function of (seed, position), and the
-sampled frequencies match the softmax.
+admission.  At temperature > 0 the port draws JAX's own threefry bits
+(``rl/sampling.py``), so the two schedulers emit the same tails token by
+token there too, for K=1 and K=3, under mixed lengths and under
+preemption and resume.  The sampler itself is held to
+``jax.random.bits``, ``gumbel`` and ``categorical`` on a grid of seeds
+(0, 2^31 + 5, 2^32 + 3) and positions (0 to 10^6), and to its own
+contract: a tail is a pure function of (seed, position), and the sampled
+frequencies match the softmax.
 """
 
 import os
@@ -32,8 +36,10 @@ from dlrover_tpu_torch.models import llama as tl  # noqa: E402
 from dlrover_tpu_torch.models.convert import params_from_jax  # noqa: E402
 from dlrover_tpu_torch.ops import _build  # noqa: E402
 from dlrover_tpu_torch.rl.sampling import (  # noqa: E402
+    gumbel_noise,
+    noise_bits,
     sample_tokens,
-    uniform_noise,
+    uniform_from_bits,
 )
 from dlrover_tpu_torch.rl.scheduler import (  # noqa: E402
     ContinuousBatchingScheduler,
@@ -72,7 +78,10 @@ def _port(sched_kw, temp=None):
     return sch
 
 
-def _run_both(monkeypatch, k, sched_kw, prompts, max_new, env=()):
+def _run_both(monkeypatch, k, sched_kw, prompts, max_new, env=(),
+              temp=None):
+    if temp is not None:
+        sched_kw = dict(sched_kw, temperature=temp)
     monkeypatch.setenv("DLROVER_TPU_DECODE_STEPS", str(k))
     for name, value in env:
         monkeypatch.setenv(name, value)
@@ -119,6 +128,30 @@ def test_preemption_and_resume_match_jax(monkeypatch, k):
              ("DLROVER_TPU_KV_GROW_BLOCKS", "1")),
     )
     assert tst["preemptions"] >= 1 and tst["grown_blocks"] > 0
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_sampled_tails_match_jax(monkeypatch, k):
+    """temperature 0.8: the same tails as the JAX scheduler, token by
+    token, and not the greedy ones."""
+    _, _, tres = _run_both(monkeypatch, k, BASE, PROMPTS, max_new=8,
+                           temp=0.8)
+    greedy = _tails(_port(BASE), PROMPTS, 8, [50 + i for i in
+                                               range(len(PROMPTS))])
+    assert any(not np.array_equal(greedy[i], tres[i].tokens)
+               for i in range(len(PROMPTS)))
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_sampled_tails_under_preemption_match_jax(monkeypatch, k):
+    """temperature 0.8 on the starved pool: preempted and resumed
+    requests draw the JAX scheduler's tokens."""
+    _, tst, _ = _run_both(
+        monkeypatch, k, STARVED, PROMPTS, max_new=12,
+        env=(("DLROVER_TPU_KV_ADMIT_WATERMARK", "0"),
+             ("DLROVER_TPU_KV_GROW_BLOCKS", "1")), temp=0.8,
+    )
+    assert tst["preemptions"] >= 1
 
 
 def test_shared_prefix_matches_jax(monkeypatch):
@@ -208,10 +241,71 @@ def test_sampler_is_batch_independent():
         for c in range(3):
             one = sample_tokens(logits[b, c], seeds[b, 0], pos[b, c], 1.0)
             assert int(one) == int(grid[b, c])
-    u = uniform_noise(torch.tensor(1), torch.tensor(2), 1000)
+    u = uniform_from_bits(noise_bits(torch.tensor(1), torch.tensor(2), 1000))
     assert float(u.min()) > 0 and float(u.max()) < 1
     assert torch.equal(sample_tokens(logits, seeds, pos, 0.0),
                        logits.argmax(-1).to(torch.int32))
+
+
+SEEDS = [0, 2**31 + 5, 2**32 + 3]
+POSITIONS = [0, 7, 10**6]
+
+
+def _jax_key(seed, pos):
+    return jax.random.fold_in(jax.random.PRNGKey(seed), pos)
+
+
+@pytest.mark.parametrize("vocab", [97, 32000])
+@pytest.mark.parametrize("pos", POSITIONS)
+@pytest.mark.parametrize("seed", SEEDS)
+def test_noise_bits_equal_jax_random_bits(seed, pos, vocab):
+    want = np.asarray(jax.random.bits(_jax_key(seed, pos), (vocab,),
+                                      jnp.uint32)).astype(np.int64)
+    got = noise_bits(torch.tensor(seed), torch.tensor(pos), vocab)
+    assert got.dtype == torch.int64 and got.shape == (vocab,)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_gumbel_noise_matches_jax(seed):
+    """fp32 Gumbel noise within 1e-6 relative (and 1e-6 absolute where
+    it crosses 0): only the two libraries' ``log`` may differ."""
+    seeds = torch.tensor(seed)[None].expand(3)
+    pos = torch.tensor(POSITIONS)
+    got = gumbel_noise(seeds[:, None], pos[:, None], 32000)
+    assert got.shape == (3, 1, 32000) and got.dtype == torch.float32
+    for i, p in enumerate(POSITIONS):
+        want = np.asarray(jax.random.gumbel(_jax_key(seed, p), (32000,)))
+        np.testing.assert_allclose(got[i, 0].numpy(), want, rtol=1e-6,
+                                   atol=1e-6)
+
+
+@pytest.mark.parametrize("temp", [0.8, 1.0, 1.7])
+@pytest.mark.parametrize("vocab", [97, 32000])
+def test_sample_tokens_equal_jax_categorical(vocab, temp):
+    """The reference's ``_sample_grid`` (jitted, vmapped ``fold_in`` and
+    ``categorical(key, logits / T)``) against ``sample_tokens`` over a
+    [seeds x positions] grid."""
+    rng = np.random.default_rng(vocab)
+    logits = (3 * rng.standard_normal((3, 3, vocab))).astype(np.float32)
+    seeds = np.array(SEEDS)
+    pos = np.array([POSITIONS] * 3, np.int32)
+    keys = np.stack([np.asarray(jax.random.key_data(
+        jax.random.PRNGKey(int(s)))) for s in seeds])
+
+    @jax.jit
+    def grid(logits, keys, pos):
+        folded = jax.vmap(lambda k, ps: jax.vmap(
+            lambda p: jax.random.fold_in(k, p))(ps))(keys, pos)
+        return jax.vmap(jax.vmap(
+            lambda k, l: jax.random.categorical(k, l / temp)))(
+                folded, logits)
+
+    want = np.asarray(grid(logits, keys, pos))
+    got = sample_tokens(torch.from_numpy(logits),
+                        torch.tensor(SEEDS)[:, None],
+                        torch.from_numpy(pos), temp)
+    np.testing.assert_array_equal(got.numpy(), want)
 
 
 def test_submit_validation_and_weights_first():
