@@ -20,8 +20,13 @@ Phases (any failed check raises, so the script exits nonzero):
    source, in parallel), with the build seconds and the ``ptxas``
    register report.
 3. kernels against their plain PyTorch versions on the card, bf16 and
-   fp32, at full width (RMSNorm D=4096 and 8192, and bf16 x with an fp32
-   weight; paged decode and verify at head_dim 16, 32, 64, 128 and 256,
+   fp32, at full width (RMSNorm, its residual entry and its backward
+   from 1 to 8192 rows, D = 100 to 40,000, x off a 16-byte boundary,
+   bf16 x with an fp32 weight; each check also shown to reject a planted
+   fault: the forward with each row's last vector dropped from its sum
+   of squares, the residual entry squaring the unrounded fp32 x + delta,
+   the backward with one CTA's dw sum dropped, whose three runs must be
+   equal bit for bit; paged decode and verify at head_dim 16, 32, 64, 128 and 256,
    GQA group 1/4/8, block_size 16, ragged lengths including 0 and a full
    table, verify horizons on the last and the first key of a split and
    at position 0, inactive lanes on the null block, 1e4 and NaN poison
@@ -57,17 +62,19 @@ Phases (any failed check raises, so the script exits nonzero):
    prints its decode-step time on the card's clock and the device time
    of its step's forwards (CUDA-graph replays of the captured full-batch
    step).  One layer's inputs of one decode step and one verify step are
-   captured, and each kernel is held against its plain version on them
-   (and must not match the planted fault; three runs bit for bit) and
-   timed there.
+   captured (the attention norm, the MLP norm with the residual add
+   fused in, paged decode, paged verify), and each kernel is held against
+   its plain version on them (and must not match the planted fault;
+   three runs bit for bit) and timed there.
 5. training main path: Llama-2-7B width at ``--train-layers`` layers
    (default 8), fp32 masters, bf16 compute, through ``auto_accelerate``
    -> ``Trainer.train`` with AGD for ``--train-steps`` steps of 4 x 2048
    tokens.  Step 0's attention grads are held against dense attention,
    the loss must fall, launches per step must be as stated; step and
-   optimizer times are on the card's clock.  Layer 0's RMSNorm and
-   flash inputs are captured, checked (flash three runs bit for bit)
-   and timed against their plain versions and SDPA.
+   optimizer times are on the card's clock.  Layer 0's RMSNorm (both
+   entries) and flash inputs and a fused norm's backward are captured,
+   checked (flash and the backward three runs bit for bit) and timed
+   against their plain versions, ``F.rms_norm`` and SDPA.
 5b. int8 leg: Llama-2-7B at ``--int8-layers`` layers (default 32, full
    depth) trained the same way with ``QuantizedMoments(lr=3e-4,
    weight_decay=0.1)``: launches per step (B9 once per leaf) and at init
@@ -172,22 +179,158 @@ RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 0.0625}
 ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 1.6e-2}
 
 
-def check_rms(rms_fwd, rms_plain, dtype, n, d, gen) -> float:
-    x = torch.randn(n, d, device="cuda", generator=gen).to(dtype)
+def differing(a, b) -> int:
+    return int((a != b).sum())
+
+
+def dropped_vector_ref(x, w, eps):
+    """The planted fault of the forward: the plain version with each
+    row's last 16-byte vector left out of its sum of squares, as when a
+    kernel's loop stops one vector short."""
+    xf = x.float()
+    d = x.shape[-1]
+    keep = xf[..., :max(d - 16 // x.element_size(), 0)]
+    var = (keep * keep).sum(-1, keepdim=True) / d
+    rstd = 1.0 / torch.sqrt(var + eps)
+    return (xf * rstd * w.float()).to(x.dtype), rstd
+
+
+def rms_readings(y, rstd, y_ref, rstd_ref):
+    """(max |y - ref|, max |rstd - ref| / max |ref|, share of y differing)"""
+    return (max_err(y, y_ref),
+            max_err(rstd, rstd_ref) / float(rstd_ref.abs().max()),
+            differing(y, y_ref) / max(y.numel(), 1))
+
+
+def norm_input(n, d, dtype, gen, offset=0):
+    """``[n, d]`` of ``dtype``, starting ``offset`` elements into its
+    allocation (1: not 16-byte aligned, the scalar path)."""
+    buf = torch.randn(n * d + offset, device="cuda", generator=gen).to(dtype)
+    return buf[offset:].view(n, d)
+
+
+def check_rms(fused, dtype, n, d, gen, offset=0) -> float:
+    """The forward against its plain version: y within RMS_TOL (fp32:
+    summation order only; bf16: one rounding of |y| < 16 may land one
+    ulp, <= 2^-4, apart), rstd within 1e-5 relative, and in bf16 at most
+    1e-3 of the outputs differing; the plain version with each row's last
+    vector dropped from its sum of squares (``dropped_vector_ref``) must
+    be out of the rstd limit."""
+    x = norm_input(n, d, dtype, gen, offset)
     w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(dtype)
-    y, rstd = rms_fwd(x, w, 1e-5)
+    y, rstd = fused.rms_norm_fwd(x, w, 1e-5)
     torch.cuda.synchronize()
-    y_ref, rstd_ref = rms_plain(x, w, 1e-5)
-    err = max_err(y, y_ref)
-    rerr = max_err(rstd, rstd_ref) / float(rstd_ref.abs().max())
-    # fp32: summation order only; bf16: one rounding of |y| < 16 may
-    # land one ulp (<= 2^-4) apart
-    ok = err <= RMS_TOL[dtype] and rerr <= 1e-5
-    log(f"[check] rms_norm {str(dtype)[6:]} N={n} D={d} "
-        f"max_abs_err={err:.3g} rstd_rel_err={rerr:.3g} "
-        f"tol={RMS_TOL[dtype]} {'ok' if ok else 'FAIL'}")
-    require(ok, f"rms_norm {dtype} N={n} D={d}")
+    err, rerr, mis = rms_readings(y, rstd, *fused.rms_norm_plain(x, w, 1e-5))
+    _, rerr_bad, mis_bad = rms_readings(y, rstd,
+                                        *dropped_vector_ref(x, w, 1e-5))
+    ok = (err <= RMS_TOL[dtype] and rerr <= 1e-5 < rerr_bad
+          and (dtype != torch.bfloat16 or mis <= 1e-3))
+    log(f"[check] rms_norm {str(dtype)[6:]} N={n} D={d} offset={offset} "
+        f"max_abs_err={err:.3g} rstd_rel_err={rerr:.3g} differing={mis:.2e}"
+        f"; last vector dropped: rstd_rel_err={rerr_bad:.3g} differing="
+        f"{mis_bad:.2e} (need rstd <= 1e-5 < it, y <= {RMS_TOL[dtype]}, "
+        f"bf16 differing <= 1e-3) {'ok' if ok else 'FAIL'}")
+    require(ok, f"rms_norm {dtype} N={n} D={d} offset={offset}, or its "
+            "check cannot see the planted fault")
     return err
+
+
+def unrounded_ref(x, delta, w, eps):
+    """The planted fault of the residual entry: ``x + delta`` kept in
+    fp32 (never rounded to x's type) and normalised so."""
+    hf = x.float() + delta.float()
+    rstd = 1.0 / torch.sqrt(torch.mean(hf * hf, -1, keepdim=True) + eps)
+    return (hf * rstd * w.float()).to(x.dtype), rstd
+
+
+def check_add_rms(fused, dtype, n, d, gen, w_dtype=None, offset=0) -> float:
+    """The residual entry against its plain version (``x + delta``, then
+    the plain norm): h equal bit for bit, y and rstd as ``check_rms``; in
+    bf16 at most 1e-3 of the outputs differing, and more than that against
+    the plain version that squares the unrounded fp32 ``x + delta``."""
+    x = norm_input(n, d, dtype, gen, offset)
+    delta = norm_input(n, d, dtype, gen, offset)
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(
+        w_dtype or dtype)
+    h, y, rstd = fused.add_rms_norm_fwd(x, delta, w, 1e-5)
+    torch.cuda.synchronize()
+    h_ref, y_ref, rstd_ref = fused.add_rms_norm_plain(x, delta, w, 1e-5)
+    err, rerr, mis = rms_readings(y, rstd, y_ref, rstd_ref)
+    _, _, mis_bad = rms_readings(y, rstd, *unrounded_ref(x, delta, w, 1e-5))
+    same_h = torch.equal(h, h_ref)
+    ok = (same_h and err <= RMS_TOL[dtype] and rerr <= 1e-5
+          and (dtype != torch.bfloat16 or mis <= 1e-3 < mis_bad))
+    log(f"[check] add_rms_norm {str(dtype)[6:]} x, {str(w.dtype)[6:]} "
+        f"weight N={n} D={d} offset={offset} h equal: {same_h} max_abs_err="
+        f"{err:.3g} rstd_rel_err={rerr:.3g} differing={mis:.2e}; unrounded "
+        f"x + delta: differing={mis_bad:.2e} (bf16: need <= 1e-3 < it) "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"add_rms_norm {dtype} N={n} D={d}, or its check cannot "
+            "see the planted fault")
+    return err
+
+
+def dx_err(got, ref) -> float:
+    """Worst row's max |got - ref| over its limit: one bf16 ulp of the
+    row's largest |ref| (bf16: both round the same fp32 values, which
+    differ only through the order of the row's dot product), or 1e-5 of
+    it (fp32)."""
+    d = got.shape[-1]
+    g, r = got.float().reshape(-1, d), ref.float().reshape(-1, d)
+    top = r.abs().amax(-1).clamp_min(1e-30)
+    unit = (2.0 ** (torch.floor(torch.log2(top)) - 7)
+            if got.dtype == torch.bfloat16 else 1e-5 * top)
+    return float(((g - r).abs().amax(-1) / unit).max())
+
+
+def dw_limit(dw_ref) -> float:
+    """1e-4 of max |dw| (fp32 sums in another order), or one bf16 ulp of
+    it when dw is bf16 (both round those sums once)."""
+    top = float(dw_ref.float().abs().max())
+    if dw_ref.dtype == torch.bfloat16:
+        return max(1e-4 * top, 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7))
+    return 1e-4 * top
+
+
+def dropped_part_ref(fused, x, w, rstd, g):
+    """The planted fault of the backward: ``dw`` without the rows of the
+    last CTA (rows ``c, c + parts, ...``), as when one CTA's sum is lost."""
+    d = x.shape[-1]
+    parts = fused.bwd_parts(x.numel() // d, x.device)
+    xhat = x.float().reshape(-1, d) * rstd.reshape(-1, 1)
+    keep = (torch.arange(xhat.shape[0], device=x.device) % parts
+            != parts - 1)
+    return torch.sum((g.float().reshape(-1, d) * xhat)[keep], 0).to(w.dtype)
+
+
+def check_rms_bwd(fused, dtype, w_dtype, n, d, res, gen):
+    """The backward against its plain version on the plain forward's
+    rstd: dx within one bf16 ulp (``dx_err``), dw within ``dw_limit``, and
+    out of that with one CTA's sum dropped (``dropped_part_ref``); three
+    runs equal bit for bit."""
+    x = norm_input(n, d, dtype, gen)
+    g = norm_input(n, d, dtype, gen)
+    g_res = norm_input(n, d, dtype, gen) if res else None
+    w = (1 + 0.1 * torch.randn(d, device="cuda", generator=gen)).to(w_dtype)
+    rstd = fused.rms_norm_plain(x, w, 1e-5)[1]
+    dx, dw = fused.rms_norm_bwd(x, w, rstd, g, g_res)
+    torch.cuda.synchronize()
+    dx_ref, dw_ref = fused.rms_norm_bwd_plain(x, w, rstd, g, g_res)
+    lim = dw_limit(dw_ref)
+    e_dx = dx_err(dx, dx_ref)
+    e_dw = max_err(dw, dw_ref) / lim
+    e_bad = max_err(dw, dropped_part_ref(fused, x, w, rstd, g)) / lim
+    same = bitwise_repeat(lambda: fused.rms_norm_bwd(x, w, rstd, g, g_res))
+    ok = e_dx <= 1.0 and e_dw <= 1.0 < e_bad and same
+    log(f"[check] rms_norm_bwd {str(dtype)[6:]} x, {str(w_dtype)[6:]} "
+        f"weight N={n} D={d} g_res={res} parts="
+        f"{fused.bwd_parts(n, x.device)} err/limit: dx={e_dx:.3g} dw="
+        f"{e_dw:.3g}, one CTA's sum dropped dw={e_bad:.3g} (dw limit "
+        f"{lim:.3g}); 3 runs equal bit for bit: {same} "
+        f"{'ok' if ok else 'FAIL'}")
+    require(ok, f"rms_norm_bwd {dtype} N={n} D={d} g_res={res}, or its "
+            "check cannot see the planted fault")
+    return e_dx, e_dw
 
 
 def attention_case(pk, group, dtype, poison, gen, kv=4, head_dim=128,
@@ -779,17 +922,48 @@ def sampling_check():
     require(same_bits and same_toks, "the sampler differs on the card")
 
 
+# RMSNorm shapes: one row to a full training batch (the many-rows kernel
+# from 8 rows per SM on: 2048 x 4096 bf16, 1200 x 2048 fp32), D not a
+# multiple of 8 and 16-byte vectors (the scalar path), a row too long
+# for registers (the strided loops), and x one element off a 16-byte
+# boundary (the scalar path)
+RMS_SHAPES = ((1, 4096), (16, 4096), (52, 4096), (257, 4096), (64, 8192),
+              (2048, 4096), (1200, 2048), (37, 100), (3, 40000))
+
+
+def rms_checks(fused, gen):
+    for n, d in ((16, 4096), (4 * 2048, 4096)):
+        check_rms_fp32_weight(fused, n, d, gen)
+        check_add_rms(fused, torch.bfloat16, n, d, gen, torch.float32)
+    for dtype in (torch.bfloat16, torch.float32):
+        for n, d in RMS_SHAPES:
+            check_rms(fused, dtype, n, d, gen)
+            check_add_rms(fused, dtype, n, d, gen)
+        check_rms(fused, dtype, 16, 4096, gen, offset=1)
+        check_add_rms(fused, dtype, 16, 4096, gen, offset=1)
+    # the backward: the training shape with and without the residual
+    # gradient, decode rows, fp32 rows past the registers (the strided
+    # loop), D = 100 (scalar), a row of 40,000 (strided), tiny
+    for dtype, w_dtype, n, d, res in (
+            (torch.bfloat16, torch.float32, 8192, 4096, True),
+            (torch.bfloat16, torch.float32, 8192, 4096, False),
+            (torch.bfloat16, torch.bfloat16, 16, 4096, True),
+            (torch.float32, torch.float32, 257, 4096, False),
+            (torch.float32, torch.float32, 64, 2048, True),
+            (torch.bfloat16, torch.float32, 37, 100, True),
+            (torch.bfloat16, torch.bfloat16, 5, 40000, True),
+            (torch.float32, torch.float32, 3, 64, False)):
+        check_rms_bwd(fused, dtype, w_dtype, n, d, res, gen)
+    torch.cuda.empty_cache()
+
+
 def kernel_checks():
     from dlrover_tpu_torch.ops import fused
     from dlrover_tpu_torch.ops import paged_kernels as pk
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for n, d in ((16, 4096), (4 * 2048, 4096)):
-        check_rms_fp32_weight(fused, n, d, gen)
+    rms_checks(fused, gen)
     for dtype in (torch.bfloat16, torch.float32):
-        for n, d in ((1, 4096), (16, 4096), (257, 4096), (64, 8192)):
-            check_rms(fused.rms_norm_fwd, fused.rms_norm_plain, dtype, n, d,
-                      gen)
         for kind in ("decode", "verify"):
             for head_dim in (16, 32, 64, 128, 256):
                 for group in (1, 4, 8):
@@ -865,6 +1039,10 @@ def tiny_parity():
                 os.environ[name] = value
 
 
+def _copy(t):
+    return t.detach().clone() if isinstance(t, torch.Tensor) else None
+
+
 class Capture:
     """Wraps one kernel entry of ``models.llama``.  Among the calls it
     considers (every ``every``-th: layer 0 of each step), it keeps a
@@ -893,8 +1071,8 @@ class Capture:
                     a.detach().clone() if isinstance(a, torch.Tensor) else a
                     for a in args
                 )
-                self.out = (out.detach().clone()
-                            if isinstance(out, torch.Tensor) else None)
+                self.out = (tuple(map(_copy, out)) if isinstance(out, tuple)
+                            else _copy(out))
         self.calls += 1
         return out
 
@@ -928,10 +1106,20 @@ def profile_step(step, label):
                        getattr(e, "self_cuda_time_total", 0.0))
 
     total_ms = sum(dev_us(e) for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
+    # device-to-device copies (the scheduler's, varying from step to
+    # step) are counted apart from the kernel launches
+    copies = sum(e.count for e in kernels if e.key.startswith("Memcpy"))
+    launches = sum(e.count for e in kernels) - copies
     log(f"[profile] {label}: wall_ms={wall_ms:.3f} (profiler on) "
         f"device_kernel_ms={total_ms:.3f} kernel_launches={launches} "
-        f"device_busy_share={total_ms / wall_ms:.3f}")
+        f"copies={copies} device_busy_share={total_ms / wall_ms:.3f}")
+    # the residual adds (a bf16 add kernel of their own unless fused into
+    # the norm) and the RMSNorm kernels, by name
+    for what, keys in (("bf16 adds", ("CUDAFunctor_add", "BFloat16")),
+                       ("RMSNorm kernels", ("rms_",))):
+        sel = [e for e in kernels if all(k in e.key for k in keys)]
+        log(f"[profile]   {what}: {sum(e.count for e in sel)} launches, "
+            f"{sum(dev_us(e) for e in sel) / 1e3:.3f} ms")
     for e in sorted(kernels, key=dev_us, reverse=True)[:12]:
         log(f"[profile]   {dev_us(e) / 1e3:9.3f} ms  x{e.count:<5d} "
             f"{e.key[:90]}")
@@ -1042,11 +1230,12 @@ def serve_leg(cfg, params, sched_cfg, prompts, k, max_new, captures,
     return tails, counts, caps, stats
 
 
-def rms_bound_ms(x, w):
+def rms_bound_ms(x, w, add=False):
+    """Bytes: x (and delta) read, y (and h) written, w and rstd once."""
     n, d = x.numel() // x.shape[-1], x.shape[-1]
     item = x.element_size()
-    nbytes = 2 * n * d * item + d * w.element_size() + 4 * n
-    return bound(nbytes, 4 * n * d, x.dtype)
+    nbytes = (4 if add else 2) * n * d * item + d * w.element_size() + 4 * n
+    return bound(nbytes, (5 if add else 4) * n * d, x.dtype)
 
 
 def attn_bound_ms(q, k_pool, lens, window):
@@ -1101,6 +1290,17 @@ def sdpa_decode_fn(q, k_pool, v_pool, tables, lens, window):
     return lambda: F.scaled_dot_product_attention(qq, k, v, attn_mask=mask)
 
 
+def log_row(r):
+    lib = r["library_ms"]
+    log(f"[time] {r['name']} ms={r['ms']:.4f} plain_ms={r['plain_ms']:.4f} "
+        f"library_ms={'null' if lib is None else format(lib, '.4f')} "
+        f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) bound/ms="
+        f"{r['bound_share']:.3f} launches={r['launches']} "
+        + " ".join(f"{k}={r[k]}" for k in ("library_unfused_ms",
+                                          "library_note", "build")
+                   if k in r))
+
+
 def kernel_row(name, source, replaces, launches, err, tol, fn, plain,
                library, bnd):
     ms = cuda_ms(fn)
@@ -1115,9 +1315,76 @@ def kernel_row(name, source, replaces, launches, err, tol, fn, plain,
     }
 
 
-def main_path(args):
+def rms_rows(fused, rms, add, launches, suffix):
+    """The kernel rows of the two forward entries on their captured
+    inputs (the residual entry's only where ``add`` was captured): each
+    rerun must equal the main path's output and stay within RMS_TOL of
+    its plain version.  Both entries count under the one launch key
+    ``rms_norm``.  No single PyTorch call adds and normalises: the
+    residual entry's ``library_ms`` is null, and the unfused ``x + delta``
+    then ``F.rms_norm`` is timed beside it."""
     import torch.nn.functional as F
 
+    x, w, eps = rms.args
+    x2 = x.reshape(-1, x.shape[-1])
+    y, _ = fused.rms_norm_fwd(x2, w, eps)
+    require(torch.equal(y.reshape(rms.out.shape), rms.out),
+            "rms_norm rerun differs from the main path's output")
+    err = max_err(y, fused.rms_norm_plain(x2, w, eps)[0])
+    log(f"[captured] rms_norm{suffix} {tuple(x.shape)} {x.dtype} x, "
+        f"{w.dtype} weight max_abs_err={err:.3g} tol={RMS_TOL[x.dtype]}")
+    require(err <= RMS_TOL[x.dtype], "rms_norm on the captured input")
+    src = "dlrover_tpu_torch/ops/csrc/rms_norm.cu"
+    rows = [kernel_row(
+        f"rms_norm{suffix}", src, "dlrover_tpu/ops/fused.py:48", launches,
+        err, RMS_TOL[x.dtype],
+        lambda: fused.rms_norm_fwd(x2, w, eps),
+        lambda: fused.rms_norm_plain(x2, w, eps),
+        # for a weight of another dtype PyTorch runs it unfused
+        lambda: F.rms_norm(x2, (x2.shape[-1],), w, eps),
+        rms_bound_ms(x2, w),
+    )]
+    rows[0]["launch_key"] = "rms_norm (both entries)"
+    if add is None:
+        return rows
+    xa, delta, wa, eps = add.args
+    xa2, da2 = xa.reshape(-1, xa.shape[-1]), delta.reshape(-1, xa.shape[-1])
+    h, ya, _ = fused.add_rms_norm_fwd(xa2, da2, wa, eps)
+    require(torch.equal(h.reshape(add.out[0].shape), add.out[0])
+            and torch.equal(ya.reshape(add.out[1].shape), add.out[1]),
+            "add_rms_norm rerun differs from the main path's output")
+    h_ref, ya_ref, _ = fused.add_rms_norm_plain(xa2, da2, wa, eps)
+    err_a = max_err(ya, ya_ref)
+    log(f"[captured] add_rms_norm{suffix} {tuple(xa.shape)} h equal: "
+        f"{torch.equal(h, h_ref)} max_abs_err={err_a:.3g} "
+        f"tol={RMS_TOL[x.dtype]}")
+    require(err_a <= RMS_TOL[x.dtype] and torch.equal(h, h_ref),
+            "add_rms_norm on the captured input")
+    rows.append(kernel_row(
+        f"add_rms_norm{suffix}", src, "dlrover_tpu/ops/fused.py:48",
+        launches, err_a, RMS_TOL[x.dtype],
+        lambda: fused.add_rms_norm_fwd(xa2, da2, wa, eps),
+        lambda: fused.add_rms_norm_plain(xa2, da2, wa, eps),
+        None, rms_bound_ms(xa2, wa, add=True),
+    ))
+    rows[1].update(launch_key="rms_norm (both entries)",
+                   library_unfused_ms=cuda_ms(lambda: F.rms_norm(
+                       xa2 + da2, (xa2.shape[-1],), wa, eps)))
+    return rows
+
+
+def rms_bwd_bound_ms(x, w, res):
+    """Bytes: x, g, g_res (if any) and dx once, w read and dw written once,
+    rstd once.  Operations: 10 fp32 per element (xhat, dxhat, the dot's
+    multiply and add, dx's three, the residual add, dw's two)."""
+    n, d = x.numel() // x.shape[-1], x.shape[-1]
+    nbytes = (4 if res else 3) * n * d * x.element_size()
+    nbytes += 2 * d * w.element_size() + 4 * n
+    return bound(nbytes, 10 * n * d, torch.float32)
+
+
+def main_path(args):
+    from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.models.llama import LlamaConfig, init_params
     from dlrover_tpu_torch.ops import fused
     from dlrover_tpu_torch.ops import paged_kernels as pk
@@ -1151,12 +1418,15 @@ def main_path(args):
     L = cfg.n_layers
     # layer 0 of the first decode step (and verify window) with the
     # most lanes decoding; the RMSNorm input of that step's layer 0
+    decoding = lambda x, *_: tuple(x.shape[:2]) == (16, 1)  # noqa: E731
+    # an older tree (``--serve-only`` against the parent's package) has
+    # no residual entry to capture
+    norms = [n for n in ("rms_norm", "add_rms_norm") if hasattr(llama, n)]
     tails1, counts1, caps1, _ = serve_leg(
-        cfg, params, sched_cfg, prompts, 1, args.max_new, [
-            dict(attr="paged_decode_attention", every=L),
-            dict(attr="rms_norm",
-                 when=lambda x, *_: tuple(x.shape[:2]) == (16, 1)),
-        ], profile=args.profile,
+        cfg, params, sched_cfg, prompts, 1, args.max_new,
+        [dict(attr="paged_decode_attention", every=L)]
+        + [dict(attr=n, when=decoding) for n in norms],
+        profile=args.profile,
     )
     tails4, counts4, caps4, stats4 = serve_leg(
         cfg, params, sched_cfg, prompts, 4, args.max_new,
@@ -1181,32 +1451,13 @@ def main_path(args):
     torch.cuda.empty_cache()
 
     launches = {k: counts1[k] + counts4[k] for k in counts1}
-    dec, rms = caps1
+    dec, rms, add = (caps1 + [None])[:3]
     ver = caps4[0]
-    require(dec.args is not None and rms.args is not None
-            and ver.args is not None, "a capture point was never reached")
-    rows = []
-
-    # RMSNorm on the captured decode-step input
-    x, w, eps = rms.args
-    x2 = x.reshape(-1, x.shape[-1])
-    y, _ = fused.rms_norm_fwd(x2, w, eps)
-    y_plain, _ = fused.rms_norm_plain(x2, w, eps)
-    err = max_err(y, y_plain)
-    require(torch.equal(y.reshape(rms.out.shape), rms.out),
-            "rms_norm rerun differs from the main path's output")
-    log(f"[captured] rms_norm {tuple(x.shape)} max_abs_err={err:.3g} "
-        f"tol={RMS_TOL[x.dtype]}")
-    require(err <= RMS_TOL[x.dtype], "rms_norm on captured input")
-    rows.append(kernel_row(
-        "rms_norm", "dlrover_tpu_torch/ops/csrc/rms_norm.cu",
-        "dlrover_tpu/ops/fused.py:48", launches["rms_norm"], err,
-        RMS_TOL[x.dtype],
-        lambda: fused.rms_norm_fwd(x2, w, eps),
-        lambda: fused.rms_norm_plain(x2, w, eps),
-        lambda: F.rms_norm(x2, (x2.shape[-1],), w, eps),
-        rms_bound_ms(x2, w),
-    ))
+    require(all(c.args is not None for c in caps1 + caps4),
+            "a capture point was never reached")
+    # RMSNorm on the captured decode-step inputs: layer 0's attention
+    # norm (no add before it) and its MLP norm (the add of wo's output)
+    rows = rms_rows(fused, rms, add, launches["rms_norm"], "")
 
     report = build_report(kernel_smem())
     for name, cap, window, replaces, kern, plain, faulted in (
@@ -1245,11 +1496,7 @@ def main_path(args):
             row["build"] = report[name]
         rows.append(row)
     for r in rows:
-        log(f"[time] {r['name']} ms={r['ms']:.4f} plain_ms="
-            f"{r['plain_ms']:.4f} library_ms={r['library_ms']:.4f} "
-            f"bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) bound/ms="
-            f"{r['bound_share']:.3f} launches={r['launches']} "
-            f"build={r.get('build', '-')}")
+        log_row(r)
     return rows
 
 
@@ -1278,7 +1525,8 @@ STEP0_TOL = {"loss": 1e-2, "grad_norm": 3e-2, "attn_grads": 0.1}
 # (the limit sits between the sound reading and that of dq zeroed), and
 # loss and grad norm over 3 AGD steps
 BF16_TRAIN_TOL = {"grads": 0.1, "loss": 2e-2, "grad_norm": 5e-2}
-TRAIN_KERNELS = ("rms_norm", "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+TRAIN_KERNELS = ("rms_norm", "rms_norm_bwd", "flash_fwd", "flash_bwd_dkv",
+                 "flash_bwd_dq")
 
 
 def _clone_to(tree, device):
@@ -1522,6 +1770,55 @@ def launch_queue_depth(n: int = 8192) -> int:
     return depth
 
 
+def rms_bwd_row(fused, cap, launches):
+    """The backward's row on its captured input (a fused norm's, with
+    the residual gradient): the rerun must equal the training path's dx
+    and dw, the check of ``check_rms_bwd`` (planted fault, three runs bit
+    for bit) holds, and the library yardstick is ``F.rms_norm`` forward
+    plus ``autograd.grad`` (forward + backward; with a bf16 weight, since
+    PyTorch runs bf16 x with an fp32 weight unfused)."""
+    import torch.nn.functional as F
+
+    h, w, rstd, g, g_res = cap.args
+    d = h.shape[-1]
+    args = (h.reshape(-1, d), w, rstd.reshape(-1, 1), g.reshape(-1, d),
+            g_res.reshape(-1, d))
+    dx, dw = fused.rms_norm_bwd(*args)
+    require(torch.equal(dx.reshape(cap.out[0].shape), cap.out[0])
+            and torch.equal(dw, cap.out[1]),
+            "rms_norm_bwd rerun differs from the training path's output")
+    dx_ref, dw_ref = fused.rms_norm_bwd_plain(*args)
+    lim = dw_limit(dw_ref)
+    e_dx, e_dw = dx_err(dx, dx_ref), max_err(dw, dw_ref) / lim
+    err = max_err(dx, dx_ref)
+    e_bad = max_err(dw, dropped_part_ref(fused, *args[:4])) / lim
+    same = bitwise_repeat(lambda: fused.rms_norm_bwd(*args))
+    log(f"[captured] rms_norm_bwd training {tuple(h.shape)} {h.dtype} x, "
+        f"{w.dtype} weight, with g_res: err/limit dx={e_dx:.3g} dw="
+        f"{e_dw:.3g}, one CTA's sum dropped dw={e_bad:.3g} (dw limit "
+        f"{lim:.3g}); 3 runs equal bit for bit: {same}")
+    require(e_dx <= 1.0 and e_dw <= 1.0 < e_bad and same,
+            "rms_norm_bwd on the training input")
+    xl = args[0].detach().clone().requires_grad_(True)
+    wl = w.detach().to(torch.bfloat16).requires_grad_(True)
+    lib = events_ms(lambda: torch.autograd.grad(
+        F.rms_norm(xl, (d,), wl, 1e-5), (xl, wl), args[3]))
+    row = kernel_row(
+        "rms_norm_bwd", "dlrover_tpu_torch/ops/csrc/rms_norm.cu",
+        "dlrover_tpu/ops/fused.py:121", launches, err,
+        "dx: one bf16 ulp of its row's largest |dx|; dw: dw_limit",
+        lambda: fused.rms_norm_bwd(*args),
+        lambda: fused.rms_norm_bwd_plain(*args), None,
+        rms_bwd_bound_ms(args[0], w, True))
+    row.update(library_ms=lib, library_note=(
+        "F.rms_norm forward + autograd.grad, bf16 weight, no g_res"),
+        note="_rms_bwd is jnp in the reference: no Pallas kernel",
+        dx_err_over_limit=e_dx, dw_err_over_limit=e_dw,
+        dropped_part_dw_err_over_limit=e_bad)
+    log_row(row)
+    return row
+
+
 def train_path(args):
     """Llama-2-7B width (dim 4096, 32 heads, MHA, mlp 11008, vocab
     32000) at ``--train-layers`` layers through ``auto_accelerate`` ->
@@ -1639,6 +1936,11 @@ def train_path(args):
     # the first call (layer 0 of step 1's forward) of each
     attn_cap = Capture(llama, "flash_attention", score=lambda: 0)
     rms_cap = Capture(llama, "rms_norm", score=lambda: 0)
+    add_cap = Capture(llama, "add_rms_norm", score=lambda: 0)
+    # the backward of a fused norm (with the residual gradient)
+    bwd_cap = Capture(fused, "rms_norm_bwd", score=lambda: 0,
+                      when=lambda *a: len(a) > 4 and a[4] is not None)
+    caps = (attn_cap, rms_cap, add_cap, bwd_cap)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launches()
@@ -1646,8 +1948,8 @@ def train_path(args):
     try:
         summary = trainer.train()
     finally:
-        attn_cap.restore()
-        rms_cap.restore()
+        for c in caps:
+            c.restore()
         fns.train_step = inner
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -1668,8 +1970,8 @@ def train_path(args):
     mfu = flops / step_s / PEAK_OPS[torch.bfloat16]
     opt_ms = [s.elapsed_time(e) for s, e in opt_events]
     per_step = {k: v / steps for k, v in counts.items()}
-    expect = {"rms_norm": 4 * L + 1, "flash_fwd": 2 * L,
-              "flash_bwd_dkv": L, "flash_bwd_dq": L}
+    expect = {"rms_norm": 4 * L + 1, "rms_norm_bwd": 2 * L + 1,
+              "flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L}
     log(f"[train] final_step={summary['final_step']} wall_s={wall:.3f} "
         f"(host, steps 1-{steps} + sync) sum_of_step_ms="
         f"{1e3 * sum(r['step_time_s'] for r in hist):.3f} "
@@ -1704,27 +2006,12 @@ def train_path(args):
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
-    rows = []
-    # the training path's RMSNorm: bf16 x with the fp32 master weight
-    x, w, eps = rms_cap.args
-    x2 = x.reshape(-1, x.shape[-1])
-    y = fused.rms_norm_fwd(x2, w, eps)[0]
-    require(torch.equal(y.reshape(rms_cap.out.shape), rms_cap.out),
-            "rms_norm rerun differs from the training path's output")
-    err = max_err(y, fused.rms_norm_plain(x2, w, eps)[0])
-    log(f"[captured] rms_norm training {tuple(x2.shape)} bf16 x, fp32 "
-        f"weight max_abs_err={err:.3g} tol={RMS_TOL[x.dtype]}")
-    require(err <= RMS_TOL[x.dtype], "rms_norm on the training input")
-    rows.append(kernel_row(
-        "rms_norm_train", "dlrover_tpu_torch/ops/csrc/rms_norm.cu",
-        "dlrover_tpu/ops/fused.py:48", counts["rms_norm"], err,
-        RMS_TOL[x.dtype],
-        lambda: fused.rms_norm_fwd(x2, w, eps),
-        lambda: fused.rms_norm_plain(x2, w, eps),
-        # unfused in PyTorch for a weight of another dtype
-        lambda: F.rms_norm(x2, (x2.shape[-1],), w, eps),
-        rms_bound_ms(x2, w),
-    ))
+    # the training path's RMSNorm: bf16 x with the fp32 master weight,
+    # layer 0's attention norm and its MLP norm (the add of wo's output)
+    rows = rms_rows(fused, rms_cap, add_cap, counts["rms_norm"], "_train")
+    rows.append(rms_bwd_row(fused, bwd_cap, counts["rms_norm_bwd"]))
+    del rms_cap, add_cap, bwd_cap
+    torch.cuda.empty_cache()
 
     q, k, v = attn_cap.args[:3]
     require(tuple(q.shape) == (batch, seq, cfg.n_heads, cfg.head_dim)
@@ -1869,10 +2156,6 @@ def stale_block(new, old, blk):
     bad = new.clone()
     bad[blk] = old[blk]
     return bad
-
-
-def differing(a, b) -> int:
-    return int((a != b).sum())
 
 
 def int8_case(q, n, step, gen):
@@ -2187,8 +2470,8 @@ def int8_path(args):
     flops = model_flops(cfg, prof, batch, seq)
     mfu = flops / step_s / PEAK_OPS[torch.bfloat16]
     per_step = {k: counts[k] / steps for k in TRAIN_KERNELS + ("int8_adam",)}
-    expect = {"rms_norm": 4 * L + 1, "flash_fwd": 2 * L,
-              "flash_bwd_dkv": L, "flash_bwd_dq": L,
+    expect = {"rms_norm": 4 * L + 1, "rms_norm_bwd": 2 * L + 1,
+              "flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
               "int8_adam": len(param_leaves(trainer.state["params"]))}
     log(f"[int8] final_step={summary['final_step']} wall_s={wall:.3f} "
         f"step_ms_window(2-{steps})={1e3 * step_s:.3f} tokens_per_s="

@@ -45,6 +45,7 @@ from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.ops.flash_attention import flash_attention
 from dlrover_tpu_torch.ops.fused import (
     _mm_f32,
+    add_rms_norm,
     fused_linear_cross_entropy,
     rms_norm,
 )
@@ -215,16 +216,35 @@ def _layer(params: Params, i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
-def _mlp_residual(cfg: LlamaConfig, lp, x):
-    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+def _norm(cfg: LlamaConfig, x, delta, w):
+    """``(x + delta, its norm)``, or ``(x, its norm)`` with no pending
+    ``delta``.  The serving steps carry each residual branch's output
+    (``delta``) to the norm that follows it, so the add and the norm are
+    one kernel on the card; the values are the unfused ones."""
+    if delta is None:
+        return x, rms_norm(x, w, cfg.norm_eps)
+    return add_rms_norm(x, delta, w, cfg.norm_eps)
+
+
+def _mlp(lp, h):
+    """The SwiGLU branch on the normed ``h``: its residual delta."""
     gate = F.silu(torch.matmul(h, lp["w_gate"]))
     up = torch.matmul(h, lp["w_up"])
-    return x + torch.matmul(gate * up, lp["w_down"])
+    return torch.matmul(gate * up, lp["w_down"])
 
 
-def _logits(cfg: LlamaConfig, params: Params, x):
-    """Final norm and fp32 lm-head logits (see the module docstring)."""
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+def _attn_residual(cfg: LlamaConfig, lp, x, attn):
+    """``x + attn @ wo`` and the MLP norm of it, then the MLP branch:
+    ``(residual stream, the MLP's pending delta)``."""
+    o = torch.matmul(attn.reshape(*x.shape[:-1], -1), lp["wo"])
+    x, h = add_rms_norm(x, o, lp["mlp_norm"], cfg.norm_eps)
+    return x, _mlp(lp, h)
+
+
+def _logits(cfg: LlamaConfig, params: Params, x, delta):
+    """The last layer's pending ``delta`` added, the final norm, and the
+    fp32 lm-head logits (see the module docstring)."""
+    _, x = _norm(cfg, x, delta, params["final_norm"])
     head = params["lm_head"]
     if head.is_cuda and head.dtype != torch.float32:
         # cuBLAS takes the bf16/fp16 operands and writes fp32: no fp32
@@ -278,10 +298,11 @@ def paged_decode_step(
     one = torch.ones_like(positions)
     seq_lens = torch.where(active, positions + 1, one).to(torch.int32)
     tables = block_tables.to(torch.int32).contiguous()
+    delta = None
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         k_pool, v_pool = pool["k"][i], pool["v"][i]
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        x, h = _norm(cfg, x, delta, lp["attn_norm"])
         q = _apply_rope_rows(
             torch.matmul(h, lp["wq"]).reshape(b, 1, nh, hd), cos, sin
         )
@@ -293,9 +314,8 @@ def paged_decode_step(
         attn = paged_decode_attention(
             q[:, 0].contiguous(), k_pool, v_pool, tables, seq_lens
         )
-        x = x + torch.matmul(attn.reshape(b, 1, nh * hd), lp["wo"])
-        x = _mlp_residual(cfg, lp, x)
-    return _logits(cfg, params, x)[:, 0], pool
+        x, delta = _attn_residual(cfg, lp, x, attn)
+    return _logits(cfg, params, x, delta)[:, 0], pool
 
 
 def paged_verify_step(
@@ -323,18 +343,18 @@ def paged_verify_step(
         active, positions, torch.zeros_like(positions)
     ).to(torch.int32)
     tables = block_tables.to(torch.int32).contiguous()
+    delta = None
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        x, h = _norm(cfg, x, delta, lp["attn_norm"])
         q = _apply_rope_grid(
             torch.matmul(h, lp["wq"]).reshape(b, c, nh, hd), cos, sin
         )
         attn = paged_verify_attention(
             q.contiguous(), pool["k"][i], pool["v"][i], tables, safe_pos
         )
-        x = x + torch.matmul(attn.reshape(b, c, nh * hd), lp["wo"])
-        x = _mlp_residual(cfg, lp, x)
-    return _logits(cfg, params, x)
+        x, delta = _attn_residual(cfg, lp, x, attn)
+    return _logits(cfg, params, x, delta)
 
 
 def paged_prefill_chunk(
@@ -363,10 +383,11 @@ def paged_prefill_chunk(
         torch.ones(1, dtype=torch.bool, device=dev), bs,
     )
     blk, off = blk[0], off[0]
+    delta = None
     for i in range(cfg.n_layers):
         lp = _layer(params, i)
         k_pool, v_pool = pool["k"][i], pool["v"][i]
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        x, h = _norm(cfg, x, delta, lp["attn_norm"])
         q = apply_rope(
             torch.matmul(h, lp["wq"]).reshape(b, c, nh, hd), cos, sin
         )
@@ -378,9 +399,8 @@ def paged_prefill_chunk(
         attn = paged_prefill_attention(
             q[0], k_pool, v_pool, block_table, start_pos
         )
-        x = x + torch.matmul(attn.reshape(b, c, nh * hd), lp["wo"])
-        x = _mlp_residual(cfg, lp, x)
-    return _logits(cfg, params, x), pool
+        x, delta = _attn_residual(cfg, lp, x, attn)
+    return _logits(cfg, params, x, delta), pool
 
 
 # ------------------------------------------------------------- training
@@ -428,8 +448,10 @@ def _layer_forward(cfg: LlamaConfig, attention_fn: AttentionFn, lp, x,
     k = apply_rope(_proj(h, lp["wk"], dt).reshape(b, s, nkv, hd), cos, sin)
     v = _proj(h, lp["wv"], dt).reshape(b, s, nkv, hd)
     attn = attention_fn(q, k, v, causal=True)
-    x = x + _proj(attn.reshape(b, s, nh * hd), lp["wo"], dt)
-    h = rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+    # the add before the MLP norm goes into its kernel; the one at the
+    # layer's end crosses the per-layer checkpoint and stays an add
+    x, h = add_rms_norm(x, _proj(attn.reshape(b, s, nh * hd), lp["wo"], dt),
+                        lp["mlp_norm"], cfg.norm_eps)
     gate = F.silu(_proj(h, lp["w_gate"], dt))
     up = _proj(h, lp["w_up"], dt)
     return x + _proj(gate * up, lp["w_down"], dt)

@@ -48,6 +48,7 @@ NVCC_FLAGS = ARCH_FLAGS + (
 #: its kernel, and nowhere else.  Plain-version calls never count.
 launches: Dict[str, int] = {
     "rms_norm": 0,
+    "rms_norm_bwd": 0,
     "paged_decode": 0,
     "paged_verify": 0,
     "flash_fwd": 0,

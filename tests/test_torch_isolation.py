@@ -196,6 +196,10 @@ def _c_signature(source: str, fn: str):
 @pytest.mark.parametrize("source,fn,module,attr", [
     ("rms_norm", "dl_rms_norm_fwd", "dlrover_tpu_torch.ops.fused",
      "ARGTYPES"),
+    ("rms_norm", "dl_add_rms_norm_fwd", "dlrover_tpu_torch.ops.fused",
+     "ADD_ARGTYPES"),
+    ("rms_norm", "dl_rms_norm_bwd", "dlrover_tpu_torch.ops.fused",
+     "BWD_ARGTYPES"),
     ("paged_attention", "dl_paged_decode",
      "dlrover_tpu_torch.ops.paged_kernels", "DECODE_ARGTYPES"),
     ("paged_attention", "dl_paged_decode_smem",
@@ -359,9 +363,9 @@ def test_every_source_is_built_and_every_kernel_counted():
     assert set(_build.SOURCES) == {
         p.stem for p in (PKG / "ops" / "csrc").glob("*.cu")}
     assert set(_build.launches) == {
-        "rms_norm", "paged_decode", "paged_verify", "flash_fwd",
-        "flash_bwd_dkv", "flash_bwd_dq", "quantize", "dequantize",
-        "int8_adam"}
+        "rms_norm", "rms_norm_bwd", "paged_decode", "paged_verify",
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "quantize",
+        "dequantize", "int8_adam"}
 
 
 def test_env_knobs_mirror_the_jax_package(monkeypatch):

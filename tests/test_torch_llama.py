@@ -139,6 +139,52 @@ def test_verify_step_matches_jax(kv):
         assert torch.equal(tpool[k], before[k])
 
 
+@pytest.mark.parametrize("step", ["prefill", "decode", "verify"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_serving_steps_fuse_every_residual_add_into_a_norm(step, dtype,
+                                                           monkeypatch):
+    """Each serving step runs layer 0's attention norm alone and every
+    other norm with the residual add before it (``add_rms_norm``, 2 per
+    layer: L x 2 + 1 norms, no add of their own), and gives the logits
+    of the unfused sequence (the add, then the norm) bit for bit."""
+    tcfg = tl.LlamaConfig.tiny(dtype=dtype)
+    tp = tl.init_params(tcfg, torch.Generator().manual_seed(3), "cpu")
+    shape = (tcfg.n_layers, NB, BS, tcfg.n_kv_heads, tcfg.head_dim)
+    rng = np.random.default_rng(3)
+    tables = torch.from_numpy(np.stack([TABLE_A, TABLE_B]))
+    active = torch.tensor([True, True])
+    tokens = torch.from_numpy(rng.integers(1, 256, (2, 3)).astype(np.int32))
+
+    def run():
+        pool = {k: torch.zeros(shape, dtype=dtype) for k in ("k", "v")}
+        if step == "prefill":
+            return tl.paged_prefill_chunk(tp, tokens[:1], pool, tables[0], 0,
+                                          tcfg)[0]
+        positions = torch.tensor([5, 2], dtype=torch.int32)
+        if step == "decode":
+            return tl.paged_decode_step(tp, tokens[:, 0], pool, tables,
+                                        positions, active, tcfg)[0]
+        return tl.paged_verify_step(tp, tokens, pool, tables, positions,
+                                    active, tcfg)
+
+    calls = {"rms_norm": 0, "add_rms_norm": 0}
+
+    def counted(name, fn):
+        def wrapper(*a):
+            calls[name] += 1
+            return fn(*a)
+        return wrapper
+
+    monkeypatch.setattr(tl, "rms_norm", counted("rms_norm", tl.rms_norm))
+    monkeypatch.setattr(tl, "add_rms_norm",
+                        counted("add_rms_norm", tl.add_rms_norm))
+    fused_logits = run()
+    assert calls == {"rms_norm": 1, "add_rms_norm": 2 * tcfg.n_layers}
+    monkeypatch.setattr(tl, "add_rms_norm", lambda x, d, w, eps: (
+        x + d, tl.rms_norm(x + d, w, eps)))
+    assert torch.equal(fused_logits, run())
+
+
 def test_decode_past_table_writes_null_block_only():
     """A draft position past a lane's table must not alias its last
     real block."""

@@ -8,7 +8,7 @@ Pallas kernels run in interpret mode, as their own tests run them here.
 
 Tolerances: fp32 atol 1e-6 (RMSNorm) and 1e-5 (attention; online vs
 two-pass softmax and another summation order); bf16 RMSNorm within one
-bf16 ulp; bf16 attention 6e-2, the JAX package's own bound for kernel
+bf16 ulp, the residual add before it (``add_rms_norm``) bit for bit; bf16 attention 6e-2, the JAX package's own bound for kernel
 against reference (the reference rounds the weights to bf16 before
 ``p @ v``, the kernel does not).
 """
@@ -24,7 +24,11 @@ os.environ.setdefault("JAX_PLATFORMS", "cpu")
 import jax.numpy as jnp  # noqa: E402
 
 from dlrover_tpu.ops import paged_attention as jpa  # noqa: E402
-from dlrover_tpu.ops.fused import _rms_fwd_pallas, _rms_plain  # noqa: E402
+from dlrover_tpu.ops.fused import (  # noqa: E402
+    _rms_bwd,
+    _rms_fwd_pallas,
+    _rms_plain,
+)
 from dlrover_tpu.ops.paged_kernels import (  # noqa: E402
     paged_decode_kernel as jax_decode_kernel,
     paged_verify_kernel as jax_verify_kernel,
@@ -152,6 +156,77 @@ def test_rms_norm_matches_pallas_interpret(dtype):
         np.testing.assert_allclose(_np(y_t), ref, atol=1e-6, rtol=0)
     else:
         assert np.all(np.abs(_np(y_t) - ref) <= _bf16_ulp(ref))
+
+
+def _close_rms(y_t, ref, dtype):
+    if dtype == "float32":
+        np.testing.assert_allclose(_np(y_t), ref, atol=1e-6, rtol=0)
+    else:
+        assert np.all(np.abs(_np(y_t) - ref) <= _bf16_ulp(ref))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_add_rms_norm_matches_jax_add_then_plain_and_pallas(dtype):
+    """The residual entry against the reference's unfused sequence: JAX's
+    ``x + d`` in the working dtype, then ``_rms_plain`` and the Pallas
+    forward kernel (interpret mode) on it.  ``h`` equal bit for bit;
+    ``y`` within one bf16 ulp (fp32: 1e-6)."""
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal((16, 128)).astype(np.float32) * 2
+    d = rng.standard_normal((16, 128)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(128)).astype(np.float32)
+    jh = jnp.asarray(x, JAX_DT[dtype]) + jnp.asarray(d, JAX_DT[dtype])
+    jw = jnp.asarray(w, JAX_DT[dtype])
+    h_t, y_t, rstd_t = fused.add_rms_norm_fwd(
+        _t(x, TORCH_DT[dtype]), _t(d, TORCH_DT[dtype]),
+        _t(w, TORCH_DT[dtype]), 1e-5)
+    assert h_t.dtype == y_t.dtype == TORCH_DT[dtype]
+    np.testing.assert_array_equal(_np(h_t), _np(jh))
+    for y_j, rstd_j in (_rms_plain(jh, jw, 1e-5),
+                        _rms_fwd_pallas(jh, jw, 1e-5)):
+        np.testing.assert_allclose(_np(rstd_t), _np(rstd_j), rtol=1e-6)
+        _close_rms(y_t, _np(y_j), dtype)
+    h2, y2 = fused.add_rms_norm(_t(x, TORCH_DT[dtype]),
+                                _t(d, TORCH_DT[dtype]),
+                                _t(w, TORCH_DT[dtype]), 1e-5)
+    assert torch.equal(h2, h_t) and torch.equal(y2, y_t)
+
+
+@pytest.mark.parametrize("entry", ["rms_norm", "add_rms_norm",
+                                   "rms_norm_bwd"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_odd_width_matches_jax(entry, dtype):
+    """D = 100, not a multiple of any vector width (the kernels take
+    their scalar path there): the plain entries against the reference's
+    ``_rms_plain`` and ``_rms_bwd`` (``dw`` summed in fp32 over 7 rows:
+    1e-5)."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((7, 100)).astype(np.float32)
+    d = rng.standard_normal((7, 100)).astype(np.float32)
+    g = rng.standard_normal((7, 100)).astype(np.float32)
+    w = (1 + 0.1 * rng.standard_normal(100)).astype(np.float32)
+    jdt, tdt = JAX_DT[dtype], TORCH_DT[dtype]
+    jx, jw = jnp.asarray(x, jdt), jnp.asarray(w, jnp.float32)
+    tx, tw = _t(x, tdt), _t(w)
+    if entry == "rms_norm":
+        y_j, rstd_j = _rms_plain(jx, jw, 1e-5)
+        y_t, rstd_t = fused.rms_norm_fwd(tx, tw, 1e-5)
+    elif entry == "add_rms_norm":
+        jh = jx + jnp.asarray(d, jdt)
+        y_j, rstd_j = _rms_plain(jh, jw, 1e-5)
+        h_t, y_t, rstd_t = fused.add_rms_norm_fwd(tx, _t(d, tdt), tw, 1e-5)
+        np.testing.assert_array_equal(_np(h_t), _np(jh))
+    else:
+        _, rstd_j = _rms_plain(jx, jw, 1e-5)
+        dx_j, dw_j = _rms_bwd(1e-5, (jx, jw, rstd_j), jnp.asarray(g, jdt))
+        dx_t, dw_t = fused.rms_norm_bwd(
+            tx, tw, _t(np.asarray(rstd_j)), _t(g, tdt))
+        assert dx_t.dtype == tdt and dw_t.dtype == torch.float32
+        _close_rms(dx_t, _np(dx_j), dtype)
+        np.testing.assert_allclose(_np(dw_t), _np(dw_j), atol=1e-5, rtol=0)
+        return
+    np.testing.assert_allclose(_np(rstd_t), _np(rstd_j), rtol=1e-6)
+    _close_rms(y_t, _np(y_j), dtype)
 
 
 # ---------------------------------------------------- decode / verify
@@ -406,9 +481,9 @@ def test_on_cpu_rule():
 
 def test_launch_counters_exist_and_reset():
     assert set(_build.launches) == {
-        "rms_norm", "paged_decode", "paged_verify", "flash_fwd",
-        "flash_bwd_dkv", "flash_bwd_dq", "quantize", "dequantize",
-        "int8_adam"}
+        "rms_norm", "rms_norm_bwd", "paged_decode", "paged_verify",
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "quantize",
+        "dequantize", "int8_adam"}
     _build.launches["rms_norm"] = 3
     _build.reset_launches()
     assert _build.launches["rms_norm"] == 0
@@ -470,6 +545,32 @@ def test_kernel_wrapper_accepts_the_main_path_layout():
     c = _torch(_case(2, 8, head_dim=128))
     tpk._check_inputs(c["q"], c["k_pool"], c["v_pool"], c["tables"],
                       c["seq_lens"], "paged_decode")
+
+
+@pytest.mark.parametrize("case", ["delta shape", "delta dtype", "g shape",
+                                  "rstd dtype", "strided g"])
+def test_norm_wrappers_refuse_what_the_kernels_do_not_take(case):
+    """The residual and backward entries check before any launch (so on
+    CPU tensors): ``delta``, ``g`` and ``g_res`` alike with ``x``,
+    contiguous, and ``rstd`` fp32, one per row."""
+    x = torch.randn(4, 64)
+    w = torch.ones(64)
+    rstd = torch.ones(4, 1)
+    if case.startswith("delta"):
+        delta = (torch.randn(4, 32) if case == "delta shape"
+                 else torch.randn(4, 64).double())
+        with pytest.raises(ValueError):
+            fused._launch_fwd(x, delta, w, 1e-5)
+        return
+    g = torch.randn(4, 64)
+    if case == "g shape":
+        g = torch.randn(4, 32)
+    elif case == "rstd dtype":
+        rstd = rstd.double()
+    else:
+        g = torch.randn(64, 4).t()
+    with pytest.raises(ValueError):
+        fused._rms_norm_bwd_cuda(x, w, rstd, g, None)
 
 
 @pytest.mark.parametrize("case", ["fp16", "weight dtype", "weight shape"])

@@ -4,7 +4,8 @@ Numpy inputs from a seed go through the JAX functions and their ports
 (CPU tensors: every kernel wrapper takes its plain version):
 
 - ``rms_norm`` forward and backward against the JAX ``custom_vjp``,
-  bf16 ``x`` with an fp32 weight (the training mix) and fp32;
+  bf16 ``x`` with an fp32 weight (the training mix) and fp32; the same
+  for ``add_rms_norm`` against ``x + d`` and the norm of it;
 - ``fused_linear_cross_entropy`` loss and grads, with a ragged last
   chunk and a mask;
 - ``loss_fn`` value and grads, dense and fused CE, ``remat`` none and
@@ -96,6 +97,62 @@ def test_rms_norm_forward_and_backward_match_jax(x_dtype):
     _close(tx.grad, jdx, ulp)
     # dw sums 15 rows of g * xhat in fp32 from the same bf16 inputs
     _close(tw.grad, jdw, 1e-4)
+
+
+def _within_ulp(got, want, x_dtype):
+    """bf16: each element within one bf16 ulp of the reference's value;
+    fp32: ``ATOL``."""
+    g, r = _np(got), _np(want)
+    if x_dtype == "float32":
+        np.testing.assert_allclose(g, r, atol=ATOL, rtol=0)
+        return
+    e = np.floor(np.log2(np.maximum(np.abs(r), 1e-30)))
+    assert np.all(np.abs(g - r) <= 2.0 ** (e - 7))
+
+
+@pytest.mark.parametrize("x_dtype", ["bfloat16", "float32"])
+def test_add_rms_norm_forward_and_backward_match_jax(x_dtype):
+    """``add_rms_norm`` against ``jax.vjp`` of ``(x + d, rms_norm(x + d,
+    w))`` with a cotangent for each output: ``h`` bit for bit; ``y`` and
+    the gradients of ``x`` and ``d`` (equal: both are h's) within one
+    bf16 ulp (fp32: 1e-5); ``dw`` 1e-4 (15 rows summed in fp32)."""
+    rng = np.random.default_rng(5)
+    x, d, g_h, g_y = (rng.standard_normal((3, 5, 64)).astype(np.float32)
+                      for _ in range(4))
+    w = (1 + 1e-3 * rng.standard_normal(64)).astype(np.float32)
+    jdt = jnp.bfloat16 if x_dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if x_dtype == "bfloat16" else torch.float32
+
+    def ref(a, b, c):
+        s = a + b
+        return s, jfused.rms_norm(s, c, 1e-5)
+
+    (jh, jy), vjp = jax.vjp(ref, jnp.asarray(x, jdt), jnp.asarray(d, jdt),
+                            jnp.asarray(w))
+    jdx, jdd, jdw = vjp((jnp.asarray(g_h, jdt), jnp.asarray(g_y, jdt)))
+    tx, td = (torch.from_numpy(a).to(tdt).requires_grad_(True)
+              for a in (x, d))
+    tw = torch.from_numpy(w).requires_grad_(True)
+    h, y = tfused.add_rms_norm(tx, td, tw, 1e-5)
+    torch.autograd.backward(
+        [h, y], [torch.from_numpy(g_h).to(tdt), torch.from_numpy(g_y).to(tdt)])
+    assert h.dtype == y.dtype == tx.grad.dtype == td.grad.dtype == tdt
+    assert tw.grad.dtype == torch.float32
+    np.testing.assert_array_equal(_np(h), _np(jh))
+    _within_ulp(y, jy, x_dtype)
+    _within_ulp(tx.grad, jdx, x_dtype)
+    assert torch.equal(tx.grad, td.grad)
+    np.testing.assert_array_equal(_np(jdx), _np(jdd))
+    _close(tw.grad, jdw, 1e-4)
+
+
+def test_add_rms_norm_without_grad_is_the_bare_forward():
+    x, d = torch.randn(4, 64), torch.randn(4, 64)
+    w = torch.ones(64)
+    h, y = tfused.add_rms_norm(x, d, w)
+    assert h.grad_fn is None and y.grad_fn is None
+    assert torch.equal(h, x + d)
+    assert torch.equal(y, tfused.rms_norm_plain(x + d, w)[0])
 
 
 def test_rms_norm_without_grad_is_the_bare_forward():
