@@ -26,15 +26,15 @@
 // below the H100's ridge of ~295).  So each tensor moves once, with
 // 16-byte loads, and a row stays in registers from its sum of squares to
 // its scaling:
-// - the forward: one CTA per row (or a cluster of kRowCluster CTAs
-//   that add their partial sums of squares through distributed shared
-//   memory), each thread holding its one or two vectors of the row: 512
-//   threads for a row of 4096 bf16 while the rows are few (decode 16,
-//   verify 52, prefill 256: the time there is the launch's, not that of
-//   the 16 KB that move), 256 when there are enough rows to fill the card
-//   several times over (training, 8192 x 4096).  The weight comes from
-//   L1/L2 for each row: staging it once per CTA in shared memory for a
-//   persistent grid of row groups ran slower (PERF.md);
+// - the forward: one CTA per row, each thread holding its one or two
+//   vectors of the row: 512 threads for a row of 4096 bf16 while the rows
+//   are few (decode 16, verify 52, prefill 256: the time there is the
+//   launch's, not that of the 16 KB that move), 256 when there are enough
+//   rows to fill the card several times over (training, 8192 x 4096).
+//   The weight comes from L1/L2 for each row: staging it once per CTA in
+//   shared memory for a persistent grid of row groups ran slower, and so
+//   did a cluster of CTAs per row adding their sums through distributed
+//   shared memory (PERF.md);
 // - the backward: a persistent grid, one CTA per row at a time, each
 //   thread holding its columns' weight and dw sums in registers across its
 //   rows.
@@ -47,7 +47,6 @@
 // launches.  The caller allocates every output and the backward's fp32
 // workspace; the kernels launch on `stream` and allocate nothing.
 
-#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,18 +54,14 @@
 #include <initializer_list>
 #include <type_traits>
 
-namespace cg = cooperative_groups;
-
 namespace {
 
 // The constants were chosen with scripts/torch_rms_norm_variants.py,
 // which builds and times other values of them on the card.
-// the forward: a CTA per row (a cluster of kRowCluster CTAs when that is
-// above 1, which only the script builds: it lost at every row count),
-// each thread holding up to kRowVecs vectors of its slice: kFewVecs while
-// the rows are fewer than kManyRowsPerSm per SM, kManyVecs from there on
-// (so 512 or 256 threads for a row of 4096 bf16)
-constexpr int kRowCluster = 1;
+// the forward: a CTA per row, each thread holding up to kRowVecs vectors
+// of the row: kFewVecs while the rows are fewer than kManyRowsPerSm per
+// SM, kManyVecs from there on (so 512 or 256 threads for a row of 4096
+// bf16)
 constexpr int kFewVecs = 1;
 constexpr int kManyVecs = 2;
 constexpr int kManyRowsPerSm = 8;
@@ -74,8 +69,8 @@ constexpr int kRowVecs = kFewVecs > kManyVecs ? kFewVecs : kManyVecs;
 constexpr int kMaxThreads = 1024;
 // the backward: kBwdThreads threads per CTA, each holding up to kBwdVecs
 // vectors of a row, registers capped so that kBwdMinCtas CTAs (the
-// wrapper's fused.BWD_CTAS_PER_SM) fit on an SM; the dw sum takes kDwCols columns per CTA in kDwGroups groups of
-// consecutive CTA sums
+// wrapper's fused.BWD_CTAS_PER_SM) fit on an SM; the dw sum takes kDwCols
+// columns per CTA in kDwGroups groups of consecutive CTA sums
 constexpr int kBwdThreads = 256;
 constexpr int kBwdVecs = 2;
 constexpr int kBwdMinCtas = 2;
@@ -189,36 +184,32 @@ __device__ __forceinline__ float rstd_of(float ss, int d, float eps) {
 
 // ------------------------------------------------------------ forward
 
-// CTA b is rank b % kRowCluster of row b / kRowCluster's cluster and
-// takes the row's vectors [rank * per, (rank + 1) * per).
+// CTA b takes row b.
 template <typename T, typename W, int VEC, bool ADD>
 __global__ void __launch_bounds__(kMaxThreads)
     rms_row_kernel(const T* __restrict__ x, const T* __restrict__ delta,
                    const W* __restrict__ w, T* __restrict__ h,
                    T* __restrict__ y, float* __restrict__ rstd, int d,
-                   float eps, int per) {
+                   float eps) {
   __shared__ float red[32];
-  __shared__ float cta_sum;
-  const int64_t row = blockIdx.x / kRowCluster;
-  const int rank = blockIdx.x % kRowCluster;
+  const int64_t row = blockIdx.x;
   const int64_t base = row * d;
-  const int lo = rank * per;
-  const int hi = min(lo + per, d / VEC);
+  const int nvec = d / VEC;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
-  const bool resident = hi - lo <= nt * kRowVecs;
+  const bool resident = nvec <= nt * kRowVecs;
   Pack<T, VEC> v[kRowVecs];
   float ss = 0.f;
   if (resident) {
 #pragma unroll
     for (int k = 0; k < kRowVecs; ++k) {
-      const int i = lo + tid + k * nt;
-      if (i < hi) v[k] = ld<T, VEC>(x + base, i);
+      const int i = tid + k * nt;
+      if (i < nvec) v[k] = ld<T, VEC>(x + base, i);
     }
 #pragma unroll
     for (int k = 0; k < kRowVecs; ++k) {
-      const int i = lo + tid + k * nt;
-      if (i < hi) {
+      const int i = tid + k * nt;
+      if (i < nvec) {
         if constexpr (ADD) {
           v[k] = add_round(v[k], ld<T, VEC>(delta + base, i));
           st<T, VEC>(h + base, i, v[k]);
@@ -227,7 +218,7 @@ __global__ void __launch_bounds__(kMaxThreads)
       }
     }
   } else {
-    for (int i = lo + tid; i < hi; i += nt) {
+    for (int i = tid; i < nvec; i += nt) {
       Pack<T, VEC> t = ld<T, VEC>(x + base, i);
       if constexpr (ADD) {
         t = add_round(t, ld<T, VEC>(delta + base, i));
@@ -236,21 +227,8 @@ __global__ void __launch_bounds__(kMaxThreads)
       ss += squares(t);
     }
   }
-  float total = block_sum(ss, red);
-  if constexpr (kRowCluster > 1) {
-    cg::cluster_group cluster = cg::this_cluster();
-    if (tid == 0) cta_sum = total;
-    cluster.sync();
-    total = 0.f;
-#pragma unroll
-    for (int q = 0; q < kRowCluster; ++q) {
-      total += *cluster.map_shared_rank(&cta_sum, q);
-    }
-    // no CTA leaves while another still reads its shared memory
-    cluster.sync();
-  }
-  const float r = rstd_of(total, d, eps);
-  if (rank == 0 && tid == 0) rstd[row] = r;
+  const float r = rstd_of(block_sum(ss, red), d, eps);
+  if (tid == 0) rstd[row] = r;
   auto scale = [&](int i, const Pack<T, VEC>& a) {
     float wf[VEC];
     ld_f<VEC>(w, i, wf);
@@ -262,12 +240,12 @@ __global__ void __launch_bounds__(kMaxThreads)
   if (resident) {
 #pragma unroll
     for (int k = 0; k < kRowVecs; ++k) {
-      const int i = lo + tid + k * nt;
-      if (i < hi) scale(i, v[k]);
+      const int i = tid + k * nt;
+      if (i < nvec) scale(i, v[k]);
     }
   } else {
     // the second read: h where this thread wrote it, else x
-    for (int i = lo + tid; i < hi; i += nt) {
+    for (int i = tid; i < nvec; i += nt) {
       scale(i, ADD ? ld<T, VEC>(h + base, i) : ld<T, VEC>(x + base, i));
     }
   }
@@ -292,30 +270,10 @@ int launch_fwd(const void* x, const void* delta, const void* w, void* h,
   float* rp = static_cast<float*>(rstd);
   const int nvec = d / VEC;
   const int vecs = n >= kManyRowsPerSm * num_sms() ? kManyVecs : kFewVecs;
-  const int per = (nvec + kRowCluster - 1) / kRowCluster;
-  int threads = ((per + vecs - 1) / vecs + 31) / 32 * 32;
+  int threads = ((nvec + vecs - 1) / vecs + 31) / 32 * 32;
   threads = threads < 32 ? 32 : (threads > kMaxThreads ? kMaxThreads : threads);
-  const int64_t grid = static_cast<int64_t>(n) * kRowCluster;
-  if (grid > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  if constexpr (kRowCluster == 1) {
-    rms_row_kernel<T, W, VEC, ADD><<<static_cast<int>(grid), threads, 0,
-                                      stream>>>(xp, dp, wp, hp, yp, rp, d,
-                                                eps, per);
-  } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(static_cast<unsigned>(grid));
-    cfg.blockDim = dim3(threads);
-    cfg.stream = stream;
-    cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = kRowCluster;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
-    cudaLaunchKernelEx(&cfg, rms_row_kernel<T, W, VEC, ADD>,
-                       xp, dp, wp, hp, yp, rp, d, eps, per);
-  }
+  rms_row_kernel<T, W, VEC, ADD><<<n, threads, 0, stream>>>(
+      xp, dp, wp, hp, yp, rp, d, eps);
   return static_cast<int>(cudaGetLastError());
 }
 

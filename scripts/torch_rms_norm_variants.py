@@ -4,11 +4,8 @@
 Each variant is ``dlrover_tpu_torch/ops/csrc/rms_norm.cu`` with some of
 its design constants set to other values:
 
-- the forward: ``kRowCluster``, the CTAs that share one row (1: one CTA
-  per row; more split the row and add their partial sums of squares
-  through distributed shared memory), and ``kFewVecs`` and
-  ``kManyVecs``, the 16-byte vectors a thread holds (which set the thread
-  count) below and from 8 rows per SM;
+- the forward: ``kFewVecs`` and ``kManyVecs``, the 16-byte vectors a
+  thread holds (which set the thread count) below and from 8 rows per SM;
 - the backward: ``kBwdThreads`` and ``kBwdVecs`` (threads per CTA and
   the vectors each holds) and ``kBwdMinCtas`` (a register cap); and,
   from Python, its CTAs per SM (``fused.BWD_CTAS_PER_SM``, 1-4).
@@ -49,7 +46,6 @@ import chip_smoke as cs  # noqa: E402
 VARIANTS = [
     {},
     {"kFewVecs": 2}, {"kFewVecs": 4},
-    {"kRowCluster": 2}, {"kRowCluster": 4}, {"kRowCluster": 8},
     {"kManyVecs": 1}, {"kManyVecs": 4},
     {"kBwdThreads": 512, "kBwdVecs": 1}, {"kBwdMinCtas": 4},
     {"kBwdMinCtas": 1}, {"kBwdThreads": 1024, "kBwdVecs": 1,
