@@ -10,6 +10,8 @@ card::
     python3 chip_smoke.py --profile  # + torch.profiler decode/train steps
     python3 chip_smoke.py --skip-serve --train-layers 2 --int8-layers 4
     python3 chip_smoke.py --serve-only  # the serving legs alone
+    python3 chip_smoke.py --ckpt-only   # build + the checkpoint leg
+    python3 chip_smoke.py --skip-ckpt --ckpt-layers 2
 
 Phases (any failed check raises, so the script exits nonzero):
 
@@ -82,7 +84,30 @@ Phases (any failed check raises, so the script exits nonzero):
    (B7 twice per leaf), the loss falling, peak memory; the trained
    moments dequantized (B8) and their norms printed; the last step's
    largest leaf captured, B7-B9 checked and timed on it.
-6. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+6. flash-checkpoint leg: the ``df`` of ``/dev/shm`` and of the
+   checkpoint dir (under ``build/``, made fresh and removed at the end),
+   free RAM, and the pinned 1 GiB copy rate each way (the yardstick).
+   Then at Llama-2-7B widths, with the depth the largest of 8, 4, 2
+   whose two shm slots fit in half of the free ``/dev/shm`` (bounded by
+   free RAM, which tmpfs pages take; ``--ckpt-layers`` sets it), for AGD
+   (``snapshot_mode="auto"``, "copy" here) and ``QuantizedMoments``
+   ("staged"), 4 x 2048 tokens a step: run A trains 4 steps; run B 2 with
+   a snapshot every step and a persist at step 2, whose losses and grad
+   norms must equal A's; run C, a fresh ``Trainer``, restores from shm
+   (an in-process saver plays the agent, so the segments outlive each
+   ``Trainer``) and trains to step 4; run D, the segments unlinked,
+   restores from the ``.drckpt`` and trains to step 4.  C's and D's
+   losses, grad norms and every state leaf must equal A's bit for bit,
+   and the restored runs must launch the path's kernels (counts zeroed
+   before each).  Two planted faults (AGD): one leaf's last byte flipped
+   in the shm slot must be seen by the leaf comparison, and a restore
+   that leaves the optimizer's step count at 0 by the loss comparison.
+   Printed with the card's name and power limit: the host time of each
+   ``_maybe_checkpoint`` call, each drain's and restore's GB/s, each
+   run's step times, the preallocation and persist GB/s, and a
+   ``dd``-style write of the AGD state's bytes to the same disk.  Every
+   segment is unlinked and every file removed in a ``finally``.
+7. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without printing a result when CUDA is unavailable or
@@ -2632,6 +2657,437 @@ def int8_path(args):
     return out
 
 
+# ------------------------------------------------------ checkpoint leg
+
+CKPT_DEPTHS = (8, 4, 2)
+CKPT_STEPS = 4  # run A; B stops after 2, C and D resume to 4
+
+
+def _mem_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def _space(path) -> str:
+    import shutil
+
+    u = shutil.disk_usage(path)
+    return (f"{path}: total {u.total / 1e9:.2f} GB, free "
+            f"{u.free / 1e9:.2f} GB")
+
+
+def _state_bytes(cfg, int8: bool) -> int:
+    """Bytes of a snapshot of the train state: fp32 params and, with
+    AGD, two fp32 moments; with int8 moments, per leaf two int8 payloads
+    in 1024-element blocks (more than 8 blocks rounded up to a multiple
+    of 8) and their fp32 scales."""
+    from dlrover_tpu_torch.models import llama
+
+    shapes = llama.init_params(cfg, device="meta", dtype=torch.float32)
+    total = 8  # the two int32 step counts
+    for p in _leaves(shapes):
+        n = p.numel()
+        total += 4 * n
+        if int8:
+            blocks = -(-n // 1024)
+            if blocks > 8:
+                blocks = -(-blocks // 8) * 8
+            total += 2 * (blocks * 1024 + 4 * blocks)
+        else:
+            total += 8 * n
+    return total
+
+
+def pinned_rates(card: str):
+    """The yardstick: a pinned 1 GiB buffer to and from the card (CUDA
+    events, median of 5)."""
+    n = 1 << 30
+    dev = torch.empty(n, dtype=torch.uint8, device="cuda")
+    host = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+    out = {}
+    for name, fn in (("d2h", lambda: host.copy_(dev, non_blocking=True)),
+                     ("h2d", lambda: dev.copy_(host, non_blocking=True))):
+        ts = []
+        for _ in range(5):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            ts.append(a.elapsed_time(b) / 1e3)
+        out[name] = n / 1e9 / statistics.median(ts)
+    del dev, host
+    log(f"[ckpt] {card} | pinned 1 GiB copy: card -> host "
+        f"{out['d2h']:.3f} GB/s, host -> card {out['h2d']:.3f} GB/s "
+        "(the yardstick of every transfer below)")
+    return out
+
+
+def _host_copy(state):
+    from dlrover_tpu_torch.agent.ckpt_shm import _flatten_keyed
+
+    return {k: (v.detach().cpu() if torch.is_tensor(v)
+                else torch.from_numpy(np.array(v)))
+            for k, v in _flatten_keyed(state)}
+
+
+def _differing_leaves(state, want):
+    from dlrover_tpu_torch.agent.ckpt_shm import _flatten_keyed
+
+    pairs = _flatten_keyed(state)
+    if [k for k, _ in pairs] != list(want):
+        return ["<key paths differ>"]
+    bad = []
+    for k, v in pairs:
+        v = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+        w = want[k].to(v.device)
+        if v.dtype != w.dtype or not torch.equal(v, w):
+            bad.append(k)
+        del w
+    return bad
+
+
+def _hist(trainer):
+    return [(r["step"], r["loss"], r["grad_norm"]) for r in trainer.history]
+
+
+def _io_reading(kind):
+    """(bytes, GB/s) of the last checkpoint transfer of ``kind`` (the
+    engine's and the saver's ``record_ckpt_io`` gauges)."""
+    from dlrover_tpu_torch.observability.metrics import get_registry
+
+    reg = get_registry()
+    lab = {"kind": kind}
+    return (reg.get("dlrover_tpu_ckpt_io_bytes", lab),
+            reg.get("dlrover_tpu_ckpt_io_gbps", lab))
+
+
+def ckpt_leg(label, cfg, make_opt, mode, root, tokens, card, rates,
+             kernels, faults):
+    """Runs A (uninterrupted), B (2 steps, snapshot every step, persist at
+    2), C (a fresh ``Trainer`` restored from shm, to step 4) and D (shm
+    unlinked, restored from the ``.drckpt``, to step 4) at ``cfg``;
+    C's and D's losses, grad norms and every state leaf must equal A's
+    bit for bit, and B's must equal A's first two.  With ``faults`` the
+    two planted faults run between B and C.  Returns the readings."""
+    import shutil
+
+    from dlrover_tpu_torch.accelerate import auto_accelerate
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.models.convert import train_state_leaves
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+    from dlrover_tpu_torch.trainer.checkpoint.engine import CheckpointEngine
+
+    def init_fn(gen, dev):
+        return llama.init_params(cfg, gen, dev, dtype=torch.float32)
+
+    result = auto_accelerate(
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg), optimizer=make_opt,
+        init_params_fn=init_fn, device="cuda")
+    batch = {"tokens": tokens}
+
+    def data_iter():
+        while True:
+            yield batch
+
+    def run(max_steps, ckpt_dir=None):
+        ck = {} if ckpt_dir is None else dict(
+            checkpoint_dir=ckpt_dir, save_memory_interval=1,
+            save_storage_interval=2, snapshot_mode=mode)
+        trainer = Trainer(result, TrainingArgs(
+            max_steps=max_steps, log_interval=0, **ck), data_iter)
+        t0 = time.perf_counter()
+        trainer.train()
+        torch.cuda.synchronize()
+        return trainer, time.perf_counter() - t0
+
+    def free():
+        # the caller has dropped its names: collect the cycles too
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def report(name, trainer, wall):
+        for r in trainer.history:
+            log(f"[ckpt] {label} {name} step {r['step']} loss="
+                f"{r['loss']!r} grad_norm={r['grad_norm']!r} step_ms="
+                f"{1e3 * r['step_time_s']:.3f} (card clock)")
+        for s in trainer.save_times:
+            log(f"[ckpt] {card} | {label} {name} _maybe_checkpoint step "
+                f"{s['step']} mode={s['mode']} storage={s['storage']} "
+                f"saved={s['saved']} "
+                f"host_ms={1e3 * s['host_s']:.3f}")
+        eng = trainer.checkpoint_engine
+        for kind, step, nb, dur in (eng.io_log if eng else ()):
+            log(f"[ckpt] {card} | {label} {name} {kind} step {step}: "
+                f"{nb / 1e9:.3f} GB in {dur:.3f} s = {nb / 1e9 / dur:.3f} "
+                f"GB/s (pinned {'d2h' if kind == 'drain' else 'h2d'} "
+                f"{rates['d2h' if kind == 'drain' else 'h2d']:.3f})")
+        if eng is not None:
+            log(f"[ckpt] {label} {name} skipped snapshots "
+                f"{eng.skipped_snapshots}")
+        log(f"[ckpt] {label} {name} wall_s={wall:.3f}")
+        return {"steps": [r["step_time_s"] for r in trainer.history],
+                "saves": trainer.save_times,
+                "io": list(eng.io_log) if eng else []}
+
+    out = {}
+    _build.reset_launches()
+    ta, wall = run(CKPT_STEPS)
+    counts = {k: v for k, v in _build.launches.items() if v}
+    out["A"] = report("A (uninterrupted)", ta, wall)
+    hist_a = _hist(ta)
+    want = _host_copy(ta.state)
+    nbytes = sum(int(v.nbytes) for v in want.values())
+    out["state_bytes"] = nbytes
+    log(f"[ckpt] {label} state: {len(want)} leaves, {nbytes / 1e9:.3f} GB; "
+        f"run A launches {counts}")
+    require(all(counts.get(k, 0) > 0 for k in kernels),
+            f"{label}: run A launched none of some of {kernels}")
+    del ta
+    free()
+
+    d = os.path.join(root, label)
+    d_disk = d + "_disk"
+    factory = AsyncCheckpointSaver.start_async_saving_ckpt(
+        install_signal_handlers=False)
+
+    def drop_shm():
+        saver = AsyncCheckpointSaver.get_ckpt_saver()
+        if saver is not None:
+            saver.close(unlink=True)
+        AsyncCheckpointSaver._instance = None
+
+    try:
+        tb, wall = run(2, d)
+        out["B"] = report("B (2 steps)", tb, wall)
+        out["prealloc"] = _io_reading("prealloc")
+        out["persist_B"] = _io_reading("persist")
+        log(f"[ckpt] {card} | {label} preallocation of 2 slots: "
+            f"{out['prealloc'][0] / 1e9:.3f} GB at {out['prealloc'][1]:.3f} "
+            f"GB/s; persist of step 2: {out['persist_B'][0] / 1e9:.3f} GB "
+            f"at {out['persist_B'][1]:.3f} GB/s")
+        require(_hist(tb) == hist_a[:2],
+                f"{label}: two uninterrupted runs disagree over steps 1-2: "
+                f"{_hist(tb)} vs {hist_a[:2]}")
+        log(f"[ckpt] {label} B's steps 1-2 equal A's bit for bit")
+        del tb
+        free()
+        os.rename(d, d_disk)  # C finds step 2 in shm alone
+
+        if faults:
+            out["faults"] = planted_faults(
+                label, result, batch, d, want, hist_a, CheckpointEngine,
+                AsyncCheckpointSaver, train_state_leaves)
+
+        _build.reset_launches()
+        tc, wall = run(CKPT_STEPS, d)
+        counts = {k: v for k, v in _build.launches.items() if v}
+        out["C"] = report("C (restored from shm)", tc, wall)
+        bad = _differing_leaves(tc.state, want)
+        log(f"[ckpt] {label} C launches {counts}; losses and grad norms "
+            f"equal A's: {_hist(tc) == hist_a[2:]}; differing leaves "
+            f"{len(bad)} of {len(want)}")
+        require(all(counts.get(k, 0) > 0 for k in kernels),
+                f"{label}: the restored run launched none of some of "
+                f"{kernels}")
+        require(out["C"]["io"] and out["C"]["io"][0][0] == "restore_shm",
+                f"{label}: C did not restore from shm")
+        require(_hist(tc) == hist_a[2:] and not bad,
+                f"{label}: the run restored from shm is not A's: "
+                f"{_hist(tc)} vs {hist_a[2:]}, leaves {bad[:4]}")
+        out["persist_C"] = _io_reading("persist")
+        del tc
+        free()
+
+        drop_shm()  # D finds no segment: it reads the .drckpt
+        shutil.rmtree(d, ignore_errors=True)
+        td, wall = run(CKPT_STEPS, d_disk)
+        out["D"] = report("D (restored from disk)", td, wall)
+        bad = _differing_leaves(td.state, want)
+        log(f"[ckpt] {label} D: losses and grad norms equal A's: "
+            f"{_hist(td) == hist_a[2:]}; differing leaves {len(bad)} of "
+            f"{len(want)}")
+        require(out["D"]["io"] and out["D"]["io"][0][0]
+                == "restore_storage", f"{label}: D did not restore from disk")
+        require(_hist(td) == hist_a[2:] and not bad,
+                f"{label}: the run restored from disk is not A's: "
+                f"{_hist(td)} vs {hist_a[2:]}, leaves {bad[:4]}")
+        out["persist_D"] = _io_reading("persist")
+        del td
+        free()
+    finally:
+        drop_shm()
+        factory.close()
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(d_disk, ignore_errors=True)
+    del want, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[ckpt] {label}: A, B, C, D agree bit for bit (C from shm, D "
+        "from disk)")
+    # a snapshot every step: step k+1 runs beside step k's drain
+    alone = out["A"]["steps"][1:]
+    beside = [out["B"]["steps"][1], out["C"]["steps"][1],
+              out["D"]["steps"][1]]
+    log(f"[ckpt] {card} | {label} step on the card's clock, no snapshot "
+        f"(A, steps 2-4): {[round(1e3 * t, 3) for t in alone]} ms; beside "
+        f"the last step's drain (B step 2, C and D step 4): "
+        f"{[round(1e3 * t, 3) for t in beside]} ms")
+    return out
+
+
+def planted_faults(label, result, batch, d, want, hist_a, CheckpointEngine,
+                   AsyncCheckpointSaver, train_state_leaves):
+    """1. the last byte of one leaf flipped in the newest shm slot: the
+    state restored from it, trained to step 4, must differ from A's in
+    the leaf comparison; 2. a restore that leaves the optimizer's step
+    count at its initial 0: the losses to step 4 must differ from A's."""
+    handler = AsyncCheckpointSaver.get_ckpt_saver()._shm_handlers[0]
+    meta = handler.meta.get_all()
+    key = "['params']['layers']['wq']"
+    spec = next(s for s in meta["specs"] if s[0] == key)
+    pos = meta["base"] + spec[3] + spec[4] - 1
+    dev_batch = {"tokens": torch.from_numpy(batch["tokens"]).cuda()}
+    readings = {}
+    for fault in ("flipped byte", "skipped step count"):
+        engine = CheckpointEngine(d)
+        state = result.fns.init_state(0)
+        buf = handler._shm.buf
+        if fault == "flipped byte":
+            buf[pos] ^= 0xFF
+        try:
+            step, _ = engine.load(target=state)
+        finally:
+            if fault == "flipped byte":
+                buf[pos] ^= 0xFF
+            del buf
+            engine.close()
+        require(step == 2, f"{label}: the faulted restore found step {step}")
+        if fault == "skipped step count":
+            dict(train_state_leaves(state))["['opt_state'].step"].set(0)
+        hist = []
+        for _ in range(2):
+            _, m = result.fns.train_step(state, dev_batch)
+            hist.append((state["step"], float(m["loss"]),
+                         float(m["grad_norm"])))
+        bad = _differing_leaves(state, want)
+        readings[fault] = (len(bad), hist)
+        del m
+        log(f"[ckpt] {label} planted fault, {fault}"
+            f"{' in the last byte of ' + key if fault == 'flipped byte' else ''}"
+            f": differing leaves at step 4 {len(bad)} of {len(want)}; steps "
+            f"3-4 {hist} against A's {hist_a[2:]}")
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    require(readings["flipped byte"][0] > 0,
+            f"{label}: the leaf comparison does not see a flipped byte")
+    require(readings["skipped step count"][1] != hist_a[2:],
+            f"{label}: the loss comparison does not see a skipped step count")
+    return readings
+
+
+def dd_write_gbps(root, nbytes) -> float:
+    """Seconds of a ``dd``-style write of ``nbytes`` to ``root``: 64 MiB
+    chunks from one buffer, then ``fsync``."""
+    path = os.path.join(root, "dd.bin")
+    chunk = np.random.default_rng(0).integers(0, 255, 64 << 20,
+                                              dtype=np.uint8)
+    t = time.perf_counter()
+    with open(path, "wb") as f:
+        left = nbytes
+        while left > 0:
+            m = min(left, chunk.nbytes)
+            f.write(memoryview(chunk)[:m])
+            left -= m
+        f.flush()
+        os.fsync(f.fileno())
+    dur = time.perf_counter() - t
+    os.remove(path)
+    return nbytes / 1e9 / dur
+
+
+def ckpt_path(args):
+    """The flash-checkpoint leg (the module's docstring, phase 6); returns
+    its readings."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.common import multi_process
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.optimizers import AGD, QuantizedMoments
+
+    card = smi_line()
+    log(f"[ckpt] {card}")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", f"ckpt_smoke_{os.getpid()}")
+    os.makedirs(root, exist_ok=True)
+    shm_free = shutil.disk_usage("/dev/shm").free
+    ram = _mem_available()
+    log(f"[ckpt] {_space('/dev/shm')}; {_space(root)}; MemAvailable "
+        f"{ram / 1e9:.2f} GB")
+    # tmpfs pages are RAM: half of the smaller of the two holds 2 slots
+    room = min(shm_free, ram) / 2
+    sock = tempfile.mkdtemp(prefix="dts")
+    if len(sock) > 60:  # AF_UNIX paths end at 107 bytes
+        shutil.rmtree(sock)
+        sock = tempfile.mkdtemp(prefix="dts", dir="/tmp")
+    os.environ[multi_process.SOCKET_DIR_ENV] = sock
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        args.bf16_reduced_default)
+    out = {}
+    try:
+        rates = pinned_rates(card)
+        tokens = np.random.default_rng(SEED).integers(
+            0, 32000, (4, 2049)).astype(np.int32)
+        for label, int8, mode in (("agd", False, "auto"),
+                                  ("int8", True, "staged")):
+            if args.ckpt_layers:
+                L = args.ckpt_layers
+            else:
+                L = next((n for n in CKPT_DEPTHS if 2 * _state_bytes(
+                    llama.LlamaConfig.llama2_7b(n_layers=n), int8) <= room),
+                    None)
+                require(L is not None, f"{label}: two slots of even "
+                        f"{CKPT_DEPTHS[-1]} layers exceed {room / 1e9:.2f} GB")
+            cfg = llama.LlamaConfig.llama2_7b(n_layers=L)
+            log(f"[ckpt] {label}: Llama-2-7B widths cut to {L} layers (of "
+                f"32), the largest of {CKPT_DEPTHS} whose two shm slots "
+                f"({2 * _state_bytes(cfg, int8) / 1e9:.2f} GB) fit in half "
+                f"of min(free /dev/shm, MemAvailable) = {room / 1e9:.2f} GB;"
+                f" snapshot_mode={mode}")
+            if int8:
+                make = lambda ps: QuantizedMoments(  # noqa: E731
+                    ps, lr=3e-4, weight_decay=0.1)
+                kernels = ("rms_norm", "flash_fwd", "int8_adam")
+            else:
+                make = lambda ps: AGD(ps, lr=3e-4)  # noqa: E731
+                kernels = ("rms_norm", "rms_norm_bwd", "flash_fwd",
+                           "flash_bwd_dkv", "flash_bwd_dq")
+            out[label] = ckpt_leg(label, cfg, make, mode, root, tokens, card,
+                                  rates, kernels, faults=not int8)
+            b = out[label]
+            for k in ("persist_C", "persist_D"):
+                log(f"[ckpt] {card} | {label} {k}: {b[k][0] / 1e9:.3f} GB at "
+                    f"{b[k][1]:.3f} GB/s")
+        nb = out["agd"]["state_bytes"]
+        log(f"[ckpt] {card} | dd-style write of {nb / 1e9:.3f} GB to "
+            f"{root}: {dd_write_gbps(root, nb):.3f} GB/s (the persist's "
+            "yardstick)")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(sock, ignore_errors=True)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -2654,6 +3110,13 @@ def main() -> int:
     ap.add_argument("--serve-only", action="store_true",
                     help="only the serving main path (its legs and "
                     "captured kernel rows)")
+    ap.add_argument("--skip-ckpt", action="store_true",
+                    help="leave out the flash-checkpoint leg")
+    ap.add_argument("--ckpt-only", action="store_true",
+                    help="only the build and the flash-checkpoint leg")
+    ap.add_argument("--ckpt-layers", type=int, default=0,
+                    help="depth of both checkpoint legs (default: the "
+                    f"largest of {CKPT_DEPTHS} whose two shm slots fit)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2696,6 +3159,10 @@ def main() -> int:
         main_path(args)
         log(smi_line())
         return 0
+    if args.ckpt_only:
+        ckpt_path(args)
+        log(smi_line())
+        return 0
     kernel_checks()
     flash_checks()
     int8_checks()
@@ -2708,6 +3175,8 @@ def main() -> int:
         rows += train_path(args)
     if not (args.kernels_only or args.skip_int8):
         rows += int8_path(args)
+    if not (args.kernels_only or args.skip_ckpt):
+        ckpt_path(args)
 
     if rows:
         log(json.dumps({"kernels": rows}))

@@ -53,7 +53,14 @@ def test_every_module_imports_without_jax_or_the_jax_package():
     for m in ("ops.flash_attention", "ops.quantization", "optimizers.agd",
               "optimizers.low_bit",
               "parallel.train_step", "accelerate.api", "trainer.trainer",
-              "examples.llama_pretrain"):
+              "examples.llama_pretrain", "agent.ckpt_shm",
+              "agent.ckpt_saver", "common.multi_process",
+              "common.parallel_io", "common.storage",
+              "common.fault_injection", "observability.events",
+              "observability.metrics", "trainer.checkpoint.engine",
+              "trainer.checkpoint.reshard",
+              "trainer.checkpoint.checkpointer",
+              "trainer.checkpoint.dcp_interop"):
         assert f"dlrover_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -395,3 +402,29 @@ def test_chip_smoke_alone_exits_nonzero_without_a_result(tmp_path):
     )
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_checkpoint_namespace_is_the_ports_own(monkeypatch):
+    """A JAX job and a port job on one machine never attach to each
+    other's sockets or shm segments; they share the ``.drckpt`` format
+    and the checkpoint layout only."""
+    from dlrover_tpu.agent import ckpt_shm as jshm
+    from dlrover_tpu.common import constants as jconst
+    from dlrover_tpu.common import multi_process as jmp
+    from dlrover_tpu_torch.agent import ckpt_shm
+    from dlrover_tpu_torch.common import constants, multi_process
+
+    for m in (jmp, multi_process):
+        monkeypatch.delenv(m.SOCKET_DIR_ENV, raising=False)
+    assert multi_process.SOCKET_DIR_ENV != jmp.SOCKET_DIR_ENV
+    ours, theirs = multi_process._socket_path("x"), jmp._socket_path("x")
+    assert ours == "/tmp/dlrover_tpu_torch/sockets/x.sock"
+    assert os.path.dirname(ours) != os.path.dirname(theirs)
+    assert ckpt_shm.SHM_PREFIX == "dlrover_tpu_torch_ckpt"
+    assert not ckpt_shm.SHM_PREFIX.startswith(jshm.SHM_PREFIX + "_")
+    assert ckpt_shm.SharedMemoryHandler.__init__.__defaults__ == (
+        jshm.SharedMemoryHandler.__init__.__defaults__)
+    for name in ("CKPT_DIR_PREFIX", "STAGE_DIR", "TRACKER_FILE"):
+        assert (getattr(constants.CheckpointConstant, name)
+                == getattr(jconst.CheckpointConstant, name))
+    assert ckpt_shm._HDR.format == jshm._HDR.format
