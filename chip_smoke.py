@@ -12,6 +12,7 @@ card::
     python3 chip_smoke.py --serve-only  # the serving legs alone
     python3 chip_smoke.py --ckpt-only   # build + the checkpoint leg
     python3 chip_smoke.py --skip-ckpt --ckpt-layers 2
+    python3 chip_smoke.py --elastic-only  # build + the elastic leg
 
 Phases (any failed check raises, so the script exits nonzero):
 
@@ -87,7 +88,7 @@ Phases (any failed check raises, so the script exits nonzero):
 6. flash-checkpoint leg: the ``df`` of ``/dev/shm`` and of the
    checkpoint dir (under ``build/``, made fresh and removed at the end),
    free RAM, and the pinned 1 GiB copy rate each way (the yardstick).
-   Then at Llama-2-7B widths, with the depth the largest of 8, 4, 2
+   Then at Llama-2-7B widths, with the depth the largest of 4, 2
    whose two shm slots fit in half of the free ``/dev/shm`` (bounded by
    free RAM, which tmpfs pages take; ``--ckpt-layers`` sets it), for AGD
    (``snapshot_mode="auto"``, "copy" here) and ``QuantizedMoments``
@@ -107,7 +108,30 @@ Phases (any failed check raises, so the script exits nonzero):
    run's step times, the preallocation and persist GB/s, and a
    ``dd``-style write of the AGD state's bytes to the same disk.  Every
    segment is unlinked and every file removed in a ``finally``.
-7. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+7. elastic leg (``--elastic-only`` alone): ``python -m
+   dlrover_tpu_torch.run`` (a local master, the agent, one worker) runs
+   ``dlrover_tpu_torch.examples.llama_pretrain`` at Llama-2-7B widths
+   and the largest of 8, 4, 2 layers whose two shm slots fit (as the
+   checkpoint leg chooses), AGD, 6 steps on the seeded 4 x 2048 batch, a
+   snapshot every step and no persist before the last step.
+   The worker SIGKILLs itself after step 3's snapshot is in shm; the
+   agent restarts it, and the restart restores step 3 from the agent's
+   segment and trains steps 4-6.  Their losses, grad norms and every
+   state leaf (digests) must equal the checkpoint leg's run A at this
+   depth and 6 steps (uninterrupted, in this process) bit for bit, the
+   restarted worker must launch B1, its
+   backward and B2-B4 and compile nothing, and the launcher must leave
+   no process and no segment behind.  A second run flips the last byte
+   of one leaf in the agent's slot before the restart: the leaf
+   comparison must see it.  Printed with the card's name and power
+   limit: the free card memory before the launch, the restart's legs on
+   the host clock (worker exit, agent notices, its flush of shm to disk,
+   rendezvous, process start, ``import torch`` and the CUDA context,
+   the kernels' libraries, params, restore with its GB/s, first step)
+   and the restarted worker's step times on the card's clock.  The
+   training rows of the kernels line carry the restarted worker's
+   counts as ``elastic_launches``.
+8. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without printing a result when CUDA is unavailable or
@@ -2659,7 +2683,11 @@ def int8_path(args):
 
 # ------------------------------------------------------ checkpoint leg
 
-CKPT_DEPTHS = (8, 4, 2)
+# 4 layers at most, so that the elastic leg after it (two launcher runs
+# at 8 layers) fits in the script's time limit with room for a slower
+# machine: with this leg at 8 layers the whole script took 941.3 s of
+# its 1,200 s on an H100 80GB HBM3 at 700 W (673.5 s at 4)
+CKPT_DEPTHS = (4, 2)
 CKPT_STEPS = 4  # run A; B stops after 2, C and D resume to 4
 
 
@@ -3044,8 +3072,9 @@ def ckpt_path(args):
     out = {}
     try:
         rates = pinned_rates(card)
+        # the first batch of the example's stream (its --repeat_batch)
         tokens = np.random.default_rng(SEED).integers(
-            0, 32000, (4, 2049)).astype(np.int32)
+            0, 32000, (4, 2049), dtype=np.int32)
         for label, int8, mode in (("agd", False, "auto"),
                                   ("int8", True, "staged")):
             if args.ckpt_layers:
@@ -3088,6 +3117,352 @@ def ckpt_path(args):
     return out
 
 
+# --------------------------------------------------------- elastic leg
+
+ELASTIC_DEPTHS = (8, 4, 2)
+ELASTIC_STEPS = 6
+ELASTIC_CRASH_STEP = 3
+ELASTIC_KERNELS = ("rms_norm", "rms_norm_bwd", "flash_fwd", "flash_bwd_dkv",
+                   "flash_bwd_dq")
+#: the leaf whose last byte the planted fault flips in the agent's slot
+ELASTIC_FAULT_LEAF = "['params']['layers']['wq']"
+#: the training rows of the kernels line and the launch counter each reads
+ELASTIC_ROWS = {"rms_norm_train": "rms_norm",
+                "add_rms_norm_train": "rms_norm",
+                "rms_norm_bwd": "rms_norm_bwd", "flash_fwd": "flash_fwd",
+                "flash_bwd_dkv": "flash_bwd_dkv",
+                "flash_bwd_dq": "flash_bwd_dq"}
+
+
+def elastic_reference(cfg, tokens):
+    """The checkpoint leg's run A at ``cfg``: ``ELASTIC_STEPS`` steps of
+    AGD on ``tokens`` with no checkpoint, in this process; returns its
+    (step, loss, grad norm) history and its leaf digests."""
+    from dlrover_tpu_torch.accelerate import auto_accelerate
+    from dlrover_tpu_torch.examples.llama_pretrain import leaf_digests
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.optimizers import AGD
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+
+    result = auto_accelerate(
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        optimizer=lambda ps: AGD(ps, lr=3e-4),
+        init_params_fn=lambda gen, dev: llama.init_params(
+            cfg, gen, dev, dtype=torch.float32),
+        device="cuda")
+    batch = {"tokens": tokens}
+
+    def data_iter():
+        while True:
+            yield batch
+
+    trainer = Trainer(result, TrainingArgs(max_steps=ELASTIC_STEPS,
+                                           log_interval=0), data_iter)
+    trainer.train()
+    out = _hist(trainer), leaf_digests(trainer.state)
+    del trainer, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _engine_name(ckpt_dir: str) -> str:
+    """The shm name ``CheckpointEngine`` gives a checkpoint dir."""
+    import hashlib
+
+    return "d" + hashlib.sha1(
+        os.path.abspath(ckpt_dir).encode()).hexdigest()[:8]
+
+
+def flip_last_byte(ckpt_dir: str, key: str) -> int:
+    """Flip the last byte of leaf ``key`` in the newest slot of rank 0's
+    segment, held by the agent; returns the step that slot holds."""
+    from dlrover_tpu_torch.agent.ckpt_shm import SharedMemoryHandler
+
+    handler = SharedMemoryHandler(0, name=_engine_name(ckpt_dir), host=False)
+    try:
+        meta = handler.meta.get_all()
+        spec = next(sp for sp in meta["specs"] if sp[0] == key)
+        pos = int(meta["base"]) + spec[3] + spec[4] - 1
+        require(handler.attach(min_size=pos + 1),
+                "the agent's segment is not there to fault")
+        handler._shm.buf[pos] ^= 0xFF
+        return int(meta["step"])
+    finally:
+        handler.close()
+
+
+def _read_json(path):
+    with open(path) as f:
+        return json.load(f)
+
+
+def _session_left(sid: int, grace: float = 15.0):
+    """The processes of session ``sid`` still alive after ``grace``
+    seconds, as ``[(pid, command)]``."""
+    deadline = time.time() + grace
+    while True:
+        left = []
+        for pid in os.listdir("/proc"):
+            if not pid.isdigit():
+                continue
+            try:
+                with open(f"/proc/{pid}/stat") as f:
+                    stat = f.read()
+                with open(f"/proc/{pid}/cmdline", "rb") as f:
+                    cmd = f.read().replace(b"\0", b" ").decode()[:120]
+            except OSError:
+                continue
+            # fields after the command's closing parenthesis: state,
+            # ppid, pgrp, session
+            fields = stat.rsplit(")", 1)[1].split()
+            if int(fields[3]) == sid and fields[0] != "Z":
+                left.append((int(pid), cmd))
+        if not left or time.time() > deadline:
+            return left
+        time.sleep(0.2)
+
+
+def elastic_model_args(L):
+    """The example's flags for Llama-2-7B widths at ``L`` layers, trained
+    as the checkpoint leg's run A is."""
+    return ["--config", "llama2_7b", "--layers", str(L), "--batch", "4",
+            "--seq", "2048", "--repeat_batch"]
+
+
+def elastic_run(name, root, model_args, env, fault: bool,
+                timeout: float = 900.0):
+    """One ``python -m dlrover_tpu_torch.run`` of the example with
+    ``model_args`` whose worker SIGKILLs itself after step
+    ``ELASTIC_CRASH_STEP``; with ``fault`` the last byte of
+    ``ELASTIC_FAULT_LEAF`` is flipped in the agent's slot before the
+    restart.  Returns the two incarnations' reports, the events and the
+    wall seconds; the launcher's output goes to ``chiprun_out/``."""
+    import shutil
+
+    from dlrover_tpu_torch.observability.events import read_events
+
+    run_dir = os.path.join(root, name)
+    ckpt, rep = os.path.join(run_dir, "ckpt"), os.path.join(run_dir, "rep")
+    os.makedirs(rep)
+    events = os.path.join(run_dir, "events.jsonl")
+    cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--nnodes=1",
+           "--nproc_per_node=1", "--max-restarts=1", "--monitor_interval=0.5",
+           f"--events_file={events}",
+           "-m", "dlrover_tpu_torch.examples.llama_pretrain", *model_args,
+           "--steps", str(ELASTIC_STEPS), "--ckpt_dir", ckpt,
+           "--save_memory_interval", "1",
+           "--save_storage_interval", str(ELASTIC_STEPS + 1),
+           "--report_dir", rep,
+           "--crash_after_step", str(ELASTIC_CRASH_STEP)]
+    repo = os.path.dirname(os.path.abspath(__file__))
+    out_dir = os.path.join(repo, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    log_path = os.path.join(out_dir, f"elastic_{name}.log")
+    log(f"[elastic] {name}: {' '.join(cmd[1:])} (output: {log_path})")
+    crash_report = os.path.join(rep, "rank0_inc0.json")
+    flipped = None
+    t0 = time.time()
+    with open(log_path, "w") as logf:
+        proc = subprocess.Popen(cmd, cwd=repo, env=env, stdout=logf,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            while proc.poll() is None:
+                if time.time() - t0 > timeout:
+                    raise TimeoutError(f"{name}: launcher past {timeout} s")
+                if fault and flipped is None and os.path.exists(crash_report):
+                    # the worker is dead; its restart waits behind the
+                    # agent's flush of the segment to disk
+                    flipped = flip_last_byte(ckpt, ELASTIC_FAULT_LEAF)
+                    log(f"[elastic] {name}: flipped the last byte of "
+                        f"{ELASTIC_FAULT_LEAF} in the agent's step-{flipped} "
+                        "slot")
+                time.sleep(0.05)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, 9)
+                proc.wait()
+            # the launcher's master, agent, workers and their helpers
+            # (the resource tracker outlives its parent by a moment):
+            # nothing may be left holding the card
+            left = _session_left(proc.pid)
+            if left:
+                os.killpg(proc.pid, 9)
+    wall = time.time() - t0
+    with open(log_path) as f:
+        tail = f.read()[-3000:]
+    require(proc.returncode == 0,
+            f"{name}: the launcher exited {proc.returncode}:\n{tail}")
+    require(not left, f"{name}: the launcher left processes behind: {left}")
+    if fault:
+        require(flipped == ELASTIC_CRASH_STEP,
+                f"{name}: the fault went into step {flipped}")
+    stale = [n for n in os.listdir("/dev/shm") if _engine_name(ckpt) in n]
+    require(not stale, f"{name}: the agent left segments {stale}")
+    inc0 = _read_json(crash_report)
+    inc1 = _read_json(os.path.join(rep, "rank0_inc1.json"))
+    evs = read_events(events)
+    shutil.rmtree(run_dir, ignore_errors=True)  # ~45 GB of checkpoints
+    return {"inc0": inc0, "inc1": inc1, "events": evs, "wall": wall}
+
+
+def _span_walls(evs, name, ph, inc):
+    return [e["wall"] for e in evs
+            if e["name"] == name and e["ph"] == ph and e.get("inc") == inc]
+
+
+def restart_breakdown(r, card):
+    """The restart's legs on the host clock, from the crashed worker's
+    report, the agent's spans and the restarted worker's marks."""
+    inc0, inc1, evs = r["inc0"], r["inc1"], r["events"]
+    m = inc1["marks"]
+    # a span's end carries its writer's incarnation, not the label its
+    # begin was given: the agent's round-1 rendezvous ends at the first
+    # rendezvous end after that round began
+    notice = min(_span_walls(evs, "restart", "B", 1))
+    rdzv_begin = min(_span_walls(evs, "rendezvous", "B", 1))
+    rdzv_done = min(e["wall"] for e in evs if e["name"] == "rendezvous"
+                    and e["ph"] == "E" and e["wall"] >= rdzv_begin)
+    flush = [e for e in evs if e["name"] == "checkpoint_save"
+             and e.get("labels", {}).get("stage") == "persist"
+             and notice <= e["wall"] <= rdzv_done]
+    legs = [("worker exit", inc0["crashed_at"]),
+            ("agent notices", notice)]
+    if flush:
+        legs.append(("shm flushed to disk (agent)",
+                     flush[-1]["wall"] + flush[-1]["dur"]))
+    legs.append(("rendezvous done", rdzv_done))
+    for label, key in (("worker process started", "process_start"),
+                       ("import torch", "torch_imported"),
+                       ("the CUDA context", "cuda_context"),
+                       ("kernels' .so loaded", "kernels_loaded"),
+                       ("the port's modules imported", "modules_imported"),
+                       ("auto_accelerate", "accelerated"),
+                       ("Trainer and its engine built", "trainer_built"),
+                       ("params built", "state_built"),
+                       ("restore done", "restored"),
+                       ("first step done", "first_step_done")):
+        if key in m:  # a CPU worker has no CUDA context and no kernels
+            legs.append((label, m[key]))
+    restore = next(x for x in inc1["io_log"] if x[0] == "restore_shm")
+    parts = []
+    for (a, ta), (b, tb) in zip(legs, legs[1:]):
+        extra = ""
+        if b == "restore done":
+            extra = (f" ({restore[2] / 1e9:.3f} GB at "
+                     f"{restore[2] / 1e9 / restore[3]:.3f} GB/s)")
+        parts.append(f"{a} -> {b} {tb - ta:.3f} s{extra}")
+    total = legs[-1][1] - legs[0][1]
+    log(f"[elastic] {card} | restart breakdown (host clock): "
+        + "; ".join(parts) + f"; worker exit -> first step done {total:.3f} s")
+    return {"legs": [(b, tb - ta) for (a, ta), (b, tb)
+                     in zip(legs, legs[1:])], "total_s": total}
+
+
+def elastic_path(args):
+    """The elastic leg (the module's docstring, phase 7); returns the
+    restarted worker's launch counts."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.common import multi_process
+    from dlrover_tpu_torch.models import llama
+
+    card = smi_line()
+    shm_free = shutil.disk_usage("/dev/shm").free
+    ram = _mem_available()
+    room = min(shm_free, ram) / 2
+    L = args.elastic_layers or next(
+        (n for n in ELASTIC_DEPTHS if 2 * _state_bytes(
+            llama.LlamaConfig.llama2_7b(n_layers=n), False) <= room), None)
+    require(L is not None, f"two slots of even {ELASTIC_DEPTHS[-1]} layers "
+            f"exceed {room / 1e9:.2f} GB")
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=L)
+    log(f"[elastic] {_space('/dev/shm')}; MemAvailable {ram / 1e9:.2f} GB; "
+        f"Llama-2-7B widths cut to {L} layers (of 32), the largest of "
+        f"{ELASTIC_DEPTHS} whose two shm slots "
+        f"({2 * _state_bytes(cfg, False) / 1e9:.2f} GB) fit in half of "
+        f"min(free /dev/shm, MemAvailable) = {room / 1e9:.2f} GB")
+    # the example's --repeat_batch: its stream's first batch
+    tokens = np.random.default_rng(SEED).integers(
+        0, 32000, (4, 2049), dtype=np.int32)
+    hist_ref, dig_ref = elastic_reference(cfg, tokens)
+    log(f"[elastic] reference: the checkpoint leg's run A at {L} layers and "
+        f"{ELASTIC_STEPS} steps, uninterrupted, in this process: {hist_ref}")
+    require(len(hist_ref) == ELASTIC_STEPS, "the reference is not 6 steps")
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    log(f"[elastic] {card} | card memory free {free / 1e9:.2f} GB of "
+        f"{total / 1e9:.2f} GB before the launch")
+    # the worker holds the state, its snapshot buffers ("copy"), the
+    # grads and the activations: ~2.5 times the state at this width
+    require(free >= 2.5 * _state_bytes(cfg, False),
+            f"{free / 1e9:.2f} GB free on the card: the worker needs "
+            f"{2.5 * _state_bytes(cfg, False) / 1e9:.2f} GB")
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", f"elastic_smoke_{os.getpid()}")
+    sock = tempfile.mkdtemp(prefix="dte", dir="/tmp")
+    env = dict(os.environ)
+    env[multi_process.SOCKET_DIR_ENV] = sock
+    env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    os.environ[multi_process.SOCKET_DIR_ENV] = sock  # flip_last_byte's
+    try:
+        r = elastic_run("crash", root, elastic_model_args(L), env,
+                        fault=False)
+        inc0, inc1 = r["inc0"], r["inc1"]
+        hist = [(h["step"], h["loss"], h["grad_norm"])
+                for h in inc1["history"]]
+        restore = inc1["io_log"][0] if inc1["io_log"] else None
+        bad = sorted(k for k in dig_ref if inc1["digests"].get(k)
+                     != dig_ref[k])
+        counts = {k: v for k, v in inc1["launches"].items() if v}
+        log(f"[elastic] crash: incarnation 0 died after step "
+            f"{inc0['crash_step']}; incarnation 1 restored {restore} "
+            f"(compiled {inc1['compiled'] or 'nothing'}: the .so files "
+            f"came from the build dir); launches {counts}")
+        log(f"[elastic] crash: steps 4-6 {hist} against the reference's "
+            f"{hist_ref[3:]}; differing leaves at step {ELASTIC_STEPS} "
+            f"{len(bad)} of {len(dig_ref)}")
+        require(inc0["crash_step"] == ELASTIC_CRASH_STEP,
+                f"incarnation 0 died at step {inc0['crash_step']}")
+        require(restore is not None and restore[0] == "restore_shm"
+                and restore[1] == ELASTIC_CRASH_STEP,
+                f"incarnation 1 did not restore step 3 from shm: {restore}")
+        require(hist == [tuple(h) for h in hist_ref[3:]],
+                "the restarted worker's steps 4-6 are not the reference's")
+        require(not bad, f"leaves differ from the reference: {bad[:4]}")
+        require(all(counts.get(k, 0) > 0 for k in ELASTIC_KERNELS),
+                f"the restarted worker launched none of some of "
+                f"{ELASTIC_KERNELS}: {counts}")
+        require(not inc1["compiled"], "the restarted worker ran nvcc")
+        steps = [round(1e3 * h["step_time_s"], 3) for h in inc1["history"]]
+        log(f"[elastic] {card} | restarted worker's steps 4-6 on the card's "
+            f"clock: {steps} ms (step 4 includes the first step's set-up)")
+        breakdown = restart_breakdown(r, card)
+        log(f"[elastic] crash run wall {r['wall']:.3f} s")
+
+        f = elastic_run("fault", root, elastic_model_args(L), env,
+                        fault=True)
+        fbad = sorted(k for k in dig_ref if f["inc1"]["digests"].get(k)
+                      != dig_ref[k])
+        log(f"[elastic] planted fault, the last byte of {ELASTIC_FAULT_LEAF} "
+            f"flipped in the agent's slot: differing leaves at step "
+            f"{ELASTIC_STEPS} {len(fbad)} of {len(dig_ref)} ({fbad[:4]})")
+        require(fbad, "the leaf comparison does not see a flipped byte")
+        log(f"[elastic] fault run wall {f['wall']:.3f} s")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(sock, ignore_errors=True)
+        os.environ.pop(multi_process.SOCKET_DIR_ENV, None)
+    log("[elastic] the worker killed after step 3 was restarted by the "
+        "agent, restored step 3 from the agent's shm and ended equal bit "
+        "for bit to the uninterrupted run")
+    return {"launches": inc1["launches"], "breakdown": breakdown}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -3117,6 +3492,13 @@ def main() -> int:
     ap.add_argument("--ckpt-layers", type=int, default=0,
                     help="depth of both checkpoint legs (default: the "
                     f"largest of {CKPT_DEPTHS} whose two shm slots fit)")
+    ap.add_argument("--skip-elastic", action="store_true",
+                    help="leave out the elastic-launch leg")
+    ap.add_argument("--elastic-only", action="store_true",
+                    help="only the build and the elastic-launch leg")
+    ap.add_argument("--elastic-layers", type=int, default=0,
+                    help="depth of the elastic leg (default: the largest "
+                    f"of {ELASTIC_DEPTHS} whose two shm slots fit)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -3163,6 +3545,10 @@ def main() -> int:
         ckpt_path(args)
         log(smi_line())
         return 0
+    if args.elastic_only:
+        elastic_path(args)
+        log(smi_line())
+        return 0
     kernel_checks()
     flash_checks()
     int8_checks()
@@ -3177,6 +3563,12 @@ def main() -> int:
         rows += int8_path(args)
     if not (args.kernels_only or args.skip_ckpt):
         ckpt_path(args)
+    if not (args.kernels_only or args.skip_elastic):
+        elastic = elastic_path(args)
+        for row in rows:
+            key = ELASTIC_ROWS.get(row["name"])
+            if key is not None:
+                row["elastic_launches"] = elastic["launches"][key]
 
     if rows:
         log(json.dumps({"kernels": rows}))

@@ -490,9 +490,9 @@ class AsyncCheckpointSaver:
         return cls._instance
 
     @classmethod
-    def reset(cls):
+    def reset(cls, unlink: bool = False):
         if cls._instance is not None:
-            cls._instance.close()
+            cls._instance.close(unlink=unlink)
             cls._instance = None
 
 

@@ -1,94 +1,270 @@
-"""Env knobs — the port's own copy of readers in
-``dlrover_tpu/common/env.py``: the five serving ones
-(``kv_incremental_enabled`` .. ``decode_steps``), the process identity
-a checkpoint shard is named by (``get_process_rank`` ..
-``get_local_process_count``) and the checkpoint engine's close timeout
-(``ckpt_close_timeout_s``).  Same variable names,
-same defaults, same clamping, so one environment configures either
-package identically."""
+"""Environment helpers: the port's own copy of the readers in
+``dlrover_tpu/common/env.py`` that port code calls, with the same
+variable names, defaults, clamping and parsing, so one environment
+configures either package.  Process identity, the control plane's
+long-poll and batching, the master's pool size and reconnect deadline,
+the events file's rotation, the checkpoint close timeout, the drain
+grace, the serving readers (``kv_incremental_enabled`` ..
+``decode_steps``) and ``get_free_port``.
+
+One difference: the switches of the master's subsystems that the port
+does not have yet (the observatory, the live profiler and deep capture,
+the Brain, the master's self-telemetry: ROADMAP A3c) default to off
+here.  Turned on, the master raises ``NotImplementedError`` naming A3c
+rather than running without them.  Each other reader comes with the
+slice that calls it.
+"""
 
 import os
 
-KV_INCREMENTAL_ENV = "DLROVER_TPU_KV_INCREMENTAL"
-KV_GROW_BLOCKS_ENV = "DLROVER_TPU_KV_GROW_BLOCKS"
-KV_ADMIT_WATERMARK_ENV = "DLROVER_TPU_KV_ADMIT_WATERMARK"
-KV_PREFIX_CACHE_ENV = "DLROVER_TPU_KV_PREFIX_CACHE"
-DECODE_STEPS_ENV = "DLROVER_TPU_DECODE_STEPS"
-CKPT_CLOSE_TIMEOUT_ENV = "DLROVER_TPU_CKPT_CLOSE_TIMEOUT_S"
-# process identity (``NodeEnv`` of the JAX package's constants)
-NODE_ID_ENV = "DLROVER_TPU_NODE_ID"
-NODE_RANK_ENV = "DLROVER_TPU_NODE_RANK"
-PROCESS_RANK_ENV = "DLROVER_TPU_PROCESS_RANK"
-PROCESS_COUNT_ENV = "DLROVER_TPU_PROCESS_COUNT"
-LOCAL_PROCESS_COUNT_ENV = "DLROVER_TPU_LOCAL_PROCESS_COUNT"
+from dlrover_tpu_torch.common.constants import NodeEnv
 
-_OFF = ("0", "false", "off")
+
+def _get_int(name: str, default: int = 0) -> int:
+    value = os.getenv(name, "")
+    try:
+        return int(value)
+    except (TypeError, ValueError):
+        return default
+
+
+def get_node_id() -> int:
+    return _get_int(NodeEnv.NODE_ID, 0)
+
+
+def get_node_rank() -> int:
+    return _get_int(NodeEnv.NODE_RANK, get_node_id())
+
+
+def get_process_rank() -> int:
+    return _get_int(NodeEnv.PROCESS_RANK, 0)
+
+
+def get_process_count() -> int:
+    return _get_int(NodeEnv.PROCESS_COUNT, 1)
+
+
+def get_local_process_count() -> int:
+    return _get_int(NodeEnv.LOCAL_PROCESS_COUNT, 1)
+
+
+CONTROL_LONGPOLL_ENV = "DLROVER_TPU_CONTROL_LONGPOLL"
+CONTROL_BATCH_ENV = "DLROVER_TPU_CONTROL_BATCH"
+
+
+def control_longpoll_enabled() -> bool:
+    """Kill-switch for the control-plane fast path: server-side
+    long-poll waits (KV store, comm world, shard tasks, training
+    status, master-ready).  ``DLROVER_TPU_CONTROL_LONGPOLL=0``
+    reproduces the client-side polling loops exactly (the bench
+    reference and the rollback path).  Default: enabled."""
+    return os.getenv(CONTROL_LONGPOLL_ENV, "1").lower() not in (
+        "0", "false", "off",
+    )
+
+
+def control_batch_enabled() -> bool:
+    """Kill-switch for coalesced delta reporting: with
+    ``DLROVER_TPU_CONTROL_BATCH=0`` every ``ReportBuffer.add``
+    degenerates to the old one-RPC-per-report path.  Default:
+    enabled."""
+    return os.getenv(CONTROL_BATCH_ENV, "1").lower() not in (
+        "0", "false", "off",
+    )
+
+
+OBSERVATORY_ENV = "DLROVER_TPU_OBSERVATORY"
+EVENTS_MAX_MB_ENV = "DLROVER_TPU_EVENTS_MAX_MB"
+
+
+def observatory_enabled() -> bool:
+    """Switch of the master-side observatory (health derivations,
+    diagnosis operators, ``JobStatusRequest``, the timeline growth
+    bounds).  Not ported yet: on, the master raises
+    ``NotImplementedError`` naming ROADMAP A3c.  Default in the port:
+    off; the JAX package's default is on."""
+    return os.getenv(OBSERVATORY_ENV, "0").lower() not in (
+        "0", "false", "off",
+    )
 
 
 def env_float(name: str, default: float) -> float:
-    """Float env knob with a default (malformed values fall back)."""
+    """Float env knob with a default (malformed values fall back) —
+    the one parser behind every tunable threshold."""
     try:
         return float(os.getenv(name, "") or default)
     except ValueError:
         return default
 
 
-def kv_incremental_enabled() -> bool:
-    """Incremental allocation (watermark admission, on-demand growth,
-    preemption, prefix caching); ``=0`` selects worst-case reservation
-    admission.  Default: enabled."""
-    return os.getenv(KV_INCREMENTAL_ENV, "1").lower() not in _OFF
+def events_max_bytes() -> int:
+    """Size-based rotation threshold for the agent-side JSONL events
+    file (0 = never rotate).  Generous default: a week-long job at
+    control-plane event rates stays far below it."""
+    return int(env_float(EVENTS_MAX_MB_ENV, 256.0) * 1024 * 1024)
 
 
-def kv_grow_blocks() -> int:
-    """Blocks of headroom an admitted sequence reserves beyond its
-    prompt, and the quantum its table grows by (>= 1)."""
-    return max(1, int(env_float(KV_GROW_BLOCKS_ENV, 2)))
-
-
-def kv_admit_watermark() -> float:
-    """Share of the usable pool that must stay free after a new
-    admission (incremental mode), clamped to [0, 0.9]."""
-    return min(max(env_float(KV_ADMIT_WATERMARK_ENV, 0.1), 0.0), 0.9)
-
-
-def kv_prefix_cache_enabled() -> bool:
-    """Content-hashed sharing of full prompt blocks (incremental mode
-    only).  Default: enabled."""
-    return os.getenv(KV_PREFIX_CACHE_ENV, "1").lower() not in _OFF
-
-
-def decode_steps() -> int:
-    """K decode steps per scheduler iteration: K greedy self-drafting
-    steps plus one verify forward when K > 1.  Default 1."""
-    return max(1, int(env_float(DECODE_STEPS_ENV, 1)))
-
-
-def _get_int(name: str, default: int = 0) -> int:
-    try:
-        return int(os.getenv(name, ""))
-    except (TypeError, ValueError):
-        return default
-
-
-def get_node_rank() -> int:
-    return _get_int(NODE_RANK_ENV, _get_int(NODE_ID_ENV, 0))
-
-
-def get_process_rank() -> int:
-    return _get_int(PROCESS_RANK_ENV, 0)
-
-
-def get_process_count() -> int:
-    return _get_int(PROCESS_COUNT_ENV, 1)
-
-
-def get_local_process_count() -> int:
-    return _get_int(LOCAL_PROCESS_COUNT_ENV, 1)
+CKPT_CLOSE_TIMEOUT_ENV = "DLROVER_TPU_CKPT_CLOSE_TIMEOUT_S"
+PREEMPT_DRAIN_GRACE_ENV = "DLROVER_TPU_PREEMPT_DRAIN_GRACE_S"
 
 
 def ckpt_close_timeout_s() -> float:
     """How long ``CheckpointEngine.close()`` waits for an in-flight
-    snapshot drain before leaving its handles open (closing under a
-    live drain would corrupt the persist)."""
+    snapshot drain before deliberately LEAKING the shm/lock/queue
+    handles (closing under a live drain would corrupt the persist —
+    the leak is the safe outcome, now observable via the
+    ``dlrover_tpu_ckpt_drain_stuck`` counter)."""
     return env_float(CKPT_CLOSE_TIMEOUT_ENV, 300.0)
+
+
+def preempt_drain_grace_s() -> float:
+    """How long the agent waits, after asking workers to drain
+    (SIGUSR1 -> snapshot-every-step), for a fresh common step to land
+    in shm before flushing to storage.  Bounded by the preemption
+    notice lead (~60 s on GCE) and the pod's SIGTERM grace."""
+    return env_float(PREEMPT_DRAIN_GRACE_ENV, 5.0)
+
+
+KV_INCREMENTAL_ENV = "DLROVER_TPU_KV_INCREMENTAL"
+KV_GROW_BLOCKS_ENV = "DLROVER_TPU_KV_GROW_BLOCKS"
+KV_ADMIT_WATERMARK_ENV = "DLROVER_TPU_KV_ADMIT_WATERMARK"
+KV_PREFIX_CACHE_ENV = "DLROVER_TPU_KV_PREFIX_CACHE"
+DECODE_STEPS_ENV = "DLROVER_TPU_DECODE_STEPS"
+
+
+def kv_incremental_enabled() -> bool:
+    """Kill-switch for the incremental-allocation serving discipline
+    (watermark admission + on-demand block growth + lowest-priority
+    sequence preemption + prefix caching in ``rl/scheduler.py`` /
+    ``rl/kv_cache.py``).  ``DLROVER_TPU_KV_INCREMENTAL=0`` reproduces
+    the PR-13 worst-case reservation admission byte-for-byte (admit
+    only when ``ceil((prompt + max_new) / block_size)`` blocks are
+    free; no growth, no preemption, no shared blocks — pinned by
+    tests).  Default: enabled."""
+    return os.getenv(KV_INCREMENTAL_ENV, "1").lower() not in (
+        "0", "false", "off",
+    )
+
+
+def kv_grow_blocks() -> int:
+    """Decode-time growth quantum: how many blocks an admitted
+    sequence reserves as headroom beyond its prompt, and the chunk its
+    block table grows by when decode crosses a block boundary (>= 1 —
+    the first decode position can sit past the prompt's last block)."""
+    return max(1, int(env_float(KV_GROW_BLOCKS_ENV, 2)))
+
+
+def kv_admit_watermark() -> float:
+    """Watermark admission (incremental mode): a new sequence is
+    admitted only if, after its initial allocation, at least this
+    FRACTION of the usable pool stays free as growth headroom for the
+    sequences already running.  0 = admit whenever the initial
+    allocation fits (maximum admission, maximum preemption churn).
+    The first sequence always admits regardless (progress)."""
+    return min(max(env_float(KV_ADMIT_WATERMARK_ENV, 0.1), 0.0), 0.9)
+
+
+def kv_prefix_cache_enabled() -> bool:
+    """Prefix caching (incremental mode only): content-hash full
+    prompt blocks into a ref-counted shared-block index so requests
+    with a common prompt prefix map the same physical blocks.
+    ``DLROVER_TPU_KV_PREFIX_CACHE=0`` disables sharing while keeping
+    incremental allocation.  Default: enabled (inert unless
+    ``kv_incremental_enabled()``)."""
+    return os.getenv(KV_PREFIX_CACHE_ENV, "1").lower() not in (
+        "0", "false", "off",
+    )
+
+
+def decode_steps() -> int:
+    """Multi-token decode: K decode steps fused into ONE compiled
+    scheduler iteration (K-greedy self-drafting + one batched verify
+    forward; ``rl/scheduler.py``).  ``DLROVER_TPU_DECODE_STEPS=1``
+    (the default) is exactly the PR-13 one-token-per-dispatch loop."""
+    return max(1, int(env_float(DECODE_STEPS_ENV, 1)))
+
+
+PROFILE_ENV = "DLROVER_TPU_PROFILE"
+
+
+def profile_enabled() -> bool:
+    """Switch of the live attribution profiler and the master's deep
+    capture coordinator.  Not ported yet: on, the master raises
+    ``NotImplementedError`` naming ROADMAP A3c.  Default in the port:
+    off; the JAX package's default is on."""
+    return os.getenv(PROFILE_ENV, "0").lower() not in (
+        "0", "false", "off",
+    )
+
+
+BRAIN_ENV = "DLROVER_TPU_BRAIN"
+
+
+def brain_enabled() -> bool:
+    """Switch of the Brain (the observatory-fed optimizer, auto-scaler
+    and planned-action executor).  Not ported yet: on, the master
+    raises ``NotImplementedError`` naming ROADMAP A3c.  Default in the
+    port: off; the JAX package's default is on."""
+    return os.getenv(BRAIN_ENV, "0").lower() not in (
+        "0", "false", "off",
+    )
+
+
+SELF_OBS_ENV = "DLROVER_TPU_SELF_OBS"
+MASTER_WORKERS_ENV = "DLROVER_TPU_MASTER_WORKERS"
+
+
+def self_obs_enabled() -> bool:
+    """Switch of the master's control-plane self-telemetry.  Not
+    ported yet: on, the master raises ``NotImplementedError`` naming
+    ROADMAP A3c.  Default in the port: off; the JAX package's default
+    is on."""
+    return os.getenv(SELF_OBS_ENV, "0").lower() not in (
+        "0", "false", "off",
+    )
+
+
+def master_workers() -> int:
+    """gRPC thread-pool size of the master server
+    (``DLROVER_TPU_MASTER_WORKERS``).  Each PARKED long-poll holds a
+    pool thread for its whole wait, so the ceiling bounds the fleet a
+    single master can serve — it must be raisable without a code
+    change, and the occupancy gauge
+    (``dlrover_tpu_master_busy_workers`` over
+    ``dlrover_tpu_master_worker_pool_size``) is derived from this
+    same value so the two can never disagree."""
+    return max(int(env_float(MASTER_WORKERS_ENV, 64.0)), 1)
+
+
+MASTER_FAILOVER_ENV = "DLROVER_TPU_MASTER_FAILOVER"
+RECONNECT_DEADLINE_ENV = "DLROVER_TPU_MASTER_RECONNECT_DEADLINE_S"
+
+
+def master_failover_enabled() -> bool:
+    """Switch of the client side of master failover: transparent
+    ``MasterChannel`` reconnection and ``(job_epoch,
+    master_incarnation)`` fencing.  ``DLROVER_TPU_MASTER_FAILOVER=0``
+    gives the fail-fast client: a dead master raises
+    ``ConnectionError`` after ``max_retry`` attempts and no epochs ride
+    the envelope.  The master's journal and replay are ROADMAP A3c.
+    Default: enabled."""
+    return os.getenv(MASTER_FAILOVER_ENV, "1").lower() not in (
+        "0", "false", "off",
+    )
+
+
+def master_reconnect_deadline_s() -> float:
+    """Total time a client keeps retrying/reconnecting across a
+    master outage before giving up (failover mode only)."""
+    try:
+        return float(os.getenv(RECONNECT_DEADLINE_ENV, "120"))
+    except ValueError:
+        return 120.0
+
+
+def get_free_port(host: str = "127.0.0.1") -> int:
+    import socket
+
+    with socket.socket(socket.AF_INET, socket.SOCK_STREAM) as sock:
+        sock.bind((host, 0))
+        return sock.getsockname()[1]

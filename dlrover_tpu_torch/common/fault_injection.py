@@ -1,16 +1,13 @@
 """Seeded, env-driven fault injection for chaos testing.
 
-Copy of ``dlrover_tpu/common/fault_injection.py`` (the same plan
-variables, so one chaos plan drives either package) without its ``rpc``
-faults: they act at the ``MasterChannel`` boundary, which comes with the
-control plane (ROADMAP A3b).  A plan's ``rpc`` specs parse and never
-fire.
+Copy of ``dlrover_tpu/common/fault_injection.py``: the same plan
+variables, so one chaos plan drives either package.
 
 The plan rides ``DLROVER_TPU_FAULT_PLAN`` (a JSON object, see
 :class:`FaultPlan`) into every process of a job; each process also
 declares its role via ``DLROVER_TPU_FAULT_ROLE`` (``master`` /
 ``agent`` / anything — the orchestrator in ``scripts/chaos.py`` sets
-it on the children it spawns).  The reference's two fault families:
+it on the children it spawns).  Two fault families:
 
 - ``kill`` — SIGKILL the current process when execution reaches a
   named phase hook (:func:`maybe_crash` call sites: mid_rendezvous,
@@ -24,7 +21,8 @@ it on the children it spawns).  The reference's two fault families:
   by request class name, with a seeded probability.
 
 Every injected fault emits a ``fault_injected`` instant event
-(labels: ``kind`` + ``target``) on the job timeline before it acts, so chaos runs are attributable in the same trace as
+(labels: ``kind`` + ``target``) on the job timeline
+before it acts, so chaos runs are attributable in the same trace as
 the recovery they provoke.
 
 With no plan configured every hook is a cheap no-op (one module-level
@@ -53,6 +51,10 @@ KILL_PHASES = (
     "mid_checkpoint_persist",
     "mid_weight_publish",
 )
+
+
+class FaultInjectedError(ConnectionError):
+    """A dropped RPC, surfaced as the transport failure it simulates."""
 
 
 @dataclass
@@ -174,6 +176,33 @@ class FaultInjector:
             self._emit("kill", self._role or "self", phase=phase)
             os.kill(os.getpid(), signal.SIGKILL)
             time.sleep(60)  # pragma: no cover - the signal lands first
+
+    # -------------------------------------------------------- rpc hooks
+    def on_rpc(self, msg_name: str) -> str:
+        """Consulted by ``MasterChannel`` before each wire attempt.
+
+        Returns ``"dup"`` when the RPC should be sent twice, ``""``
+        otherwise; raises :class:`FaultInjectedError` for a drop;
+        sleeps in place for a delay."""
+        for spec in self._plan.faults:
+            if spec.kind != "rpc":
+                continue
+            if spec.target not in ("", "*", msg_name):
+                continue
+            with self._lock:
+                if not self._armed(spec):
+                    continue
+            self._emit("rpc_" + spec.op, msg_name,
+                       delay_s=spec.delay_s)
+            if spec.op == "drop":
+                raise FaultInjectedError(
+                    f"fault plan dropped rpc {msg_name}"
+                )
+            if spec.op == "delay":
+                time.sleep(max(spec.delay_s, 0.0))
+            elif spec.op == "dup":
+                return "dup"
+        return ""
 
 
 _injector: Optional[FaultInjector] = None

@@ -1,0 +1,85 @@
+"""Master CLI: ``python -m dlrover_tpu_torch.master.main --port ...
+--node-num N``.
+
+Copy of ``dlrover_tpu/master/main.py``.  The port has the local master
+only: ``--platform k8s`` and ``ray`` raise ``NotImplementedError`` (the
+distributed master is ROADMAP A3c), as do ``--brain_db`` and
+``--status_port`` (``master/master.py``).
+
+Reference parity: ``dlrover/python/master/main.py:43-70`` +
+``master/args.py``.
+"""
+
+import argparse
+import sys
+
+from dlrover_tpu_torch.common.log import default_logger as logger
+
+
+def parse_master_args(argv=None):
+    parser = argparse.ArgumentParser(description="dlrover_tpu job master")
+    parser.add_argument("--port", type=int, default=0,
+                        help="gRPC port (0 = pick a free port)")
+    parser.add_argument("--node_num", "--node-num", dest="node_num",
+                        type=int, default=1)
+    parser.add_argument("--platform", default="local",
+                        choices=["local", "k8s", "ray"])
+    parser.add_argument("--job_name", default="local-job")
+    parser.add_argument("--pending_timeout", type=int, default=900)
+    parser.add_argument(
+        "--brain_db", default="",
+        help="sqlite path for the durable Brain datastore (speed "
+        "history, strategy calibration, node events survive master "
+        "restarts); also via $DLROVER_TPU_BRAIN_DB",
+    )
+    parser.add_argument(
+        "--workers", type=int, default=0,
+        help="gRPC thread-pool size (0 = $DLROVER_TPU_MASTER_WORKERS "
+        "or 64).  Each parked long-poll holds one worker for its "
+        "whole wait — raise this before a 256+ agent fan-in; the "
+        "occupancy gauges say when.",
+    )
+    parser.add_argument(
+        "--status_port", type=int, default=None,
+        help="serve plain-HTTP /metrics (Prometheus text) + /status "
+        "(observatory JSON snapshot) on this port (0 = pick a free "
+        "one; omit = off).  Also via $DLROVER_TPU_STATUS_PORT.",
+    )
+    return parser.parse_args(argv)
+
+
+def run(args) -> int:
+    import os
+
+    from dlrover_tpu_torch.common.env import get_free_port
+    from dlrover_tpu_torch.master.master import LocalJobMaster
+
+    if args.brain_db:
+        os.environ["DLROVER_TPU_BRAIN_DB"] = args.brain_db
+    if args.workers:
+        # through the env so the servicer's parked-wait cap, the
+        # create_master_service pool and the occupancy gauge all read
+        # ONE value
+        os.environ["DLROVER_TPU_MASTER_WORKERS"] = str(args.workers)
+    if args.status_port is not None:
+        os.environ["DLROVER_TPU_STATUS_PORT"] = str(args.status_port)
+    os.environ.setdefault("DLROVER_TPU_JOB_NAME", args.job_name)
+
+    port = args.port or get_free_port()
+    if args.platform != "local":
+        raise NotImplementedError(
+            f"the {args.platform} master is not ported yet: ROADMAP A3c")
+    master = LocalJobMaster(port, args.node_num)
+    master.prepare()
+    logger.info("job %s master listening on %s", args.job_name,
+                master.addr)
+    print(f"DLROVER_TPU_MASTER_ADDR={master.addr}", flush=True)
+    return master.run()
+
+
+def main(argv=None) -> int:
+    return run(parse_master_args(argv))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

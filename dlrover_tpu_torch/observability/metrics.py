@@ -3,7 +3,9 @@
 The part of ``dlrover_tpu/observability/metrics.py`` that the flash
 checkpoint calls: counters and gauges (``MetricsRegistry`` :123,
 ``get_registry`` :330), ``record_ckpt_io`` (:347) and
-``record_reshard_io`` (:536), under the reference's metric names.
+``record_reshard_io`` (:536), and what the control plane calls:
+``record_dropped_reports`` (:588) and ``record_control_rpc`` (:613),
+under the reference's metric names.
 Left out (ROADMAP A7): histograms, series retirement, the Prometheus
 text rendering and the exporter file it feeds (``native_build``): the
 registry keeps its values in memory, read back with ``get``.
@@ -11,6 +13,7 @@ registry keeps its values in memory, read back with ``get``.
 
 import re
 import threading
+import time
 from typing import Dict, Optional
 
 from dlrover_tpu_torch.common.log import default_logger as logger
@@ -100,3 +103,52 @@ def record_reshard_io(from_world: int, to_world: int, nbytes: int,
         reg.inc_counter("dlrover_tpu_reshard_total")
     except Exception as e:  # noqa: BLE001
         logger.warning("reshard metric export failed: %s", e)
+
+
+def record_dropped_reports(n: int = 1):
+    """Count fire-and-forget reports dropped by the client-side
+    ``ReportBuffer`` overflow cap during a master outage
+    (``dlrover_tpu_control_dropped_reports``).  A nonzero rate means
+    the outage outlived the buffer — telemetry from that window is
+    gone (training state is unaffected; reports are advisory).  Never
+    raises."""
+    try:
+        get_registry().inc_counter(
+            "dlrover_tpu_control_dropped_reports", float(n)
+        )
+    except Exception as e:  # noqa: BLE001
+        logger.warning("dropped-report metric export failed: %s", e)
+
+
+#: windowed meter behind ``dlrover_tpu_control_rps``: the master's
+#: servicer calls ``record_control_rpc`` per RPC; the rate gauge is
+#: recomputed at most once per window so the metric itself cannot
+#: become control-plane load
+_CONTROL_RPS_WINDOW_S = 5.0
+_control_rpc_lock = threading.Lock()
+_control_rpc_window_start = 0.0
+_control_rpc_window_count = 0
+
+
+def record_control_rpc(n: int = 1):
+    """Count one (or ``n``) master control-plane RPCs; exports the
+    windowed rate as ``dlrover_tpu_control_rps`` and the lifetime tally
+    as ``dlrover_tpu_control_rpc_total``.  Never raises."""
+    global _control_rpc_window_start, _control_rpc_window_count
+    try:
+        reg = get_registry()
+        reg.inc_counter("dlrover_tpu_control_rpc_total", float(n))
+        now = time.monotonic()
+        with _control_rpc_lock:
+            if not _control_rpc_window_start:
+                _control_rpc_window_start = now
+            _control_rpc_window_count += n
+            elapsed = now - _control_rpc_window_start
+            if elapsed < _CONTROL_RPS_WINDOW_S:
+                return
+            rps = _control_rpc_window_count / elapsed
+            _control_rpc_window_start = now
+            _control_rpc_window_count = 0
+        reg.set_gauge("dlrover_tpu_control_rps", rps)
+    except Exception as e:  # noqa: BLE001
+        logger.warning("control rpc metric export failed: %s", e)

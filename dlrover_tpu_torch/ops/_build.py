@@ -31,14 +31,16 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List, Optional
 
 import torch
+
+from dlrover_tpu_torch.common.constants import NodeEnv
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = ("rms_norm", "paged_attention", "flash_attention",
            "flash_attention_bwd", "quantization")
-BUILD_DIR_ENV = "DLROVER_TPU_TORCH_BUILD_DIR"
+BUILD_DIR_ENV = NodeEnv.KERNEL_BUILD_DIR
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -63,6 +65,10 @@ launches: Dict[str, int] = {
 #: register/shared-memory report when built with ``verbose=True``),
 #: kept beside the library and read back when the library is reused.
 build_logs: Dict[str, str] = {}
+
+#: sources this process compiled with ``nvcc`` (the rest it loaded
+#: from an earlier build: an elastic restart should compile nothing)
+compiled: List[str] = []
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -121,6 +127,17 @@ def _target(name: str, verbose: bool) -> Path:
     return build_dir() / f"{name}-{digest}.so"
 
 
+def _reusable(name: str, verbose: bool) -> Optional[Path]:
+    """An up-to-date library of ``name``: the one built with these flags
+    or, failing that, the one built with ``ptxas``'s report toggled
+    (``-Xptxas -v`` only prints: the code is the same)."""
+    for v in (verbose, not verbose):
+        target = _target(name, v)
+        if target.exists():
+            return target
+    return None
+
+
 def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
     """Compile every named source that has no up-to-date library yet,
     one ``nvcc`` per source, all running at once; load the libraries.
@@ -135,12 +152,13 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
         out_dir.mkdir(parents=True, exist_ok=True)
         procs = {}
         for name in todo:
-            target = _target(name, verbose)
-            if target.exists():
+            target = _reusable(name, verbose)
+            if target is not None:
                 log = target.with_suffix(".log")
                 if log.exists():
                     build_logs[name] = log.read_text()
                 continue
+            target = _target(name, verbose)
             tmp = target.with_suffix(f".{os.getpid()}.tmp")
             cmd = [find_nvcc(), *NVCC_FLAGS]
             if verbose:
@@ -162,6 +180,7 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
                 continue
             target.with_suffix(".log").write_text(build_logs[name])
             os.replace(tmp, target)
+            compiled.append(name)
         if failed:
             raise RuntimeError(
                 "nvcc failed for "
@@ -170,7 +189,7 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
                 + "\n".join(build_logs[n] for n in failed)
             )
         for name in todo:
-            _libs[name] = ctypes.CDLL(str(_target(name, verbose)))
+            _libs[name] = ctypes.CDLL(str(_reusable(name, verbose)))
     return time.monotonic() - t0
 
 

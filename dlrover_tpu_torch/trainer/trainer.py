@@ -5,12 +5,26 @@ Port of ``dlrover_tpu/trainer/trainer.py`` (``TrainingArgs`` :36-80,
 ``Trainer`` :83, the serial restore ``_init_or_restore_state`` :255-305,
 ``_resolve_snapshot_mode`` :315-349, ``_maybe_checkpoint`` :361-411,
 ``_consume_metrics`` :413-433, ``evaluate`` :565-618, ``train``
-:619-860) without what later slices bring: the elastic restart path
-(``replay_dir``, the prefetch/compile overlap and the drain handler:
-ROADMAP A3b), the resident profiler, the metrics exporter and sparse
+:619-860) without what later slices bring: the restart overlap (the
+restore prefetch and ``restart_path.py``) and replay (``replay_dir``):
+ROADMAP A3c; the resident profiler, the metrics exporter and sparse
 tables (``trace_interval``, ``metrics_port``, ``sparse_tables``: A7).
 Setting one of those raises ``NotImplementedError`` rather than doing
 nothing.
+
+Under the elastic launch (``python -m dlrover_tpu_torch.run``) the
+``Trainer`` joins the agent's world (``init_distributed`` on the train
+step's device), reports progress to the master through an
+``ElasticTrainer`` (``progress``), watches its own steps with a
+``HangDetector`` (a worker with no step in ``hang_timeout`` seconds
+reports the hang and exits, and the agent restarts it), and with
+``checkpoint_dir`` installs the drain handler: after the agent's
+SIGUSR1 every step is snapshotted to shared memory, blocking
+(``trainer/drain.py``).  At world > 1 each rank trains the whole replica
+on the batches it is given, and the ranks meet at a barrier after every
+step, on a gloo group of the host loops (``ElasticContext.host_group``),
+so that the barrier never waits on the card and the loop still queues
+one step ahead of it: gradient sync across ranks is ROADMAP A4.
 
 Flash checkpoint (``checkpoint_dir``): on start the state is restored
 from the newest step the engine finds (shared memory first, then disk)
@@ -60,7 +74,7 @@ logger = logging.getLogger(__name__)
 
 # option -> the ROADMAP slice that brings it
 _LATER = {
-    "replay_dir": "A3b (elastic restart and replay)",
+    "replay_dir": "A3c (replay)",
     "trace_interval": "A7 (device-side observability)",
     "metrics_port": "A7 (device-side observability)",
     "sparse_tables": "A7 (sparse tables)",
@@ -71,6 +85,8 @@ _LATER = {
 class TrainingArgs:
     max_steps: int
     log_interval: int = 10
+    # seconds with no finished step before the worker exits as hung
+    hang_timeout: float = 1800.0
     # periodic in-train evaluation (steps; 0 = off), needs eval_iter_fn
     eval_interval: int = 0
     # max batches per evaluation pass (0 = drain the eval iterator)
@@ -107,8 +123,19 @@ class Trainer:
                     f"TrainingArgs.{name} is not ported yet: ROADMAP "
                     f"{slice_}"
                 )
+        from dlrover_tpu_torch.trainer.elastic import (
+            ElasticTrainer,
+            init_distributed,
+        )
+
         self._result = accelerate_result
         self._fns = accelerate_result.fns
+        self._ctx = init_distributed(self._fns.device)
+        # progress reports only: the batch is the caller's, one micro
+        # step a rank
+        self.progress = ElasticTrainer(
+            global_batch_size=self._ctx.world_size, micro_batch_size=1,
+            world_size=self._ctx.world_size, rank=self._ctx.rank)
         self._args = args
         self._data_iter_fn = data_iter_fn
         self._eval_iter_fn = eval_iter_fn
@@ -123,6 +150,10 @@ class Trainer:
         self._snapshot_mode = None
         self._snap = None  # "copy": the buffers a snapshot is copied into
         self._storage_step = None  # last step handed to the persist
+        #: host wall-clock times (``time.time()``) of the legs a
+        #: (re)start runs through: "state_built", "restored" (checkpoint
+        #: loaded, snapshot buffers ready), "first_step_done"
+        self.marks = {}
         if args.checkpoint_dir:
             if args.snapshot_mode not in ("auto", "copy", "staged"):
                 raise ValueError(
@@ -133,6 +164,10 @@ class Trainer:
                 CheckpointEngine,
             )
 
+            from dlrover_tpu_torch.trainer.drain import (
+                install_drain_handler,
+            )
+
             self._engine = CheckpointEngine(
                 checkpoint_dir=args.checkpoint_dir,
                 process_rank=env.get_process_rank(),
@@ -140,6 +175,9 @@ class Trainer:
                 node_rank=env.get_node_rank(),
                 local_shard_num=env.get_local_process_count(),
             )
+            # graceful drain: the agent's SIGUSR1 switches to a blocking
+            # snapshot at every step (_maybe_checkpoint)
+            install_drain_handler()
 
     @property
     def checkpoint_engine(self):
@@ -152,12 +190,36 @@ class Trainer:
             self._init_or_restore_state()
         return self.state["step"]
 
+    def restore(self) -> int:
+        """Build the state and restore the newest checkpoint (what
+        ``train()`` does first when it has not been done); returns the
+        step training resumes from."""
+        return self._init_state()
+
+    def snapshot(self) -> bool:
+        """Snapshot the current step to shared memory now, blocking until
+        it is there (a drain still running finishes first).  A step
+        already there is not written again: a second copy would take the
+        other slot, whose older step may be the one the ranks share.
+        Returns whether the step is in shared memory."""
+        if self._engine is None:
+            raise ValueError("snapshot() needs TrainingArgs.checkpoint_dir")
+        self._init_state()
+        self._engine.wait_for_snapshot(timeout=600)
+        if self.state["step"] in self._engine._usable_shm_steps(
+                self._layouts):
+            return True
+        return self._engine.save_to_memory(
+            self.state["step"], self.state, blocking=True,
+            layouts=self._layouts)
+
     # ------------------------------------------------------------ resume
     def _init_or_restore_state(self) -> int:
         """Initialise the state, then overwrite it with the newest
         checkpoint the engine agrees on (the serial ``engine.load``),
         and fault in the shared memory of the snapshots to come."""
         self.state = self._fns.init_state(self._rng_seed)
+        self.marks["state_built"] = time.time()
         if self._engine is None:
             return 0
         from dlrover_tpu_torch.trainer.checkpoint.reshard import (
@@ -169,6 +231,7 @@ class Trainer:
             target=self.state, layouts=self._layouts)
         if step >= 0 and restored is not None:
             logger.info("resumed training from step %d", step)
+        self.progress.global_step = self.state["step"]
         self._engine.preallocate_like(self.state)
         self._snapshot_mode = self._resolve_snapshot_mode()
         logger.info("snapshot mode: %s", self._snapshot_mode)
@@ -177,6 +240,7 @@ class Trainer:
             # cached around them: made at a snapshot, they would take
             # the blocks the next step's activations were cached in
             self._snap = self._snapshot_buffers()
+        self.marks["restored"] = time.time()
         return self.state["step"]
 
     # ------------------------------------------------------------- save
@@ -203,16 +267,25 @@ class Trainer:
     def _maybe_checkpoint(self, step: int):
         if self._engine is None:
             return
+        from dlrover_tpu_torch.trainer.drain import drain_requested
+
+        # drain mode (the agent's SIGUSR1: the node is about to go): a
+        # blocking snapshot at every step, so that the agent's flush
+        # persists the newest step and not the last periodic one
+        draining = drain_requested()
         to_storage = step % self._args.save_storage_interval == 0
-        to_memory = step % self._args.save_memory_interval == 0
+        to_memory = step % self._args.save_memory_interval == 0 or draining
         if not (to_storage or to_memory):
             return
         t0 = time.perf_counter()
         # "staged" hands over the live tensors and blocks until they are
         # in shm; "copy" hands over copies made on the compute stream
         # now, which no later step writes, and returns at once
-        blocking = self._snapshot_mode == "staged"
+        blocking = self._snapshot_mode == "staged" or draining
         saved = False
+        if draining:
+            # a "copy" drain still reading its buffers finishes first
+            self._engine.wait_for_snapshot(timeout=600)
         if blocking:
             snap = self.state
         elif not self._engine._snapshot_slot_free(step):
@@ -273,6 +346,18 @@ class Trainer:
             self._engine.close()
             self._snap = None  # a drain still running holds its own refs
 
+    def _couple_ranks(self):
+        """At world > 1, the ranks meet after every step.  Without
+        gradient sync (ROADMAP A4) nothing else couples them, and a rank
+        running on past a dead peer would leave the ranks' snapshots at
+        no common step, so that the restart would find none to restore.
+        The barrier runs on the host (gloo): an NCCL barrier would
+        synchronise the card's stream at every step."""
+        if self._ctx.world_size > 1:
+            import torch.distributed as dist
+
+            dist.barrier(group=self._ctx.host_group)
+
     def _mark_start(self):
         """Where the next step's time starts: now, on the card's clock
         (an event queued behind all earlier work) or the host's."""
@@ -293,6 +378,7 @@ class Trainer:
             dt = now - self._last_done
             self._last_done = now
         loss = float(metrics["loss"])
+        self.marks.setdefault("first_step_done", time.time())
         record = {"step": step, "loss": loss, "step_time_s": dt}
         if "grad_norm" in metrics:
             record["grad_norm"] = float(metrics["grad_norm"])
@@ -338,15 +424,26 @@ class Trainer:
         return result
 
     def train(self):
+        from dlrover_tpu_torch.trainer.fault_tolerance import (
+            HangDetector,
+            default_hang_action,
+        )
+
         step = self._init_state()
+        hang = HangDetector(timeout=self._args.hang_timeout,
+                            on_hang=default_hang_action)
+        hang.start()
         step_times = []
         eval_every = (
             self._args.eval_interval if self._eval_iter_fn is not None
             else 0
         )
         pending = None  # (step, metrics) read one step late
-        # False while train_step runs: it updates the state in place, so
-        # an exception there leaves a state no checkpoint may hold
+        # False from train_step until the ranks have met after it:
+        # train_step updates the state in place, so an exception there
+        # leaves a state no checkpoint may hold; and a step whose barrier
+        # failed (a peer died before it) must not take the shm slot of a
+        # step the peers share, or the restart finds no common step
         whole = True
         self._mark_start()
         try:
@@ -358,8 +455,11 @@ class Trainer:
                     whole = False
                     self.state, metrics = self._fns.train_step(
                         self.state, batch)
-                    whole = True
                     step += 1
+                    self.progress.step_done()
+                    hang.report_step(step)
+                    self._couple_ranks()
+                    whole = True
                     if pending is not None:
                         step_times.append(self._consume_metrics(*pending))
                     pending = (step, metrics)
@@ -377,12 +477,14 @@ class Trainer:
             if pending is not None:
                 step_times.append(self._consume_metrics(*pending))
         except BaseException:
+            hang.stop()
             if self._engine is not None:
                 try:
                     self._final_checkpoint(step if whole else None)
                 except Exception:  # noqa: BLE001 - the first error wins
                     logger.exception("final checkpoint after a failure")
             raise
+        hang.stop()
         if self._engine is not None:
             self._final_checkpoint(step)
         return {

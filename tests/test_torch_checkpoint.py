@@ -506,16 +506,20 @@ class _FailingAGD(AGD):
         return super().step(closure)
 
 
-@pytest.mark.parametrize("where,persisted", [("optimizer", 2), ("data", 3)])
+@pytest.mark.parametrize("where,persisted",
+                         [("optimizer", 2), ("data", 3), ("barrier", 2)])
 def test_a_failed_step_commits_no_torn_state(where, persisted, agent,
                                              ckpt_dir):
     """An exception inside ``train_step`` (``opt.step`` of step 4, after
     it wrote a parameter) propagates, and neither shm nor disk gets that
     state under step 3's number: shm keeps step 3's snapshot, disk step
     2.  One outside ``train_step`` (the data iterator, after step 3)
-    propagates too, and step 3 is persisted.  Either way a restart
-    resumes from step 3 bit for bit as an uninterrupted run.  "staged"
-    snapshots, so that no save is skipped for a drain still running."""
+    propagates too, and step 3 is persisted.  A failed barrier after
+    step 4 (a peer died before it: gloo raises) propagates, and step 4,
+    which the peer never reached, takes no shm slot and no disk step.
+    Either way a restart resumes from step 3 bit for bit as an
+    uninterrupted run.  "staged" snapshots, so that no save is skipped
+    for a drain still running."""
     npp = _jax_params()
     rng = np.random.default_rng(7)
     batches = [{"tokens": rng.integers(0, 256, (2, 13)).astype(np.int32)}
@@ -536,6 +540,15 @@ def test_a_failed_step_commits_no_torn_state(where, persisted, agent,
                if where == "optimizer" else result)
     trainer = Trainer(failing, TrainingArgs(max_steps=4, log_interval=0,
                                             **ck), data)
+    if where == "barrier":
+        met = []
+
+        def couple_ranks():
+            met.append(len(met) + 1)
+            if met[-1] == 4:
+                raise RuntimeError("barrier failed")
+
+        trainer._couple_ranks = couple_ranks
     with pytest.raises(RuntimeError, match=f"{where} failed"):
         trainer.train()
     engine = CheckpointEngine(ckpt_dir)
@@ -548,6 +561,36 @@ def test_a_failed_step_commits_no_torn_state(where, persisted, agent,
     run_c = _train(result, batches, 4, **ck)
     assert _history(run_c) == _history(run_a)[3:]
     assert_equal(want, _state_copy(run_c.state))
+
+
+def test_snapshot_of_a_step_already_in_shm_keeps_the_other_slot(
+        agent, ckpt_dir):
+    """``Trainer.snapshot()`` of the step the last save put in shm (the
+    example's crash hook) writes nothing: the other slot keeps the step
+    before it, which a peer that skipped a snapshot may share."""
+    npp = _jax_params()
+    rng = np.random.default_rng(7)
+    batches = [{"tokens": rng.integers(0, 256, (2, 13)).astype(np.int32)}
+               for _ in range(4)]
+    seen = []
+    trainer = None
+
+    def data():
+        yield from batches[:3]
+        engine = trainer.checkpoint_engine
+        engine.wait_for_snapshot(timeout=60)
+        seen.append(engine._shm_handler.steps_available())
+        seen.append(trainer.snapshot())
+        seen.append(engine._shm_handler.steps_available())
+        yield batches[3]
+
+    trainer = Trainer(
+        _result(npp, torch.float32, "agd"),
+        TrainingArgs(max_steps=4, log_interval=0, checkpoint_dir=ckpt_dir,
+                     save_memory_interval=1, save_storage_interval=100,
+                     snapshot_mode="staged"), data)
+    trainer.train()
+    assert seen == [[3, 2], True, [3, 2]]
 
 
 def test_an_optimizer_without_jax_key_paths_is_refused():

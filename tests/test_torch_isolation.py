@@ -18,6 +18,7 @@ import pkgutil
 import shutil
 import subprocess
 import sys
+import tempfile
 from pathlib import Path
 
 import pytest
@@ -49,7 +50,7 @@ def _foreign(name: str) -> bool:
 
 def test_every_module_imports_without_jax_or_the_jax_package():
     mods = _modules()
-    assert "dlrover_tpu_torch.rl.scheduler" in mods and len(mods) >= 26
+    assert "dlrover_tpu_torch.rl.scheduler" in mods and len(mods) >= 60
     for m in ("ops.flash_attention", "ops.quantization", "optimizers.agd",
               "optimizers.low_bit",
               "parallel.train_step", "accelerate.api", "trainer.trainer",
@@ -60,7 +61,21 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "observability.metrics", "trainer.checkpoint.engine",
               "trainer.checkpoint.reshard",
               "trainer.checkpoint.checkpointer",
-              "trainer.checkpoint.dcp_interop"):
+              "trainer.checkpoint.dcp_interop",
+              # the elastic launch
+              "run", "common.comm", "common.messages", "common.node",
+              "common.global_context", "common.singleton",
+              "common.constants", "common.env", "master.master",
+              "master.main", "master.servicer", "master.rendezvous",
+              "master.net_topology", "master.kv_store",
+              "master.job_manager", "master.status_flow",
+              "master.error_monitor", "master.node_managers",
+              "master.speed_monitor", "master.shard.task_manager",
+              "master.shard.dataset_manager",
+              "master.shard.dataset_splitter", "agent.master_client",
+              "agent.training", "agent.monitor", "trainer.elastic_run",
+              "trainer.drain", "trainer.fault_tolerance",
+              "trainer.elastic.context", "trainer.elastic.trainer"):
         assert f"dlrover_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -89,8 +104,13 @@ def _imports(path: Path):
 
 
 def test_source_scan_finds_no_foreign_import():
-    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) >= 27
+    files = (sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "scripts").glob("torch_*.py")))
+    assert len(files) >= 60
+    for sub in ("master", "agent", "common", "trainer"):
+        assert any(f.parent.name == sub or sub in f.parent.parts
+                   for f in files)
+    assert PKG / "run.py" in files
     bad = [(str(f.relative_to(REPO)), name)
            for f in files for name in _imports(f) if _foreign(name)]
     assert bad == []
@@ -428,3 +448,39 @@ def test_checkpoint_namespace_is_the_ports_own(monkeypatch):
         assert (getattr(constants.CheckpointConstant, name)
                 == getattr(jconst.CheckpointConstant, name))
     assert ckpt_shm._HDR.format == jshm._HDR.format
+
+
+def test_socket_paths_fit_af_unix_whatever_the_temp_dir(monkeypatch):
+    """The saver's and the agent's AF_UNIX sockets live in the port's
+    socket dir, not under pytest's ``--basetemp`` (xdist's
+    ``/tmp/pytest-of-<user>/pytest-NN/popen-gwN/...`` pushed paths past
+    107 bytes): the longest name the checkpoint path makes fits in the
+    default dir and in the short dirs the tests make."""
+    from dlrover_tpu_torch.agent.ckpt_saver import EVENT_QUEUE, FACTORY_QUEUE
+    from dlrover_tpu_torch.common import multi_process
+
+    monkeypatch.delenv(multi_process.SOCKET_DIR_ENV, raising=False)
+    name = "d" + "f" * 8  # CheckpointEngine's name for a checkpoint dir
+    longest = max((f"dict_ckpt_meta_{name}_{1023}",
+                   f"queue_{EVENT_QUEUE}_{name}", f"queue_{FACTORY_QUEUE}",
+                   f"lock_ckpt_{name}_{1023}"), key=len)
+    assert len(multi_process._socket_path(longest)) < 100
+    short = tempfile.gettempdir()
+    base = short if len(short) <= 40 else "/tmp"
+    assert len(os.path.join(base, "dteXXXXXXXX", longest + ".sock")) < 100
+
+
+def test_a_worker_reuses_the_library_built_with_the_ptxas_report(
+        monkeypatch, tmp_path):
+    """``chip_smoke.py`` builds with ``-Xptxas -v``, which keys another
+    target: a worker the agent starts (no report) must load that
+    library, not compile every source again."""
+    monkeypatch.setenv(_build.BUILD_DIR_ENV, str(tmp_path))
+    assert _build._reusable("rms_norm", verbose=False) is None
+    verbose = _build._target("rms_norm", verbose=True)
+    verbose.write_bytes(b"")
+    assert _build._reusable("rms_norm", verbose=False) == verbose
+    plain = _build._target("rms_norm", verbose=False)
+    plain.write_bytes(b"")
+    assert _build._reusable("rms_norm", verbose=False) == plain
+    assert _build._reusable("rms_norm", verbose=True) == verbose
