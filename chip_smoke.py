@@ -116,21 +116,34 @@ Phases (any failed check raises, so the script exits nonzero):
    snapshot every step and no persist before the last step.
    The worker SIGKILLs itself after step 3's snapshot is in shm; the
    agent restarts it, and the restart restores step 3 from the agent's
-   segment and trains steps 4-6.  Their losses, grad norms and every
+   segment and trains steps 4-6.  Run 1 launches with ``--prefork
+   --network_check`` and the restart overlap on (the default); the
+   agents' preemption watchers (on by default) poll a stand-in metadata
+   server on localhost.  Its steps 4-6 (losses, grad norms) and every
    state leaf (digests) must equal the checkpoint leg's run A at this
-   depth and 6 steps (uninterrupted, in this process) bit for bit, the
-   restarted worker must launch B1, its
-   backward and B2-B4 and compile nothing, and the launcher must leave
-   no process and no segment behind.  A second run flips the last byte
-   of one leaf in the agent's slot before the restart: the leaf
-   comparison must see it.  Printed with the card's name and power
-   limit: the free card memory before the launch, the restart's legs on
-   the host clock (worker exit, agent notices, its flush of shm to disk,
-   rendezvous, process start, ``import torch`` and the CUDA context,
-   the kernels' libraries, params, restore with its GB/s, first step)
-   and the restarted worker's step times on the card's clock.  The
-   training rows of the kernels line carry the restarted worker's
-   counts as ``elastic_launches``.
+   depth and 6 steps (uninterrupted, in this process) bit for bit; both
+   incarnations must have been forked by the agent's zygote, with torch
+   imported and CUDA not initialised at their first line; the restarted
+   worker must have restored through the prefetch (``restart_path``
+   holding a ``restore_prefetch`` of the state's bytes, and a
+   ``finish_restore``), its prefetch window overlapping ``init_state``;
+   the node check must have run on the card before both rendezvous (its
+   matmul and all-reduce times printed) with a normal master verdict;
+   no preemption event may fire; the restarted worker must launch B1,
+   its backward and B2-B4 and compile nothing, and the launcher must
+   leave no process and no segment behind.  Run 2 launches with plain
+   spawns and ``--no_restart_overlap`` and flips the last byte of one
+   leaf in the agent's slot before the restart: the leaf comparison
+   must see it, and the zygote and overlap checks must call it "not
+   forked" and "serial".  Printed with the card's name and power limit:
+   the free card memory before the launch, both restarts' legs side by
+   side on the host clock (worker exit, agent notices, its flush of shm
+   to disk, the node check, rendezvous, spawn -> entry, ``import
+   torch``, the CUDA context, the kernels' libraries, imports,
+   ``auto_accelerate``, ``init_state``, the restore, the first step; the
+   prefetch's window and GB/s) and the restarted worker's step times on
+   the card's clock.  The training rows of the kernels line carry run
+   1's restarted worker's counts as ``elastic_launches``.
 8. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -3230,14 +3243,15 @@ def elastic_model_args(L):
             "--seq", "2048", "--repeat_batch"]
 
 
-def elastic_run(name, root, model_args, env, fault: bool,
+def elastic_run(name, root, model_args, env, fault: bool, flags=(),
                 timeout: float = 900.0):
     """One ``python -m dlrover_tpu_torch.run`` of the example with
-    ``model_args`` whose worker SIGKILLs itself after step
-    ``ELASTIC_CRASH_STEP``; with ``fault`` the last byte of
-    ``ELASTIC_FAULT_LEAF`` is flipped in the agent's slot before the
-    restart.  Returns the two incarnations' reports, the events and the
-    wall seconds; the launcher's output goes to ``chiprun_out/``."""
+    ``model_args`` (and the launcher's ``flags``) whose worker SIGKILLs
+    itself after step ``ELASTIC_CRASH_STEP``; with ``fault`` the last
+    byte of ``ELASTIC_FAULT_LEAF`` is flipped in the agent's slot before
+    the restart.  Returns the two incarnations' reports, the events, the
+    launcher's output and the wall seconds; the output is also kept in a
+    log file of the checkout's output directory."""
     import shutil
 
     from dlrover_tpu_torch.observability.events import read_events
@@ -3248,7 +3262,7 @@ def elastic_run(name, root, model_args, env, fault: bool,
     events = os.path.join(run_dir, "events.jsonl")
     cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--nnodes=1",
            "--nproc_per_node=1", "--max-restarts=1", "--monitor_interval=0.5",
-           f"--events_file={events}",
+           f"--events_file={events}", *flags,
            "-m", "dlrover_tpu_torch.examples.llama_pretrain", *model_args,
            "--steps", str(ELASTIC_STEPS), "--ckpt_dir", ckpt,
            "--save_memory_interval", "1",
@@ -3283,17 +3297,18 @@ def elastic_run(name, root, model_args, env, fault: bool,
             if proc.poll() is None:
                 os.killpg(proc.pid, 9)
                 proc.wait()
-            # the launcher's master, agent, workers and their helpers
-            # (the resource tracker outlives its parent by a moment):
-            # nothing may be left holding the card
+            # the launcher's master, agent, zygote, workers and their
+            # helpers (the resource tracker outlives its parent by a
+            # moment): nothing may be left holding the card
             left = _session_left(proc.pid)
             if left:
                 os.killpg(proc.pid, 9)
     wall = time.time() - t0
     with open(log_path) as f:
-        tail = f.read()[-3000:]
+        output = f.read()
     require(proc.returncode == 0,
-            f"{name}: the launcher exited {proc.returncode}:\n{tail}")
+            f"{name}: the launcher exited {proc.returncode}:\n"
+            f"{output[-3000:]}")
     require(not left, f"{name}: the launcher left processes behind: {left}")
     if fault:
         require(flipped == ELASTIC_CRASH_STEP,
@@ -3304,7 +3319,8 @@ def elastic_run(name, root, model_args, env, fault: bool,
     inc1 = _read_json(os.path.join(rep, "rank0_inc1.json"))
     evs = read_events(events)
     shutil.rmtree(run_dir, ignore_errors=True)  # ~45 GB of checkpoints
-    return {"inc0": inc0, "inc1": inc1, "events": evs, "wall": wall}
+    return {"inc0": inc0, "inc1": inc1, "events": evs, "wall": wall,
+            "output": output}
 
 
 def _span_walls(evs, name, ph, inc):
@@ -3312,9 +3328,119 @@ def _span_walls(evs, name, ph, inc):
             if e["name"] == name and e["ph"] == ph and e.get("inc") == inc]
 
 
-def restart_breakdown(r, card):
-    """The restart's legs on the host clock, from the crashed worker's
-    report, the agent's spans and the restarted worker's marks."""
+class StandInMetadata:
+    """A metadata server on this machine, answering as an idle cloud VM
+    does (maintenance-event ``NONE``, preempted ``FALSE``), so that the
+    agents' preemption watchers poll a real endpoint and no request
+    leaves the machine.  Counts the requests it answered."""
+
+    def __init__(self):
+        import http.server
+        import threading
+
+        owner = self
+        self.requests = []
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                owner.requests.append(self.path)
+                body = (b"FALSE" if self.path.endswith("preempted")
+                        else b"NONE")
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *args):
+                pass
+
+        self._srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                    Handler)
+        self.base = (f"http://127.0.0.1:{self._srv.server_address[1]}"
+                     "/computeMetadata/v1/instance/")
+        self._thread = threading.Thread(target=self._srv.serve_forever,
+                                        daemon=True)
+        self._thread.start()
+
+    def close(self):
+        self._srv.shutdown()
+        self._srv.server_close()
+
+
+def zygote_verdict(r):
+    """(ok, reading): every incarnation was forked by the agent's zygote,
+    found torch imported and CUDA not initialised at its first line, and
+    the agent fell back to a plain spawn nowhere."""
+    entries = [r["inc0"]["entry"], r["inc1"]["entry"]]
+    ok = (all(e["spawn"] == "zygote" and e["torch_preloaded"]
+              and not e["cuda_initialized"] for e in entries)
+          and "plain spawn" not in r["output"])
+    reading = "; ".join(
+        f"inc{i}: {e['spawn'] or '?'}, torch "
+        f"{'preloaded' if e['torch_preloaded'] else 'not imported'}, CUDA "
+        f"{'initialised' if e['cuda_initialized'] else 'not initialised'}"
+        for i, e in enumerate(entries))
+    return ok, reading
+
+
+def overlap_verdict(r, state_bytes: int):
+    """(ok, reading): the restarted worker restored through the prefetch:
+    its ``restart_path`` span holds a ``restore_prefetch`` of the state's
+    bytes and a ``finish_restore``, and the prefetch's window overlaps
+    ``init_state``'s."""
+    inc1 = r["inc1"]
+    m = inc1["marks"]
+    mine = [e for e in r["events"] if e.get("pid") == inc1["pid"]]
+    path_b = [e["wall"] for e in mine
+              if e["name"] == "restart_path" and e["ph"] == "B"]
+    path_e = [e["wall"] for e in mine
+              if e["name"] == "restart_path" and e["ph"] == "E"]
+    pre = [e for e in mine if e["name"] == "restore_prefetch"]
+    fin = [e for e in mine if e["name"] == "finish_restore"]
+    if not (path_b and path_e and pre and fin):
+        return False, (f"serial: restart_path {len(path_b)}/{len(path_e)}, "
+                       f"restore_prefetch {len(pre)}, finish_restore "
+                       f"{len(fin)} spans")
+    p = pre[0]
+    nbytes = p["labels"]["bytes"]
+    inside = path_b[0] <= p["wall"] and p["wall"] + p["dur"] <= path_e[0]
+    lo = max(m["prefetch_start"], m["state_build_start"])
+    hi = min(m["prefetch_end"], m["state_built"])
+    ok = nbytes == state_bytes and inside and hi > lo and bool(fin)
+    return ok, (f"restart_path contains restore_prefetch: {inside}; "
+                f"staged {nbytes} B (state {state_bytes} B); "
+                f"finish_restore {fin[0]['dur']:.3f} s; prefetch window "
+                f"{m['prefetch_end'] - m['prefetch_start']:.3f} s overlaps "
+                f"init_state by {max(hi - lo, 0.0):.3f} s")
+
+
+#: a restart's legs: (label, where its end is read) in order; "mark:"
+#: reads the restarted worker's report, the rest the agent's events
+RESTART_LEGS = (
+    ("agent notices", "notice"),
+    ("agent's flush of shm to disk", "flush"),
+    ("node check", "node_check"),
+    ("rendezvous", "rendezvous"),
+    ("spawn requested", "mark:spawned"),
+    ("fork/exec -> entry", "mark:process_start"),
+    ("import torch", "mark:torch_imported"),
+    ("the CUDA context", "mark:cuda_context"),
+    ("kernels' .so loaded", "mark:kernels_loaded"),
+    ("the port's modules imported", "mark:modules_imported"),
+    ("auto_accelerate", "mark:accelerated"),
+    ("Trainer built (prefetch started)", "mark:trainer_built"),
+    ("-> init_state starts", "mark:state_build_start"),
+    ("init_state", "mark:state_built"),
+    ("restore (finish_restore or serial load)", "mark:restore_done"),
+    ("prealloc check, snapshot buffers", "mark:restored"),
+    ("first step", "mark:first_step_done"),
+)
+
+
+def restart_legs(r):
+    """{leg: seconds} of a restart on the host clock, each from the leg
+    before it, starting at the crashed worker's exit; "total" and the
+    prefetch's window and rate."""
     inc0, inc1, evs = r["inc0"], r["inc1"], r["events"]
     m = inc1["marks"]
     # a span's end carries its writer's incarnation, not the label its
@@ -3327,37 +3453,67 @@ def restart_breakdown(r, card):
     flush = [e for e in evs if e["name"] == "checkpoint_save"
              and e.get("labels", {}).get("stage") == "persist"
              and notice <= e["wall"] <= rdzv_done]
-    legs = [("worker exit", inc0["crashed_at"]),
-            ("agent notices", notice)]
+    checks = [e["wall"] for e in evs if e["name"] == "node_check"
+              and e["ph"] == "E" and notice <= e["wall"] <= rdzv_done]
+    at = {"notice": notice, "rendezvous": rdzv_done}
     if flush:
-        legs.append(("shm flushed to disk (agent)",
-                     flush[-1]["wall"] + flush[-1]["dur"]))
-    legs.append(("rendezvous done", rdzv_done))
-    for label, key in (("worker process started", "process_start"),
-                       ("import torch", "torch_imported"),
-                       ("the CUDA context", "cuda_context"),
-                       ("kernels' .so loaded", "kernels_loaded"),
-                       ("the port's modules imported", "modules_imported"),
-                       ("auto_accelerate", "accelerated"),
-                       ("Trainer and its engine built", "trainer_built"),
-                       ("params built", "state_built"),
-                       ("restore done", "restored"),
-                       ("first step done", "first_step_done")):
-        if key in m:  # a CPU worker has no CUDA context and no kernels
-            legs.append((label, m[key]))
-    restore = next(x for x in inc1["io_log"] if x[0] == "restore_shm")
-    parts = []
-    for (a, ta), (b, tb) in zip(legs, legs[1:]):
-        extra = ""
-        if b == "restore done":
-            extra = (f" ({restore[2] / 1e9:.3f} GB at "
-                     f"{restore[2] / 1e9 / restore[3]:.3f} GB/s)")
-        parts.append(f"{a} -> {b} {tb - ta:.3f} s{extra}")
-    total = legs[-1][1] - legs[0][1]
-    log(f"[elastic] {card} | restart breakdown (host clock): "
-        + "; ".join(parts) + f"; worker exit -> first step done {total:.3f} s")
-    return {"legs": [(b, tb - ta) for (a, ta), (b, tb)
-                     in zip(legs, legs[1:])], "total_s": total}
+        at["flush"] = flush[-1]["wall"] + flush[-1]["dur"]
+    if checks:
+        at["node_check"] = checks[-1]
+    legs, prev = {}, inc0["crashed_at"]
+    for label, key in RESTART_LEGS:
+        t = m.get(key[5:]) if key.startswith("mark:") else at.get(key)
+        if t is None:  # a CPU worker has no CUDA context; no node check
+            continue
+        legs[label] = t - prev
+        prev = t
+    legs["total"] = prev - inc0["crashed_at"]
+    if "prefetch_start" in m:
+        window = m["prefetch_end"] - m["prefetch_start"]
+        staged = [e["labels"] for e in evs
+                  if e["name"] == "restore_prefetch"
+                  and e.get("pid") == inc1["pid"]]
+        legs["prefetch window"] = window
+        if staged:
+            legs["prefetch GB/s"] = staged[0]["bytes"] / 1e9 / window
+            legs["prefetch: allocating on the card"] = staged[0]["alloc_s"]
+            legs["prefetch: preadv -> card"] = staged[0]["copy_s"]
+    restore = inc1["io_log"][0]
+    legs["restore GB/s (bytes over restore)"] = (
+        restore[2] / 1e9 / legs["restore (finish_restore or serial load)"])
+    return legs
+
+
+def print_restart_legs(card, runs):
+    """The restart legs of ``runs`` ({name: result}) side by side."""
+    legs = {name: restart_legs(r) for name, r in runs.items()}
+    names = list(runs)
+    log(f"[elastic] {card} | restart legs (host clock, seconds; "
+        f"{' | '.join(names)}):")
+    order = [label for label, _ in RESTART_LEGS] + [
+        "total", "prefetch window", "prefetch GB/s",
+        "prefetch: allocating on the card", "prefetch: preadv -> card",
+        "restore GB/s (bytes over restore)"]
+    for label in order:
+        vals = [legs[n].get(label) for n in names]
+        if all(v is None for v in vals):
+            continue
+        log(f"[elastic]   {label}: " + " | ".join(
+            "-" if v is None else f"{v:.3f}" for v in vals))
+    return legs
+
+
+def node_check_reading(output: str, kind: str):
+    """(ok, lines): the launcher's node checks ran on the card and the
+    master found no fault, before both rendezvous."""
+    passed = [ln.split("] ", 3)[-1] for ln in output.splitlines()
+              if "node check passed in" in ln]
+    verdicts = [ln.split("] ", 3)[-1] for ln in output.splitlines()
+                if "master verdict:" in ln]
+    ok = (len(passed) == 2 and all(kind in ln for ln in passed)
+          and len(verdicts) == 2
+          and all("fault nodes [] (normal)" in v for v in verdicts))
+    return ok, passed + verdicts
 
 
 def elastic_path(args):
@@ -3370,6 +3526,7 @@ def elastic_path(args):
     from dlrover_tpu_torch.models import llama
 
     card = smi_line()
+    kind = torch.cuda.get_device_name(0)
     shm_free = shutil.disk_usage("/dev/shm").free
     ram = _mem_available()
     room = min(shm_free, ram) / 2
@@ -3379,10 +3536,11 @@ def elastic_path(args):
     require(L is not None, f"two slots of even {ELASTIC_DEPTHS[-1]} layers "
             f"exceed {room / 1e9:.2f} GB")
     cfg = llama.LlamaConfig.llama2_7b(n_layers=L)
+    state_bytes = _state_bytes(cfg, False)
     log(f"[elastic] {_space('/dev/shm')}; MemAvailable {ram / 1e9:.2f} GB; "
         f"Llama-2-7B widths cut to {L} layers (of 32), the largest of "
         f"{ELASTIC_DEPTHS} whose two shm slots "
-        f"({2 * _state_bytes(cfg, False) / 1e9:.2f} GB) fit in half of "
+        f"({2 * state_bytes / 1e9:.2f} GB) fit in half of "
         f"min(free /dev/shm, MemAvailable) = {room / 1e9:.2f} GB")
     # the example's --repeat_batch: its stream's first batch
     tokens = np.random.default_rng(SEED).integers(
@@ -3398,20 +3556,28 @@ def elastic_path(args):
         f"{total / 1e9:.2f} GB before the launch")
     # the worker holds the state, its snapshot buffers ("copy"), the
     # grads and the activations: ~2.5 times the state at this width
-    require(free >= 2.5 * _state_bytes(cfg, False),
+    require(free >= 2.5 * state_bytes,
             f"{free / 1e9:.2f} GB free on the card: the worker needs "
-            f"{2.5 * _state_bytes(cfg, False) / 1e9:.2f} GB")
+            f"{2.5 * state_bytes / 1e9:.2f} GB")
 
     repo = os.path.dirname(os.path.abspath(__file__))
     root = os.path.join(repo, "build", f"elastic_smoke_{os.getpid()}")
     sock = tempfile.mkdtemp(prefix="dte", dir="/tmp")
+    metadata = StandInMetadata()
     env = dict(os.environ)
     env[multi_process.SOCKET_DIR_ENV] = sock
     env["PYTHONPATH"] = repo + os.pathsep + env.get("PYTHONPATH", "")
+    # the preemption watcher (on by default) polls the stand-in, each
+    # second
+    env["DLROVER_TPU_METADATA_BASE"] = metadata.base
+    env["DLROVER_TPU_PREEMPTION_POLL"] = "1"
     os.environ[multi_process.SOCKET_DIR_ENV] = sock  # flip_last_byte's
     try:
+        # run 1: the workers forked from the agent's zygote, the node
+        # check before each rendezvous, the restore overlapped
         r = elastic_run("crash", root, elastic_model_args(L), env,
-                        fault=False)
+                        fault=False, flags=("--prefork", "--network_check"))
+        polls = len(metadata.requests)
         inc0, inc1 = r["inc0"], r["inc1"]
         hist = [(h["step"], h["loss"], h["grad_norm"])
                 for h in inc1["history"]]
@@ -3438,29 +3604,62 @@ def elastic_path(args):
                 f"the restarted worker launched none of some of "
                 f"{ELASTIC_KERNELS}: {counts}")
         require(not inc1["compiled"], "the restarted worker ran nvcc")
+        zy_ok, zy = zygote_verdict(r)
+        log(f"[elastic] crash: zygote: {zy}")
+        require(zy_ok, f"a worker of the --prefork run was not forked by "
+                f"the zygote: {zy}")
+        ov_ok, ov = overlap_verdict(r, state_bytes)
+        log(f"[elastic] crash: overlap: {ov}")
+        require(ov_ok, f"the restart did not restore through the prefetch "
+                f"beside init_state: {ov}")
+        nc_ok, nc = node_check_reading(r["output"], kind)
+        for line in nc:
+            log(f"[elastic] {card} | crash: {line}")
+        require(nc_ok, "the node check did not pass on the card with a "
+                "normal master verdict before both rendezvous")
+        preempt = [e for e in r["events"] if e["name"] in (
+            "preemption_signal", "preemption_drain")]
+        log(f"[elastic] crash: the preemption watcher polled the stand-in "
+            f"metadata server {polls} times (idle answers); preemption "
+            f"events {len(preempt)}")
+        require(polls > 0 and not preempt,
+                f"preemption watcher: {polls} polls, events {preempt[:2]}")
         steps = [round(1e3 * h["step_time_s"], 3) for h in inc1["history"]]
         log(f"[elastic] {card} | restarted worker's steps 4-6 on the card's "
             f"clock: {steps} ms (step 4 includes the first step's set-up)")
-        breakdown = restart_breakdown(r, card)
         log(f"[elastic] crash run wall {r['wall']:.3f} s")
 
+        # run 2: plain spawns and the serial restore, with a byte flipped
+        # in the agent's slot: the planted fault of the leaf comparison,
+        # and of the zygote and overlap checks
         f = elastic_run("fault", root, elastic_model_args(L), env,
-                        fault=True)
+                        fault=True, flags=("--no_restart_overlap",))
         fbad = sorted(k for k in dig_ref if f["inc1"]["digests"].get(k)
                       != dig_ref[k])
         log(f"[elastic] planted fault, the last byte of {ELASTIC_FAULT_LEAF} "
             f"flipped in the agent's slot: differing leaves at step "
             f"{ELASTIC_STEPS} {len(fbad)} of {len(dig_ref)} ({fbad[:4]})")
         require(fbad, "the leaf comparison does not see a flipped byte")
+        fzy_ok, fzy = zygote_verdict(f)
+        fov_ok, fov = overlap_verdict(f, state_bytes)
+        log(f"[elastic] fault run (no --prefork, --no_restart_overlap): "
+            f"zygote check says {'forked' if fzy_ok else 'not forked'} "
+            f"({fzy}); overlap check says "
+            f"{'overlapped' if fov_ok else 'serial'} ({fov})")
+        require(not fzy_ok and not fov_ok,
+                "the zygote or overlap check passes a plain, serial run")
         log(f"[elastic] fault run wall {f['wall']:.3f} s")
+        legs = print_restart_legs(card, {
+            "run 1 (zygote, overlap)": r, "run 2 (plain, serial)": f})
     finally:
+        metadata.close()
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(sock, ignore_errors=True)
         os.environ.pop(multi_process.SOCKET_DIR_ENV, None)
-    log("[elastic] the worker killed after step 3 was restarted by the "
-        "agent, restored step 3 from the agent's shm and ended equal bit "
-        "for bit to the uninterrupted run")
-    return {"launches": inc1["launches"], "breakdown": breakdown}
+    log("[elastic] the worker killed after step 3 was forked again from "
+        "the agent's zygote, restored step 3 through the prefetch and "
+        "ended equal bit for bit to the uninterrupted run")
+    return {"launches": inc1["launches"], "legs": legs}
 
 
 def main() -> int:

@@ -34,8 +34,12 @@ What changed against the reference, where it touched ``jax``:
 - ``load_state`` hands back CPU tensors viewing the segment (or one
   private copy); ``restore_to_target`` copies them into the target's
   tensors in place, CUDA ones through the same bounce buffers.
+- ``slot_file`` and ``file_to_device`` (new) read a slot with
+  ``preadv`` into the bounce buffers and on to the card, mapping none of
+  the segment's pages (the restart's restore prefetch).
 """
 
+import os
 import pickle
 import struct
 import threading
@@ -61,6 +65,8 @@ from dlrover_tpu_torch.models.convert import (
 )
 
 SHM_PREFIX = "dlrover_tpu_torch_ckpt"
+#: where Linux keeps POSIX shared memory segments as files
+SHM_DIR = "/dev/shm"
 _HDR = struct.Struct("<Q")
 #: generation side-segment payload: published step + 1 (0 = none)
 _GEN = struct.Struct("<q")
@@ -272,6 +278,51 @@ def host_to_device(pieces):
         torch.cuda.current_stream(b.device).wait_stream(b.stream)
 
 
+class FileRange:
+    """``nbytes`` bytes of the open file ``fd`` at ``offset``; sliced
+    like a flat uint8 array, so that ``_batches`` cuts it as it cuts a
+    host buffer."""
+
+    def __init__(self, fd: int, offset: int, nbytes: int):
+        self.fd, self.offset, self.nbytes = fd, offset, nbytes
+
+    def __getitem__(self, s: slice) -> "FileRange":
+        start, stop, _ = s.indices(self.nbytes)
+        return FileRange(self.fd, self.offset + start, stop - start)
+
+
+def file_to_device(pieces):
+    """Copy each ``(device u8 tensor, FileRange)`` pair file -> device
+    through the bounce buffers, each filled by ``parallel_pread``: batch
+    k+1 is read while batch k crosses.  Reading a shared-memory
+    segment's file maps none of its pages into this process, so the
+    bytes come at the copy rate rather than at a fresh mapping's
+    first-touch fault rate (``PERF.md``).  The copy stream first waits
+    for the current stream (whatever allocated or last wrote the
+    targets); returns once the bytes are on the card.  The current
+    stream is not made to wait: the caller hands the targets on."""
+    if not pieces:
+        return
+    b = _bounce(pieces[0][0].device)
+    with b.lock:
+        b.stream.wait_stream(torch.cuda.current_stream(b.device))
+        events = [None, None]
+        for i, batch in enumerate(_batches(pieces, b.nbytes)):
+            j = i % 2
+            if events[j] is not None:
+                events[j].synchronize()
+            for _dst, src, at in batch:
+                parallel_io.parallel_pread(
+                    src.fd, b.host[j][at:at + src.nbytes], src.offset)
+            with torch.cuda.stream(b.stream):
+                for dst, _src, at in batch:
+                    dst.copy_(b.bufs[j][at:at + dst.numel()],
+                              non_blocking=True)
+                events[j] = torch.cuda.Event()
+                events[j].record(b.stream)
+        b.stream.synchronize()
+
+
 def _as_tensor(value) -> torch.Tensor:
     if torch.is_tensor(value):
         return value
@@ -289,32 +340,57 @@ def restore_to_target(target, arrays: Dict[str, torch.Tensor],
     may be dropped.  ``copy_host=True`` copies values that stay on the
     host (required when ``arrays`` views live shm)."""
     leaves = _target_leaves(target)
-    device_pieces = []
+    missing = [key for key, _leaf in leaves if key not in arrays]
+    if missing:
+        raise KeyError(f"checkpoint missing leaf {missing[0]}")
+    return restore_batches_to_target(
+        target, [[(key, arrays[key]) for key, _leaf in leaves]], copy_host)
+
+
+def restore_batches_to_target(target, batches, copy_host: bool = False):
+    """``restore_to_target`` over leaves that arrive in batches (lists of
+    ``(keypath, CPU tensor)``, the restore prefetch's leaves as their
+    pages land): each batch's CUDA leaves cross in one ``host_to_device``
+    before the next batch is awaited.  Keys the target lacks are
+    ignored; a target leaf no batch brought raises ``KeyError`` at the
+    end."""
+    slots = dict(_target_leaves(target))
     replaced = {}
-    for key, leaf in leaves:
-        if key not in arrays:
-            raise KeyError(f"checkpoint missing leaf {key}")
-        value = _as_tensor(arrays[key])
-        if isinstance(leaf, HostScalar):
-            leaf.set(value.item())
-            continue
-        if not torch.is_tensor(leaf):
-            replaced[key] = value.clone() if copy_host else value
-            continue
-        if tuple(value.shape) != tuple(leaf.shape):
-            raise ValueError(
-                f"leaf {key}: checkpoint shape {tuple(value.shape)} != "
-                f"target {tuple(leaf.shape)}")
-        if value.dtype != leaf.dtype:
-            value = value.to(leaf.dtype)
-        if leaf.device.type == "cuda":
-            if not leaf.is_contiguous():
-                raise ValueError(f"leaf {key}: target is not contiguous")
-            device_pieces.append((_u8(leaf), _u8(value).numpy()))
-        else:
-            with torch.no_grad():
-                leaf.copy_(value)
-    host_to_device(device_pieces)
+    seen = set()
+    for batch in batches:
+        device_pieces = []
+        for key, value in batch:
+            leaf = slots.get(key)
+            if leaf is None:
+                continue
+            seen.add(key)
+            value = _as_tensor(value)
+            if isinstance(leaf, HostScalar):
+                leaf.set(value.item())
+                continue
+            if not torch.is_tensor(leaf):
+                replaced[key] = value.clone() if copy_host else value
+                continue
+            if tuple(value.shape) != tuple(leaf.shape):
+                raise ValueError(
+                    f"leaf {key}: checkpoint shape {tuple(value.shape)} "
+                    f"!= target {tuple(leaf.shape)}")
+            if value.dtype != leaf.dtype:
+                value = value.to(leaf.dtype)
+            if leaf.device.type == "cuda" and value.device.type == "cpu":
+                if not leaf.is_contiguous():
+                    raise ValueError(
+                        f"leaf {key}: target is not contiguous")
+                device_pieces.append((_u8(leaf), _u8(value).numpy()))
+            else:
+                # host to host, or a leaf the restore prefetch already
+                # staged on the card: a copy on the current stream
+                with torch.no_grad():
+                    leaf.copy_(value)
+        host_to_device(device_pieces)
+    missing = sorted(set(slots) - seen)
+    if missing:
+        raise KeyError(f"checkpoint missing leaf {missing[0]}")
     if is_train_state(target):
         return target
     return _rebuild(target, replaced)
@@ -602,6 +678,18 @@ class SharedMemoryHandler:
             return None
         return {key: tuple(int(d) for d in shape)
                 for key, _dt, shape, _off, _nb in slot["specs"]}
+
+    def slot_file(self, step: Optional[int] = None):
+        """``(path, step, base, specs)`` of the slot holding ``step``
+        (None = newest), or None: the segment's file, for a reader that
+        ``preadv``s the slot (``file_to_device``) and maps none of its
+        pages."""
+        slot = self._resolve_slot(self.meta.get_all(), step)
+        if slot is None:
+            return None
+        return (os.path.join(SHM_DIR, self._shm_name),
+                int(slot.get("step", -1)), int(slot.get("base", 0)),
+                slot["specs"])
 
     def load_state(self, copy: bool = True, step: Optional[int] = None
                    ) -> Tuple[int, Dict[str, torch.Tensor]]:

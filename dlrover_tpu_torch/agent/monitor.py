@@ -1,19 +1,48 @@
-"""Agent-side reporters: the periodic loop and the timeline shipper.
+"""Agent-side monitors: node resources, heartbeat, training progress,
+and the timeline shipper.
 
-Copy of ``PeriodicReporter`` and ``TimelineReporter`` from
-``dlrover_tpu/agent/monitor.py``, the two classes the agent runs.  The
-resource, heartbeat and training-progress monitors come with the slice
-that gives them a caller (ROADMAP A3c).
+Copy of ``dlrover_tpu/agent/monitor.py``.  Reference parity:
+``dlrover/python/elastic_agent/monitor/resource.py:86``
+(``ResourceMonitor``: psutil CPU/mem + per-accelerator stats reported to
+the master) and ``monitor/training.py:77`` (``TorchTrainingMonitor``:
+global step read from a file the training process writes).  The card's
+stats come from the training process, which holds the card: its
+``ElasticTrainer`` writes the memory in use (``torch.cuda``) to the file
+``ResourceMonitor`` reads (``DLROVER_TPU_CHIP_STATS_FILE``; here also a
+directory of them, one a worker), and the agent aggregates host-level
+stats.  The agent runs all four (``agent/training.py``); the reference
+defines the first three and starts none.  ``psutil`` stays optional.
 """
 
+import glob
 import json
 import os
 import threading
-from typing import Optional
+import time
+from typing import List, Optional
 
 from dlrover_tpu_torch.agent.master_client import MasterClient, ReportBuffer
 from dlrover_tpu_torch.common import messages as msg
 from dlrover_tpu_torch.common.log import default_logger as logger
+
+try:
+    import psutil
+except ImportError:  # pragma: no cover
+    psutil = None
+
+CHIP_STATS_ENV = "DLROVER_TPU_CHIP_STATS_FILE"
+
+
+def get_process_cpu_percent() -> float:
+    if psutil is None:
+        return 0.0
+    return psutil.cpu_percent(interval=None)
+
+
+def get_used_memory_mb() -> int:
+    if psutil is None:
+        return 0
+    return int(psutil.virtual_memory().used / 1024 / 1024)
 
 
 class PeriodicReporter:
@@ -67,6 +96,99 @@ class PeriodicReporter:
 
     def stop(self):
         self._stopped.set()
+
+
+class ResourceMonitor(PeriodicReporter):
+    """Periodically reports host CPU/memory (+ the workers' card stats)
+    to the master; feeds the autoscaler / resource optimizer."""
+
+    name = "resource-monitor"
+
+    def __init__(
+        self,
+        client: Optional[MasterClient] = None,
+        interval: float = 15.0,
+        chip_stats_file: str = "",
+        buffer: Optional[ReportBuffer] = None,
+    ):
+        super().__init__(client, interval, buffer=buffer)
+        self._chip_stats_file = chip_stats_file or os.getenv(
+            CHIP_STATS_ENV, ""
+        )
+
+    def _read_chip_stats(self) -> List[dict]:
+        """Card stats dropped by the training processes (device memory
+        in use): one JSON file, or a directory of ``*.json`` files (one
+        a worker), each a dict or a list of them."""
+        path = self._chip_stats_file
+        if not path or not os.path.exists(path):
+            return []
+        files = (sorted(glob.glob(os.path.join(path, "*.json")))
+                 if os.path.isdir(path) else [path])
+        out: List[dict] = []
+        for name in files:
+            try:
+                with open(name) as f:
+                    data = json.load(f)
+            except (OSError, ValueError):
+                continue
+            out.extend(data if isinstance(data, list) else [data])
+        return out
+
+    def _tick(self):
+        self._submit(
+            msg.ResourceStats(
+                cpu_percent=get_process_cpu_percent(),
+                memory_mb=get_used_memory_mb(),
+                tpu_stats=self._read_chip_stats(),
+            )
+        )
+
+
+class HeartbeatReporter(PeriodicReporter):
+    """Agent heartbeat so the master can detect dead nodes
+    (reference ``dist_job_manager.py:340`` heartbeat monitor)."""
+
+    name = "heartbeat"
+
+    def _tick(self):
+        self._submit(msg.HeartBeat(timestamp=time.time()))
+
+
+class TrainingMonitor(PeriodicReporter):
+    """Reports the training global step to the master's SpeedMonitor by
+    watching the step file the trainer writes (reference
+    ``TorchTrainingMonitor`` ``monitor/training.py:77``)."""
+
+    name = "training-monitor"
+
+    def __init__(
+        self,
+        step_file: str,
+        client: Optional[MasterClient] = None,
+        interval: float = 15.0,
+        buffer: Optional[ReportBuffer] = None,
+    ):
+        super().__init__(client, interval, buffer=buffer)
+        self._step_file = step_file
+        self._last_step = -1
+
+    def _tick(self):
+        if not os.path.exists(self._step_file):
+            return
+        try:
+            with open(self._step_file) as f:
+                data = json.load(f)
+            step = int(data.get("step", -1))
+            ts = float(data.get("timestamp", time.time()))
+        except (OSError, ValueError):
+            return
+        if step > self._last_step:
+            # report first: a ConnectionError must not advance
+            # _last_step or the step would never be re-reported (the
+            # buffered path re-queues undeliverable batches instead)
+            self._submit(msg.GlobalStep(step=step, timestamp=ts))
+            self._last_step = step
 
 
 class TimelineReporter(PeriodicReporter):

@@ -17,17 +17,30 @@ training processes, as the reference does on membership change
 build directory (``DLROVER_TPU_TORCH_BUILD_DIR``), so restarted workers
 load the ``.so`` files the first incarnation built.
 
-Not ported yet (ROADMAP A3c), and raising ``NotImplementedError`` when
-asked for: the zygote prefork (``prefork``), the preemption watcher
-(``watch_preemption``), the network check (``network_check``, ``agent/node_check.py``) and the
-deep-capture directive.  The SIGTERM drain is always installed (the
-port has no ``DLROVER_TPU_RESHARD`` switch).
+As in the reference, the agent can fork its workers from a zygote that
+imported torch and the port once (``prefork``, ``agent/zygote.py``),
+run a health check of the node's cards before each rendezvous
+(``network_check``, ``agent/node_check.py``), and watches the cloud
+metadata server for a maintenance event (``watch_preemption``, on by
+default, ``agent/preemption.py``), which drains, flushes and fences the
+node.  Workers restore through the overlapped restart path unless
+``restart_overlap`` is off (``DLROVER_TPU_RESTART_OVERLAP=0``).  Beyond
+the reference, the agent runs the resource, heartbeat and
+training-progress monitors (``agent/monitor.py``), which the reference
+defines and starts nowhere.  Not ported yet: the deep-capture directive
+(ROADMAP A3c.3), which the port's master never sends.  The SIGTERM
+drain is always installed (the port has no ``DLROVER_TPU_RESHARD``
+switch).
 """
 
+import json
 import os
+import shutil
 import signal
 import socket
 import subprocess
+import sys
+import tempfile
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
@@ -42,6 +55,7 @@ from dlrover_tpu_torch.common.constants import (
     TrainingExceptionLevel,
 )
 from dlrover_tpu_torch.common.env import (
+    RESTART_OVERLAP_ENV,
     control_longpoll_enabled,
     env_float,
     get_free_port,
@@ -49,6 +63,15 @@ from dlrover_tpu_torch.common.env import (
 )
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.observability.events import get_event_logger
+
+from dlrover_tpu_torch.agent.zygote import SPAWN_ENV
+
+#: when the agent spawned the worker (host clock; ``SPAWN_ENV`` says how)
+SPAWNED_AT_ENV = "DLROVER_TPU_SPAWNED_AT"
+#: the worker's step file (TrainingMonitor) and card stats
+#: (ResourceMonitor), in the agent's own directory
+STEP_FILE_ENV = "DLROVER_TPU_STEP_FILE"
+CHIP_STATS_ENV = "DLROVER_TPU_CHIP_STATS_FILE"
 
 
 @dataclass
@@ -84,7 +107,8 @@ class ElasticLaunchConfig:
     # nothing but recovery latency
     failure_stop_timeout: float = 1.0
     # fork restarted workers from a pre-imported zygote process
-    # (agent/zygote.py): not ported yet (A3c), True raises
+    # (agent/zygote.py): removes the import torch / torch._dynamo chain
+    # from every restart's critical path
     prefork: bool = False
     node_rank: int = field(
         default_factory=lambda: int(os.getenv(NodeEnv.NODE_RANK, "0"))
@@ -94,9 +118,14 @@ class ElasticLaunchConfig:
     # the kernels' build directory (DLROVER_TPU_TORCH_BUILD_DIR): a
     # restarted worker loads the .so files built before it
     compile_cache_dir: str = ""
-    # watch the GCE metadata maintenance-event endpoint
-    # (agent/preemption.py): not ported yet (A3c), True raises
-    watch_preemption: bool = False
+    # overlapped restart critical path in the workers (restore prefetch
+    # beside the state build, trainer/restart_path.py); False exports
+    # DLROVER_TPU_RESTART_OVERLAP=0 so every worker restores serially
+    restart_overlap: bool = True
+    # watch the cloud metadata maintenance-event endpoint: a maintenance
+    # or spot event fires there ~60s before any SIGTERM
+    # (agent/preemption.py)
+    watch_preemption: bool = True
 
     def auto_configure_params(self):
         """Fill nproc from local device count when unset (reference
@@ -235,6 +264,14 @@ class ElasticTrainingAgent:
         #: (timeline batches, heartbeats, metric samples); flushed
         #: before every rendezvous and drained on shutdown
         self._report_buffer: Optional[ReportBuffer] = None
+        #: the fork server workers are spawned from (``prefork``)
+        self._zygote = None
+        #: this agent's own directory for the workers' step file and
+        #: card stats (removed when the agent exits)
+        self._job_dir = ""
+        #: the last node check's timings ({"elapsed", "matmul_ms", ...}
+        #: of the slowest local process) and the master's verdict
+        self.node_check: Optional[dict] = None
 
     # ------------------------------------------------------------- workers
     def _rendezvous(self):
@@ -331,11 +368,22 @@ class ElasticTrainingAgent:
         if self._config.compile_cache_dir:
             env.setdefault(
                 NodeEnv.KERNEL_BUILD_DIR, self._config.compile_cache_dir)
+        if not self._config.restart_overlap:
+            env[RESTART_OVERLAP_ENV] = "0"
+        if self._job_dir:
+            env[STEP_FILE_ENV] = os.path.join(self._job_dir, "step.json")
+            env[CHIP_STATS_ENV] = os.path.join(self._job_dir, "cards")
+        # how and when the worker was spawned (a zygote child overrides
+        # the first): what a restart's breakdown starts from
+        env[SPAWN_ENV] = "plain"
+        env[SPAWNED_AT_ENV] = repr(time.time())
         return env
 
     def _initialize_workers(self) -> bool:
         """One rendezvous round + process spawn. Returns False when the
         master excluded this node."""
+        if self._config.network_check:
+            self._run_network_check()
         try:
             rdzv_round, world = self._rendezvous()
         except NodeExcludedError as e:
@@ -383,9 +431,12 @@ class ElasticTrainingAgent:
             env = self._worker_env(
                 rdzv_round, coordinator, world_size, process_rank, local_rank
             )
-            proc = subprocess.Popen(  # noqa: S603
-                self._entrypoint, env=env
-            )
+            if self._zygote is not None:
+                proc = self._zygote.spawn(self._entrypoint, env)
+            else:
+                proc = subprocess.Popen(  # noqa: S603
+                    self._entrypoint, env=env
+                )
             self._procs.append(proc)
         self._last_world_size = world_size
         return True
@@ -578,17 +629,131 @@ class ElasticTrainingAgent:
         except ConnectionError as e:
             logger.warning("failed reporting failure to master: %s", e)
 
+    def _run_network_check(self):
+        """Pre-flight node health check round (reference
+        ``run_network_check`` ``training.py:1154``): the network-check
+        rendezvous, then one payload process a local card
+        (``agent/node_check.py``) in a process group of their own; the
+        slowest one's seconds go to the master, whose verdict is
+        logged.  Raises when the payload failed."""
+        with tempfile.TemporaryDirectory(prefix="node_check_") as tmp:
+            handler = MasterRendezvousHandler(
+                self._client,
+                self._node_rank,
+                self._config.nproc_per_node,
+                rdzv_name=RendezvousName.NETWORK_CHECK,
+                timeout=self._config.rdzv_timeout,
+            )
+            try:
+                handler.next_rendezvous()
+            except (TimeoutError, NodeExcludedError) as e:
+                logger.warning("network-check rendezvous failed: %s", e)
+                return
+            with get_event_logger().span(
+                    "node_check", inc=self._restart_count):
+                results, rc = self._run_node_check_payload(tmp)
+        elapsed = max((r["elapsed"] for r in results), default=-1.0)
+        self._client.report_network_status(
+            self._node_rank, succeeded=(rc == 0), elapsed_time=elapsed
+        )
+        faults, reason = self._client.check_fault_node()
+        slowest = max(results, key=lambda r: r["elapsed"], default={})
+        self.node_check = dict(slowest, fault_nodes=faults, reason=reason)
+        logger.info(
+            "node check of node %d: %s in %.3fs; master verdict: fault "
+            "nodes %s%s", self._node_rank,
+            "passed" if rc == 0 else f"failed (exit {rc})", elapsed,
+            faults, f" ({reason})" if reason else " (normal)")
+        if rc != 0:
+            raise RuntimeError(
+                f"node {self._node_rank} failed the health check"
+            )
+
+    def _run_node_check_payload(self, tmp: str):
+        """Run ``nproc_per_node`` payload processes; returns (their
+        results, the worst exit code).  A wedged card must not hang the
+        agent: a payload still running after 300 s is killed."""
+        from dlrover_tpu_torch.agent import node_check
+
+        nproc = max(self._config.nproc_per_node, 1)
+        addr = f"127.0.0.1:{get_free_port()}"
+        procs = []
+        for rank in range(nproc):
+            env = dict(os.environ)
+            env.update(self._config.envs)
+            env.update({
+                node_check.RESULT_FILE_ENV: os.path.join(tmp, f"{rank}"),
+                node_check.RANK_ENV: str(rank),
+                node_check.WORLD_ENV: str(nproc),
+                node_check.ADDR_ENV: addr,
+            })
+            procs.append(subprocess.Popen(  # noqa: S603
+                [sys.executable, "-m", "dlrover_tpu_torch.agent.node_check"],
+                env=env))
+        deadline = time.time() + 300
+        rc = 0
+        for proc in procs:
+            try:
+                code = proc.wait(timeout=max(deadline - time.time(), 0.1))
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+                code = -1
+            rc = code if rc == 0 else rc
+        results = []
+        for rank in range(nproc):
+            try:
+                with open(os.path.join(tmp, f"{rank}")) as f:
+                    f.readline()  # the elapsed seconds, as the reference
+                    results.append(json.loads(f.readline()))
+            except (OSError, ValueError):
+                rc = rc or 1
+        return results, rc
+
     # ----------------------------------------------------------------- run
+    def _start_zygote(self):
+        """The fork server, started with the workers' base env; a spawn
+        waits for its preload (``ZygotePool.spawn``)."""
+        from dlrover_tpu_torch.agent.zygote import ZygotePool
+
+        pool = ZygotePool(name=f"zygote_{self._node_rank}_{os.getpid()}")
+        env = dict(os.environ)
+        env.update(self._config.envs)
+        if self._config.compile_cache_dir:
+            env.setdefault(
+                NodeEnv.KERNEL_BUILD_DIR, self._config.compile_cache_dir)
+        if pool.start(env=env):
+            self._zygote = pool
+
+    def _start_monitors(self) -> list:
+        from dlrover_tpu_torch.agent.monitor import (
+            HeartbeatReporter,
+            ResourceMonitor,
+            TrainingMonitor,
+        )
+
+        monitors = [
+            ResourceMonitor(
+                self._client,
+                chip_stats_file=os.path.join(self._job_dir, "cards"),
+                buffer=self._report_buffer),
+            HeartbeatReporter(self._client, buffer=self._report_buffer),
+            TrainingMonitor(
+                os.path.join(self._job_dir, "step.json"), self._client,
+                buffer=self._report_buffer),
+        ]
+        for m in monitors:
+            m.start()
+        return monitors
+
     def run(self) -> int:
         """Agent main loop. Returns a process exit code."""
-        for name in ("prefork", "watch_preemption", "network_check"):
-            if getattr(self._config, name):
-                raise NotImplementedError(
-                    f"ElasticLaunchConfig.{name} is not ported yet: "
-                    "ROADMAP A3c")
         factory_queue = None
         timeline_reporter = None
+        preemption_watcher = None
         self._report_buffer = ReportBuffer(self._client)
+        self._job_dir = tempfile.mkdtemp(prefix="dlrover_tpu_torch_agent_")
+        monitors = self._start_monitors()
         events = get_event_logger()
         if events.enabled:
             from dlrover_tpu_torch.agent.monitor import TimelineReporter
@@ -617,11 +782,27 @@ class ElasticTrainingAgent:
                 "not on main thread: graceful SIGTERM drain not "
                 "installed"
             )
+        if self._config.watch_preemption:
+            from dlrover_tpu_torch.agent.preemption import PreemptionWatcher
+
+            preemption_watcher = PreemptionWatcher()
+            preemption_watcher.on_preemption(self._on_preemption)
+            preemption_watcher.start()
+        if self._config.prefork:
+            self._start_zygote()
         try:
             return self._invoke_run()
         finally:
             self._stopped = True
+            if preemption_watcher is not None:
+                preemption_watcher.stop()
+            for m in monitors:
+                m.stop()
             self._stop_workers()
+            if self._zygote is not None:
+                self._zygote.close()
+                self._zygote = None
+            shutil.rmtree(self._job_dir, ignore_errors=True)
             if timeline_reporter is not None:
                 timeline_reporter.stop()
                 timeline_reporter.flush()  # the final partial batch
@@ -697,11 +878,11 @@ class ElasticTrainingAgent:
     # ------------------------------------------------------ deep capture
     def _start_capture(self, reason: str, capture_id: int):
         """A master ``capture`` directive: the deep capture is ROADMAP
-        A3c (the port's master never sends one: its capture
+        A3c.3 (the port's master never sends one: its capture
         coordinator is off)."""
         raise NotImplementedError(
             f"capture directive {capture_id} ({reason}): deep capture is "
-            "not ported yet: ROADMAP A3c")
+            "not ported yet: ROADMAP A3c.3")
 
     def _execute_brain_drain(self, reason: str, decision_id: int) -> int:
         """The cooperative half of a Brain drain_replace/shrink: the

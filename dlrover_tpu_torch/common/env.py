@@ -4,13 +4,13 @@ variable names, defaults, clamping and parsing, so one environment
 configures either package.  Process identity, the control plane's
 long-poll and batching, the master's pool size and reconnect deadline,
 the events file's rotation, the checkpoint close timeout, the drain
-grace, the serving readers (``kv_incremental_enabled`` ..
-``decode_steps``) and ``get_free_port``.
+grace, the restart overlap and the previous world, the serving readers
+(``kv_incremental_enabled`` .. ``decode_steps``) and ``get_free_port``.
 
 One difference: the switches of the master's subsystems that the port
 does not have yet (the observatory, the live profiler and deep capture,
-the Brain, the master's self-telemetry: ROADMAP A3c) default to off
-here.  Turned on, the master raises ``NotImplementedError`` naming A3c
+the Brain, the master's self-telemetry: ROADMAP A3c.3) default to off
+here.  Turned on, the master raises ``NotImplementedError`` naming A3c.3
 rather than running without them.  Each other reader comes with the
 slice that calls it.
 """
@@ -81,7 +81,7 @@ def observatory_enabled() -> bool:
     """Switch of the master-side observatory (health derivations,
     diagnosis operators, ``JobStatusRequest``, the timeline growth
     bounds).  Not ported yet: on, the master raises
-    ``NotImplementedError`` naming ROADMAP A3c.  Default in the port:
+    ``NotImplementedError`` naming ROADMAP A3c.3.  Default in the port:
     off; the JAX package's default is on."""
     return os.getenv(OBSERVATORY_ENV, "0").lower() not in (
         "0", "false", "off",
@@ -123,6 +123,26 @@ def preempt_drain_grace_s() -> float:
     in shm before flushing to storage.  Bounded by the preemption
     notice lead (~60 s on GCE) and the pod's SIGTERM grace."""
     return env_float(PREEMPT_DRAIN_GRACE_ENV, 5.0)
+
+
+RESTART_OVERLAP_ENV = "DLROVER_TPU_RESTART_OVERLAP"
+PREV_WORLD_ENV = "DLROVER_TPU_PREV_WORLD"
+
+
+def restart_overlap_enabled() -> bool:
+    """The overlapped restart critical path (restore prefetch beside the
+    state build, ``trainer/restart_path.py``); "0"/"false"/"off" forces
+    the serial restore (the launcher's ``--no_restart_overlap``)."""
+    return os.getenv(RESTART_OVERLAP_ENV, "1").strip().lower() not in (
+        "0", "false", "off",
+    )
+
+
+def prev_world_size() -> int:
+    """The world size of the agent's previous rendezvous round (0 on
+    the first): a restarted worker whose world changed cannot use a
+    prefetch that staged the old world's shard."""
+    return _get_int(PREV_WORLD_ENV, 0)
 
 
 KV_INCREMENTAL_ENV = "DLROVER_TPU_KV_INCREMENTAL"
@@ -190,7 +210,7 @@ PROFILE_ENV = "DLROVER_TPU_PROFILE"
 def profile_enabled() -> bool:
     """Switch of the live attribution profiler and the master's deep
     capture coordinator.  Not ported yet: on, the master raises
-    ``NotImplementedError`` naming ROADMAP A3c.  Default in the port:
+    ``NotImplementedError`` naming ROADMAP A3c.3.  Default in the port:
     off; the JAX package's default is on."""
     return os.getenv(PROFILE_ENV, "0").lower() not in (
         "0", "false", "off",
@@ -203,7 +223,7 @@ BRAIN_ENV = "DLROVER_TPU_BRAIN"
 def brain_enabled() -> bool:
     """Switch of the Brain (the observatory-fed optimizer, auto-scaler
     and planned-action executor).  Not ported yet: on, the master
-    raises ``NotImplementedError`` naming ROADMAP A3c.  Default in the
+    raises ``NotImplementedError`` naming ROADMAP A3c.3.  Default in the
     port: off; the JAX package's default is on."""
     return os.getenv(BRAIN_ENV, "0").lower() not in (
         "0", "false", "off",
@@ -217,7 +237,7 @@ MASTER_WORKERS_ENV = "DLROVER_TPU_MASTER_WORKERS"
 def self_obs_enabled() -> bool:
     """Switch of the master's control-plane self-telemetry.  Not
     ported yet: on, the master raises ``NotImplementedError`` naming
-    ROADMAP A3c.  Default in the port: off; the JAX package's default
+    ROADMAP A3c.3.  Default in the port: off; the JAX package's default
     is on."""
     return os.getenv(SELF_OBS_ENV, "0").lower() not in (
         "0", "false", "off",
@@ -246,7 +266,7 @@ def master_failover_enabled() -> bool:
     master_incarnation)`` fencing.  ``DLROVER_TPU_MASTER_FAILOVER=0``
     gives the fail-fast client: a dead master raises
     ``ConnectionError`` after ``max_retry`` attempts and no epochs ride
-    the envelope.  The master's journal and replay are ROADMAP A3c.
+    the envelope.  The master's journal and replay are ROADMAP A3c.3.
     Default: enabled."""
     return os.getenv(MASTER_FAILOVER_ENV, "1").lower() not in (
         "0", "false", "off",

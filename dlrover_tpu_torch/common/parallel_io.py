@@ -173,6 +173,85 @@ def parallel_fill(dst, value: int = 0, workers: Optional[int] = None,
     return total
 
 
+#: bytes between two reads of ``parallel_touch``: the smallest page
+PAGE_BYTES = 4096
+
+
+def _touch_slice(view: np.ndarray) -> int:
+    # one read a page, and the last byte (a slice that starts inside a
+    # page may end in one the stride steps over)
+    return int(view[::PAGE_BYTES].sum()) + int(view[-1])
+
+
+def parallel_touch(src, workers: Optional[int] = None,
+                   chunk: Optional[int] = None) -> int:
+    """Read one byte of every page of ``src`` across the pool; returns
+    the bytes covered.  It maps a fresh mapping's pages (the restart's
+    restore prefetch) without copying them: the copy that follows then
+    runs at the memory's rate and not at the first-touch fault rate.
+    Reads only, so the bytes are unchanged; numpy's reductions release
+    the GIL, so the caller's other threads go on meanwhile."""
+    s = _flat_u8(src)
+    total = s.nbytes
+    if total == 0:
+        return 0
+    workers = workers if workers is not None else copy_workers()
+    chunk = chunk or chunk_nbytes()
+    if workers <= 1 or total < max(MIN_PARALLEL_BYTES, 2 * chunk):
+        _touch_slice(s)
+        return total
+    pool = _get_pool(workers)
+    futures = [
+        pool.submit(_touch_slice, s[off:off + n])
+        for off, n in chunked_iter(total, chunk)
+    ]
+    for f in futures:
+        f.result()
+    return total
+
+
+def _pread_slice(fd: int, view: np.ndarray, offset: int):
+    mv = memoryview(view)
+    got = 0
+    while got < view.nbytes:
+        n = os.preadv(fd, [mv[got:]], offset + got)
+        if n == 0:
+            raise EOFError(
+                f"file ends before byte {offset + view.nbytes} "
+                f"(read {offset + got})")
+        got += n
+
+
+def parallel_pread(fd: int, dst, offset: int,
+                   workers: Optional[int] = None) -> int:
+    """Fill ``dst`` (contiguous, writable) with the ``dst.nbytes`` bytes
+    of the open file ``fd`` at ``offset``: ``os.preadv`` on disjoint
+    slices across the pool (each releases the GIL).  The kernel copies
+    out of the file's own pages, so reading a shared-memory segment
+    this way maps none of its pages into this process: no first-touch
+    fault, which is what a fresh mapping's reads wait on.  Raises
+    ``EOFError`` on a short file; returns the bytes read."""
+    d = _flat_u8(dst)
+    total = d.nbytes
+    if total == 0:
+        return 0
+    workers = workers if workers is not None else copy_workers()
+    if workers <= 1 or total < 2 * MIN_PARALLEL_BYTES:
+        _pread_slice(fd, d, offset)
+        return total
+    # every worker on one slice of the buffer (a caller's buffer is one
+    # bounce buffer, far below the pool's default chunk)
+    chunk = max(MIN_PARALLEL_BYTES, -(-total // workers))
+    pool = _get_pool(workers)
+    futures = [
+        pool.submit(_pread_slice, fd, d[off:off + n], offset + off)
+        for off, n in chunked_iter(total, chunk)
+    ]
+    for f in futures:
+        f.result()
+    return total
+
+
 def throughput_gbps(nbytes: int, seconds: float) -> float:
     """GB/s with a zero-duration guard, rounded to 4 significant
     digits for span labels (fixed decimals would round a KB-scale

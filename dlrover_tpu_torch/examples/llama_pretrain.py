@@ -21,12 +21,15 @@ first ``s`` draws, so it trains on the batches the lost one would have
 (``--repeat_batch``: every step trains on the stream's first batch).
 
 ``--report_dir`` makes each incarnation of each rank write what it saw
-to ``<report_dir>/rank<r>_inc<n>.json``: host wall-clock marks of its
-start-up (process start, ``import torch``, the CUDA context, the
-kernels' libraries loaded, the port's modules imported,
-``auto_accelerate``, the ``Trainer`` (and
-its checkpoint engine) built, the state built, the restore done, the
-first step done), the sources it compiled, the restore and the snapshots
+to ``<report_dir>/rank<r>_inc<n>.json``: how it was spawned and what it
+found at its first line (``entry``: a zygote's fork or a plain process,
+torch already imported, CUDA not initialised), host wall-clock marks of
+its start-up (spawned by the agent, process start, ``import torch``,
+the CUDA context, the kernels' libraries loaded, the port's modules
+imported, ``auto_accelerate``, the ``Trainer`` (and its checkpoint
+engine) built, and the ``Trainer``'s own marks: the state build, the
+restore prefetch's staging, the restore, the first step), the sources
+it compiled, the restore and the snapshots
 (``io_log``), each step's loss, grad norm and time, and the kernels'
 launch counts, zeroed after the restore and read after the last step.
 A finished run adds a digest of every state leaf (``leaf_digests``).
@@ -44,6 +47,26 @@ import json  # noqa: E402
 import logging  # noqa: E402
 import os  # noqa: E402
 import signal  # noqa: E402
+import sys  # noqa: E402
+
+
+def _entry() -> dict:
+    """What this process found at its first line: how the agent spawned
+    it (``DLROVER_TPU_SPAWN``: "zygote" or "plain") and when, whether
+    torch was imported already (a zygote's child) and whether CUDA was
+    initialised (it must not be: a context does not survive a fork)."""
+    torch_mod = sys.modules.get("torch")
+    spawned_at = os.environ.get("DLROVER_TPU_SPAWNED_AT", "")
+    return {
+        "spawn": os.environ.get("DLROVER_TPU_SPAWN", ""),
+        "spawned_at": float(spawned_at) if spawned_at else None,
+        "torch_preloaded": torch_mod is not None,
+        "cuda_initialized": bool(
+            torch_mod is not None and torch_mod.cuda.is_initialized()),
+    }
+
+
+ENTRY = _entry()
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -164,8 +187,11 @@ class _Report:
         self.data = {"rank": ctx.rank, "world": ctx.world_size,
                      "restart_count": ctx.restart_count,
                      "pid": os.getpid(), "device": str(ctx.device),
+                     "entry": ENTRY,
                      "marks": {"process_start": T_START,
                                "torch_imported": T_TORCH}}
+        if ENTRY["spawned_at"] is not None:
+            self.data["marks"]["spawned"] = ENTRY["spawned_at"]
 
     def write(self, trainer=None, **extra):
         from dlrover_tpu_torch.ops import _build

@@ -1,7 +1,7 @@
 """Node lifecycle supervision inside the master.
 
 Copy of ``dlrover_tpu/master/job_manager.py``.  The Brain datastore's
-node-event audit trail is left out (ROADMAP A3c).
+node-event audit trail is left out (ROADMAP A3c.3).
 
 Reference parity: ``dlrover/python/master/node/dist_job_manager.py`` and
 ``local_job_manager.py`` — the job manager owns the node table, consumes
@@ -307,7 +307,7 @@ class JobManager(metaclass=ABCMeta):
             node_type, node_id, restart_count, level, error_data,
         )
         # the durable audit trail (the Brain datastore's node-event
-        # recorder) comes with the datastore: ROADMAP A3c
+        # recorder) comes with the datastore: ROADMAP A3c.3
         # classify the failure and record the recommended recovery
         # rung (error monitor — ref monitor/error_monitor.py)
         action = None

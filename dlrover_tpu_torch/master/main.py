@@ -3,7 +3,7 @@
 
 Copy of ``dlrover_tpu/master/main.py``.  The port has the local master
 only: ``--platform k8s`` and ``ray`` raise ``NotImplementedError`` (the
-distributed master is ROADMAP A3c), as do ``--brain_db`` and
+distributed master is ROADMAP A3c.3), as do ``--brain_db`` and
 ``--status_port`` (``master/master.py``).
 
 Reference parity: ``dlrover/python/master/main.py:43-70`` +
@@ -68,7 +68,7 @@ def run(args) -> int:
     port = args.port or get_free_port()
     if args.platform != "local":
         raise NotImplementedError(
-            f"the {args.platform} master is not ported yet: ROADMAP A3c")
+            f"the {args.platform} master is not ported yet: ROADMAP A3c.3")
     master = LocalJobMaster(port, args.node_num)
     master.prepare()
     logger.info("job %s master listening on %s", args.job_name,

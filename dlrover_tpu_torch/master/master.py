@@ -2,14 +2,14 @@
 
 Copy of ``dlrover_tpu/master/master.py`` (``JobMaster`` :39,
 ``LocalJobMaster`` :380, ``run_local_master`` :496) without the
-subsystems that ROADMAP A3c brings: the observatory
+subsystems that ROADMAP A3c.3 brings: the observatory
 (``observability/health.py``), the diagnosis chain, the Brain
 (``auto_scaler``, ``brain``, ``resource_optimizer``), the master's
 self-telemetry, the deep-capture coordinator, the failover journal with
 the sqlite datastore it needs (``DLROVER_TPU_BRAIN_DB``), the status
 server, and the distributed master (k8s / ray scalers).  Their switches
 default to off in the port (``common/env.py``); one turned on makes
-``JobMaster`` raise ``NotImplementedError`` naming A3c rather than run
+``JobMaster`` raise ``NotImplementedError`` naming A3c.3 rather than run
 without it.  The client's reconnect and its ``(job_epoch,
 master_incarnation)`` fields (``common/comm.py``) stay: with no journal
 the master is incarnation 0 and fences nothing.
@@ -48,7 +48,7 @@ _ctx = Context.singleton_instance()
 
 
 def later_subsystems_on():
-    """The master subsystems ROADMAP A3c brings whose switch is on (the
+    """The master subsystems ROADMAP A3c.3 brings whose switch is on (the
     port's defaults leave every one off)."""
     import os
 
@@ -82,11 +82,11 @@ class JobMaster:
 
         for name in later_subsystems_on():
             raise NotImplementedError(
-                f"{name} is not ported yet: ROADMAP A3c")
+                f"{name} is not ported yet: ROADMAP A3c.3")
         self._job_name = os.getenv("DLROVER_TPU_JOB_NAME", "default")
         self.speed_monitor = SpeedMonitor()
         # the observatory, the Brain, the self-telemetry, the capture
-        # coordinator and the diagnosis chain are A3c: the servicer
+        # coordinator and the diagnosis chain are A3c.3: the servicer
         # takes None for each, as the reference does with them off
         self.health_engine = None
         self.capture_coordinator = None
@@ -96,7 +96,7 @@ class JobMaster:
         self.brain = None
         self.status_server = None
         # unified job-event timeline: per-node streams merge here and
-        # the goodput ledger is served live (no datastore: A3c)
+        # the goodput ledger is served live (no datastore: A3c.3)
         self.timeline_aggregator = TimelineAggregator(
             job=self._job_name, registry=get_registry())
         self.task_manager = TaskManager(speed_monitor=self.speed_monitor)
@@ -114,7 +114,7 @@ class JobMaster:
         self._exit_reason: Optional[str] = None
         self._stopped = threading.Event()
         #: fencing identity: epoch 0 / incarnation 0 = no durability
-        #: (the failover journal is A3c), fencing inert
+        #: (the failover journal is A3c.3), fencing inert
         self.job_epoch = 0
         self.incarnation = 0
 

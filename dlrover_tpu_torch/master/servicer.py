@@ -2,7 +2,7 @@
 
 Copy of ``dlrover_tpu/master/servicer.py``.  The Brain query answers
 ``available=False`` and diagnosis reports are accepted and dropped: the
-datastore and the diagnosis chain are ROADMAP A3c; the observatory,
+datastore and the diagnosis chain are ROADMAP A3c.3; the observatory,
 Brain, capture and self-telemetry hooks take None, as the reference's do
 with those switched off.
 
@@ -353,7 +353,7 @@ class MasterServicer:
     def _brain_query(
         self, request: msg.BrainQueryRequest
     ) -> msg.BrainQueryResponse:
-        """The Brain datastore is ROADMAP A3c: nothing to query."""
+        """The Brain datastore is ROADMAP A3c.3: nothing to query."""
         return msg.BrainQueryResponse(available=False)
 
     def _get_task(self, node_id: int, request: msg.TaskRequest) -> msg.Task:
@@ -687,7 +687,7 @@ class MasterServicer:
         if isinstance(request, msg.ModelInfo):
             return True
         if isinstance(request, msg.DiagnosisReportData):
-            # the diagnosis chain that consumes these is ROADMAP A3c
+            # the diagnosis chain that consumes these is ROADMAP A3c.3
             return True
         if isinstance(request, msg.ProfileReport):
             if self._capture is not None:

@@ -3,7 +3,7 @@
 Copy of ``dlrover_tpu/observability/events.py``: the same records on the
 same ``DLROVER_TPU_EVENTS_FILE``, so one timeline reader merges both
 packages' spans.  The master's ``TimelineAggregator`` runs here with no
-Brain datastore and no health engine (ROADMAP A3c).
+Brain datastore and no health engine (ROADMAP A3c.3).
 
 The reference's headline metric is goodput (69% -> 95% under faults),
 but a single ratio cannot say WHERE the lost wall clock went —
@@ -100,6 +100,11 @@ PHASE_COMPILE = "compile"
 PHASE_AOT_COMPILE = "aot_compile"
 PHASE_RENDEZVOUS = "rendezvous"
 PHASE_RENDEZVOUS_WAIT = "rendezvous_wait"
+# the agent's health check of its cards before a rendezvous
+# (agent/node_check.py): the payload processes' matmul and all-reduce.
+# A port phase (the reference runs the check but emits no span); it
+# ranks with the rendezvous it precedes
+PHASE_NODE_CHECK = "node_check"
 PHASE_CHECKPOINT_SAVE = "checkpoint_save"
 # host-offload optimizer-state chunk stream (optimizers/host_offload):
 # the D2H/H2D traffic of one streamed update.  Ranks BELOW step on
@@ -195,6 +200,7 @@ PHASES: Tuple[str, ...] = (
     PHASE_AOT_COMPILE,
     PHASE_RENDEZVOUS,
     PHASE_RENDEZVOUS_WAIT,
+    PHASE_NODE_CHECK,
     PHASE_CHECKPOINT_SAVE,
     PHASE_OFFLOAD_COPY,
     PHASE_RESTART_PATH,

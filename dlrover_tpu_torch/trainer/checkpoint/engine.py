@@ -1,9 +1,10 @@
 """Training-process side of flash checkpoint.
 
-Port of ``dlrover_tpu/trainer/checkpoint/engine.py``'s
-``CheckpointEngine`` with its serial restore (``load``); the restore
-prefetch that overlaps a restart's other legs comes with the restart
-coordinator (ROADMAP A3b).  A snapshot is the process's train state
+Port of ``dlrover_tpu/trainer/checkpoint/engine.py``: ``CheckpointEngine``
+with its serial restore (``load``) and the restore prefetch that
+overlaps a restart's other legs (``start_prefetch`` -> ``RestorePrefetch``
+-> ``finish_restore``, driven by ``trainer/restart_path.py``).  A
+snapshot is the process's train state
 copied from the card into host shared memory (two pinned bounce
 buffers on a copy stream, ``agent/ckpt_shm.py``) under the agent's
 ``SharedLock``; persistence is asynchronous in the agent (or, with no
@@ -21,6 +22,14 @@ What changed against the reference, where it touched ``jax``:
   on the caller's stream at the call.
 - A restore copies into the initialised state's tensors in place (the
   reference ``device_put``s onto the target's shardings).
+- The prefetch stages shm leaves on the card when it has room: read
+  with ``preadv`` through the bounce buffers, so no page of the segment
+  is mapped, and the restore copies card to card.  Otherwise it maps
+  each leaf's pages on its own thread (one read a page) before
+  publishing the view.  The reference publishes zero-copy views whose
+  pages the consumer faults in on the main thread: on the card's
+  machine those first touches are the whole of the restore's cost
+  (``PERF.md``).
 - The restore-step consensus is the local answer when the world is 1,
   ``torch.distributed.all_gather_object`` when a process group is
   initialised, and an error otherwise: a multi-process engine with no
@@ -31,11 +40,12 @@ What changed against the reference, where it touched ``jax``:
 import os
 import threading
 import time
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from dlrover_tpu_torch.common import parallel_io
 from dlrover_tpu_torch.common.constants import CheckpointConstant
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.observability.events import (
@@ -60,11 +70,16 @@ from dlrover_tpu_torch.agent.ckpt_shm import (
     _flatten_keyed,
     _leaf_meta,
     _target_leaves,
+    FileRange,
+    _u8,
+    file_to_device,
     itemsize,
     read_shard_file,
+    restore_batches_to_target,
     restore_to_target,
     shard_lock,
     stream_shard_leaves,
+    torch_dtype,
 )
 from dlrover_tpu_torch.common.env import ckpt_close_timeout_s
 from dlrover_tpu_torch.trainer.checkpoint import reshard as _reshard
@@ -108,6 +123,312 @@ def _agent_factory_queue_exists() -> bool:
         return False
     finally:
         probe.close()
+
+
+#: shm leaves smaller than this are staged in host memory (a step count,
+#: norm weights), the rest on the card
+DEVICE_STAGE_MIN_BYTES = 1 << 20
+#: card memory left free beyond the state and its staged copy
+CARD_STAGE_HEADROOM_BYTES = 4 << 30
+
+
+class _StagedCandidate:
+    """Leaves of one restorable step, published as their bytes land.
+
+    The prefetch thread is the single producer; ``finish_restore`` is
+    the single consumer.  A condition variable lets the consumer copy
+    leaf k to the card while the producer is still staging leaf k+1 —
+    the restore's device transfers pipeline against the tail of the
+    staging instead of waiting on a whole-state barrier."""
+
+    def __init__(self, source: str, zero_copy: bool):
+        self.source = source  # "shm" | "storage"
+        #: True when arrays are views onto live shm (the consumer must
+        #: copy any leaf that stays on host, like the serial path)
+        self.zero_copy = zero_copy
+        self.arrays: Dict[str, torch.Tensor] = {}
+        self._order: List[str] = []
+        self._cv = threading.Condition()
+        self._done = False
+        self.failed = False
+
+    def publish(self, key: str, arr):
+        with self._cv:
+            self.arrays[key] = arr
+            self._order.append(key)
+            self._cv.notify_all()
+
+    def finish(self, failed: bool = False):
+        with self._cv:
+            if self._done:
+                return
+            self.failed = failed
+            self._done = True
+            self._cv.notify_all()
+
+    def iter_batches(self, timeout: float = 600.0):
+        """Yield lists of ``(key, tensor)``: every leaf that landed since
+        the last yield, blocking for the next while the producer is
+        still staging."""
+        i = 0
+        deadline = time.monotonic() + timeout
+        while True:
+            with self._cv:
+                while i >= len(self._order) and not self._done:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError(
+                            f"restore prefetch ({self.source}) stalled"
+                        )
+                    self._cv.wait(0.5)
+                if i >= len(self._order):
+                    if self.failed:
+                        raise RuntimeError(
+                            f"prefetch candidate ({self.source}) failed"
+                        )
+                    return
+                keys = self._order[i:]
+                i = len(self._order)
+            yield [(key, self.arrays[key]) for key in keys]
+
+    def wait_all(self, timeout: float = 600.0) -> Dict[str, torch.Tensor]:
+        for _ in self.iter_batches(timeout):
+            pass
+        return self.arrays
+
+
+class RestorePrefetch:
+    """Background staging of restore bytes into host memory, started the
+    moment the worker knows its rank and checkpoint dir, so that the
+    staging overlaps the state build (``init_state``) and any other leg
+    of the restart before the restore.
+
+    Stages the newest shm snapshot and, when storage holds a step shm
+    does not, streams that shard file leaf by leaf into one private
+    buffer.  A restarted process maps the agent's segment afresh, and
+    the first touch of each page, not the copy, is what a restore
+    through a mapping waits on (``PERF.md``).  So with a CUDA ``device``
+    and room on it for a second copy of the state, each shm leaf is read
+    with ``preadv`` (no page mapped) through the pinned bounce buffers
+    into a tensor of its own on the card (``ckpt_shm.file_to_device``),
+    leaves under ``DEVICE_STAGE_MIN_BYTES`` into host memory; the
+    restore then copies card to card.  Otherwise each leaf is a view of
+    the segment whose pages this thread maps, one read a page
+    (``parallel_io.parallel_touch``).  Both release the GIL, so the
+    main thread builds the state meanwhile.  Nothing here agrees a
+    step or writes the state;
+    :meth:`CheckpointEngine.finish_restore` consumes the staged leaves
+    after the cross-rank step agreement, and ANY failure in this thread
+    degrades the restore to the serial ``load`` path (``error`` is set,
+    nothing is ever half-applied)."""
+
+    def __init__(self, engine: "CheckpointEngine",
+                 checkpoint_dir: Optional[str] = None,
+                 start_gate=None, layouts=None, device=None):
+        self._engine = engine
+        self._dir = checkpoint_dir
+        self._gate = start_gate
+        self._device = None if device is None else torch.device(device)
+        #: requested per-leaf global layouts for THIS rank's new
+        #: slices (reshard-aware restore); None = same-world
+        self._layouts = layouts
+        self.error: Optional[BaseException] = None
+        self.shm_steps: List[int] = []
+        self.storage_step = -1
+        self.storage_dir: Optional[str] = None
+        self.staged_bytes = 0
+        #: where the shm leaves were staged ("card" or "host") and the
+        #: seconds the card staging spent allocating and copying
+        self.staged_on = ""
+        self.alloc_s = 0.0
+        self.copy_s = 0.0
+        #: host wall-clock times (``time.time()``) the staging began and
+        #: ended (None until then)
+        self.started_at: Optional[float] = None
+        self.finished_at: Optional[float] = None
+        self._avail = threading.Event()
+        self._candidates: Dict[int, _StagedCandidate] = {}
+        self._thread = threading.Thread(
+            target=self._run, name="ckpt-restore-prefetch", daemon=True
+        )
+        self._thread.start()
+
+    def wait_available(self, timeout: float = 300.0) -> bool:
+        """Block until the availability snapshot (shm steps + latest
+        storage step) is resolved — the input the consensus needs."""
+        return self._avail.wait(timeout)
+
+    def candidate(self, step: int) -> Optional[_StagedCandidate]:
+        cand = self._candidates.get(step)
+        if cand is None or cand.failed:
+            return None
+        return cand
+
+    def join(self, timeout: float = 300.0):
+        self._thread.join(timeout)
+
+    @property
+    def done(self) -> bool:
+        return not self._thread.is_alive()
+
+    # ------------------------------------------------------- producer
+    def _run(self):
+        if self._gate is not None:
+            try:
+                # start-alignment gate (the restart coordinator's
+                # barrier): the overlapped legs begin together so the
+                # timeline shows the real concurrency
+                self._gate()
+            except Exception:  # noqa: BLE001 - alignment is best-effort
+                pass
+        t0_mono = time.monotonic()
+        t0_wall = anchored_now(t0_mono)
+        self.started_at = time.time()
+        eng = self._engine
+        try:
+            self.shm_steps = eng._usable_shm_steps(self._layouts)
+            self.storage_step, self.storage_dir = (
+                eng._latest_storage_step(self._dir)
+            )
+        except Exception as e:  # noqa: BLE001 - degrade, never corrupt
+            self.error = e
+            self.finished_at = time.time()
+            self._avail.set()
+            logger.warning(
+                "rank %s: restore prefetch failed resolving "
+                "availability: %s (serial fallback)", eng._rank, e,
+            )
+            return
+        # register EMPTY candidates for every step about to be staged
+        # BEFORE publishing availability: a near-instant consensus on
+        # the main thread would otherwise see an empty candidate map
+        # and silently take the serial path (the consumer blocks on
+        # iter_batches until the bytes land instead)
+        newest_shm = self.shm_steps[0] if self.shm_steps else -1
+        shm_cand = None
+        if newest_shm >= 0:
+            shm_cand = _StagedCandidate("shm", zero_copy=True)
+            self._candidates[newest_shm] = shm_cand
+        storage_cand = None
+        if (
+            self.storage_step >= 0
+            and self.storage_dir
+            # stage storage only when shm cannot serve the newest
+            # step: a warm restart (live shm snapshot, older committed
+            # storage) must not pay a full state-sized read that
+            # consensus will almost surely discard — the rare
+            # consensus-picks-older case falls back to the serial
+            # read of exactly that step
+            and self.storage_step > newest_shm
+        ):
+            storage_cand = _StagedCandidate("storage", zero_copy=False)
+            self._candidates[self.storage_step] = storage_cand
+        self._avail.set()
+        if shm_cand is not None:
+            self._stage_shm(newest_shm, shm_cand)
+        if storage_cand is not None:
+            self._stage_storage(
+                self.storage_step, self.storage_dir, storage_cand
+            )
+        dur = time.monotonic() - t0_mono
+        self.finished_at = time.time()
+        get_event_logger().complete(
+            "restore_prefetch",
+            t0_wall,
+            dur,
+            bytes=self.staged_bytes,
+            steps=sorted(self._candidates),
+            staged_on=self.staged_on,
+            alloc_s=round(self.alloc_s, 6),
+            copy_s=round(self.copy_s, 6),
+        )
+
+    def _stage_shm(self, step: int, cand: _StagedCandidate):
+        try:
+            src = self._engine._shm_handler.slot_file(step)
+            if src is None or src[1] != step:
+                cand.finish(failed=True)
+                return
+            if self._card_has_room(src[3]):
+                cand.zero_copy = False  # private tensors, not views
+                self.staged_on = "card"
+                self._stage_shm_on_card(src, cand)
+                return
+            self.staged_on = "host"
+            got, arrays = self._engine._shm_handler.load_state(
+                copy=False, step=step
+            )
+            if got != step:
+                cand.finish(failed=True)
+                return
+            for key, value in arrays.items():
+                if value.numel():
+                    parallel_io.parallel_touch(_u8(value).numpy())
+                self.staged_bytes += int(value.nbytes)
+                cand.publish(key, value)
+            cand.finish()
+        except Exception as e:  # noqa: BLE001
+            cand.finish(failed=True)
+            logger.warning(
+                "rank %s: shm prefetch of step %s failed: %s",
+                self._engine._rank, step, e,
+            )
+
+    def _card_has_room(self, specs) -> bool:
+        """A CUDA device with room for the state, its staged copy and
+        ``CARD_STAGE_HEADROOM_BYTES`` (the state is built beside it)."""
+        dev = self._device
+        if dev is None or dev.type != "cuda":
+            return False
+        free, _total = torch.cuda.mem_get_info(dev)
+        need = sum(int(spec[4]) for spec in specs)
+        return free >= 2 * need + CARD_STAGE_HEADROOM_BYTES
+
+    def _stage_shm_on_card(self, src, cand: _StagedCandidate):
+        path, _step, base, specs = src
+        dev = self._device
+        fd = os.open(path, os.O_RDONLY)
+        try:
+            with torch.cuda.device(dev):
+                for key, dts, shape, off, nbytes in specs:
+                    nbytes = int(nbytes)
+                    host = nbytes < DEVICE_STAGE_MIN_BYTES
+                    t0 = time.perf_counter()
+                    t = torch.empty(tuple(shape), dtype=torch_dtype(dts),
+                                    device="cpu" if host else dev)
+                    t1 = time.perf_counter()
+                    if host:
+                        parallel_io.parallel_pread(
+                            fd, _u8(t).numpy(), base + int(off))
+                    elif nbytes:
+                        file_to_device([(_u8(t), FileRange(
+                            fd, base + int(off), nbytes))])
+                    self.alloc_s += t1 - t0
+                    self.copy_s += time.perf_counter() - t1
+                    self.staged_bytes += nbytes
+                    cand.publish(key, t)
+        finally:
+            os.close(fd)
+        cand.finish()
+
+    def _stage_storage(self, step: int, ckpt_dir: str,
+                       cand: _StagedCandidate):
+        eng = self._engine
+        try:
+            stream = eng._storage_leaf_stream(ckpt_dir, self._layouts)
+            got = -1
+            for item in stream:
+                if item[0] == "meta":
+                    got = item[1]
+                else:
+                    self.staged_bytes += int(item[2].nbytes)
+                    cand.publish(item[1], item[2])
+            cand.finish(failed=(got != step))
+        except Exception as e:  # noqa: BLE001
+            cand.finish(failed=True)
+            logger.warning(
+                "rank %s: storage prefetch of step %s failed: %s",
+                eng._rank, step, e,
+            )
 
 
 class CheckpointEngine:
@@ -409,6 +730,17 @@ class CheckpointEngine:
         agreed = self._sync_restore_step(shm_steps, storage_step)
         if agreed < 0:
             return -1, None
+        return self._restore_agreed(
+            agreed, target, checkpoint_dir, shm_steps, storage_step,
+            latest_dir, t0_wall, t0_mono, layouts=layouts,
+        )
+
+    def _restore_agreed(self, agreed, target, checkpoint_dir,
+                        shm_steps, storage_step, latest_dir,
+                        t0_wall, t0_mono, layouts=None):
+        """Fetch + apply an already-agreed restore step (the serial
+        data path, shared by ``load`` and ``finish_restore``'s
+        fallback)."""
         shm_step = shm_steps[0] if shm_steps else -1
         zero_copy = False
         source = "shm"
@@ -467,6 +799,157 @@ class CheckpointEngine:
         record_ckpt_io("restore", restored_bytes, dur)
         self.io_log.append((f"restore_{source}", step, restored_bytes, dur))
         return step, arrays
+
+    def start_prefetch(self, checkpoint_dir: Optional[str] = None,
+                       start_gate=None, layouts=None,
+                       device=None) -> RestorePrefetch:
+        """Begin staging restore bytes into host memory on a background
+        thread — the first leg of the overlapped restart critical path
+        (see ``trainer/restart_path.py``).  Callable before the state
+        or the process group exist: it touches only shm and storage.
+        ``layouts`` makes the staging reshard-aware: the byte stream
+        reads whichever shard files cover this rank's NEW slices.
+        ``device`` is where the state will live: a CUDA device with room
+        gets the shm leaves staged on it (``RestorePrefetch``).  Pair
+        with :meth:`finish_restore`; ``load`` stays the serial
+        equivalent."""
+        return RestorePrefetch(
+            self, checkpoint_dir=checkpoint_dir,
+            start_gate=start_gate, layouts=layouts, device=device,
+        )
+
+    def finish_restore(self, prefetch: Optional[RestorePrefetch],
+                       target=None,
+                       checkpoint_dir: Optional[str] = None,
+                       layouts=None):
+        """Complete an overlapped restore started by
+        :meth:`start_prefetch`.
+
+        Runs the SAME cross-rank step consensus as ``load`` (over the
+        prefetch's availability snapshot — the row this rank publishes
+        must describe the bytes it staged), then copies the staged
+        leaves into ``target`` batch by batch as they land: card to card
+        for leaves staged on the card, through the bounce pipeline for
+        host ones.  Any prefetch failure, consensus
+        miss on the staged step, or staging error degrades to the
+        serial ``_restore_agreed``/``load`` path — byte-identical
+        result, never a half-applied state.  Returns what ``load``
+        returns.
+
+        ``layouts`` supersedes the prefetch's (a caller may only learn
+        its target slices AFTER the blind prefetch launched — the
+        ``Trainer`` derives them from the freshly-initialised state):
+        the consensus row is re-filtered through the layout gate and
+        every fallback is layout-aware, so a blind prefetch that staged
+        the wrong world's shard degrades into the reshard leg instead
+        of a mis-sharded (or failed) restore."""
+        t0_mono = time.monotonic()
+        t0_wall = anchored_now(t0_mono)
+        if layouts is None and prefetch is not None:
+            layouts = prefetch._layouts
+        if (
+            prefetch is None
+            or not prefetch.wait_available(300)
+            or prefetch.error is not None
+        ):
+            if prefetch is not None:
+                prefetch.join()
+            return self.load(
+                target=target, checkpoint_dir=checkpoint_dir,
+                layouts=layouts,
+            )
+        shm_steps = prefetch.shm_steps
+        if layouts is not None and layouts is not prefetch._layouts:
+            # stricter than what the prefetch staged: drop shm steps
+            # whose placement does not serve the requested slices
+            usable = set(self._usable_shm_steps(layouts))
+            shm_steps = [s for s in shm_steps if s in usable]
+        agreed = self._sync_restore_step(
+            shm_steps, prefetch.storage_step
+        )
+        if agreed < 0:
+            prefetch.join()
+            return -1, None
+
+        def _serial():
+            prefetch.join()
+            return self._restore_agreed(
+                agreed, target, checkpoint_dir, shm_steps,
+                prefetch.storage_step, prefetch.storage_dir,
+                t0_wall, t0_mono, layouts=layouts,
+            )
+
+        cand = prefetch.candidate(agreed)
+        if (
+            cand is not None
+            and cand.source == "shm"
+            and agreed not in shm_steps
+        ):
+            # the blind prefetch staged this step from a shm slot the
+            # override's layout gate rejected (valid bytes, wrong
+            # placement) — the step is only restorable via storage
+            cand = None
+        if cand is None:
+            return _serial()
+        try:
+            step, state, nbytes = self._consume_staged(
+                cand, agreed, target
+            )
+        except Exception as e:  # noqa: BLE001 - degrade, never corrupt
+            logger.warning(
+                "rank %s: staged restore of step %s failed (%s); "
+                "serial fallback", self._rank, agreed, e,
+            )
+            return _serial()
+        from dlrover_tpu_torch.observability.metrics import record_ckpt_io
+
+        dur = time.monotonic() - t0_mono
+        events = get_event_logger()
+        events.complete(
+            "checkpoint_restore",
+            t0_wall,
+            dur,
+            step=agreed,
+            bytes=nbytes,
+            throughput_gbps=parallel_io.throughput_gbps(nbytes, dur),
+            stage="overlap",
+        )
+        events.complete(
+            "finish_restore", t0_wall, dur, step=agreed, bytes=nbytes
+        )
+        record_ckpt_io("restore", nbytes, dur)
+        self.io_log.append((f"restore_{cand.source}", agreed, nbytes, dur))
+        return step, state
+
+    def _consume_staged(self, cand: _StagedCandidate, agreed: int,
+                        target):
+        """Apply one staged candidate.  With a target, each batch of
+        landed leaves crosses to the card the moment it lands (one
+        ``host_to_device`` a batch, while the producer stages the
+        next): the same values and the same host-copy discipline as
+        ``restore_to_target``."""
+        if target is None:
+            arrays = dict(cand.wait_all())
+            if cand.zero_copy:
+                # serial parity: load(target=None) returns standalone
+                # copies (shm may be overwritten afterwards)
+                arrays = {k: v.clone() for k, v in arrays.items()}
+            nbytes = sum(int(v.nbytes) for v in arrays.values())
+            return agreed, arrays, nbytes
+        nbytes = 0
+
+        def batches():
+            nonlocal nbytes
+            for batch in cand.iter_batches():
+                nbytes += sum(int(v.nbytes) for _k, v in batch)
+                yield batch
+
+        state = restore_batches_to_target(
+            target, batches(), copy_host=cand.zero_copy)
+        # the staged copies (on the card, a second state) go now, before
+        # the caller allocates its snapshot buffers and activations
+        cand.arrays.clear()
+        return agreed, state, nbytes
 
     def _sync_restore_step(self, shm_steps, storage_step: int) -> int:
         """Cross-process consensus on the restore step: the NEWEST step

@@ -1,6 +1,6 @@
 """Training-process side of the elastic launch (``dlrover_tpu/trainer/
 elastic``): the world from the agent's env and step-level progress.
-The elastic sampler comes with the data plane (ROADMAP A3c)."""
+The elastic sampler comes with the data plane (ROADMAP A3c.6)."""
 
 from dlrover_tpu_torch.trainer.elastic.context import (  # noqa: F401
     ElasticContext,

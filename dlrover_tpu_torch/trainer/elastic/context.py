@@ -14,8 +14,10 @@ The device is ``cuda:<local_rank>`` unless the caller passes
 ``device="cpu"``; without a card and without an explicit CPU it raises.
 
 The JAX version's coordination-service helpers
-(``coordination_client``, ``control_plane_barrier``) belong to the
-restart overlap and come with it (ROADMAP A3c).
+(``coordination_client``, ``control_plane_barrier``) have no counterpart:
+the restart overlap needs none (``trainer/restart_path.py``), and a
+barrier of the host loops is ``torch.distributed.barrier`` on
+``host_group``.
 """
 
 import dataclasses

@@ -10,13 +10,23 @@ Port of ``dlrover_tpu/trainer/elastic/trainer.py``: the trainer
 exposes ``num_micro_steps`` and ``accumulate_gradients``, an eager sum
 over micro-batches whose grads are tensors (or dicts, lists and tuples
 of them).  Progress reporting goes straight to the master over gRPC
-from rank 0; the JAX version's step file, which only the agent's
-``TrainingMonitor`` reads, comes with that monitor (ROADMAP A3c).
+from rank 0 and to a step file the agent's ``TrainingMonitor`` watches
+(``DLROVER_TPU_STEP_FILE``, which the agent sets per job; the JAX
+version's default is one path a machine, ``/tmp/dlrover_tpu_global_step
+.json``, the port's ``dlrover_tpu_torch_global_step.json`` in the temp
+dir).  Each rank on a card also writes the card's memory in use
+(``torch.cuda``) to ``DLROVER_TPU_CHIP_STATS_FILE`` (a ``.json`` file,
+or a directory with one ``rank<r>.json`` a rank), which the agent's
+``ResourceMonitor`` reads.
 """
 
+import json
 import os
+import tempfile
 import time
 from typing import Callable, Optional
+
+import torch
 
 from dlrover_tpu_torch.common.constants import NodeEnv
 from dlrover_tpu_torch.common.log import default_logger as logger
@@ -28,6 +38,43 @@ from dlrover_tpu_torch.trainer.elastic.context import (
     process_count,
     process_rank,
 )
+
+STEP_FILE_ENV = "DLROVER_TPU_STEP_FILE"
+CHIP_STATS_ENV = "DLROVER_TPU_CHIP_STATS_FILE"
+
+
+def default_step_file() -> str:
+    return os.path.join(tempfile.gettempdir(),
+                        "dlrover_tpu_torch_global_step.json")
+
+
+def _write_json(path: str, data):
+    tmp = f"{path}.{os.getpid()}.tmp"
+    try:
+        with open(tmp, "w") as f:
+            json.dump(data, f)
+        os.replace(tmp, path)
+    except OSError:
+        pass
+
+
+def card_stats(device) -> Optional[dict]:
+    """The card's memory in use by this process (the caching
+    allocator's counters, no synchronisation), or None off the card."""
+    if device is None or torch.device(device).type != "cuda":
+        return None
+    if not torch.cuda.is_initialized():
+        return None
+    dev = torch.device(device)
+    return {
+        "device": str(dev),
+        "name": torch.cuda.get_device_name(dev),
+        "memory_allocated_mb": torch.cuda.memory_allocated(dev) >> 20,
+        "memory_reserved_mb": torch.cuda.memory_reserved(dev) >> 20,
+        "max_memory_allocated_mb":
+            torch.cuda.max_memory_allocated(dev) >> 20,
+    }
+
 
 def _tree_map(fn, tree, *rest):
     """``fn`` over the tensors of ``tree`` (and of ``rest``, which share
@@ -50,7 +97,11 @@ class ElasticTrainer:
         rank: Optional[int] = None,
         report_interval: float = 15.0,
         master_client=None,
+        step_file: str = "",
+        device=None,
     ):
+        """``device``: the card whose memory in use rides the chip-stats
+        file (None, or the CPU: no stats)."""
         self.global_batch_size = global_batch_size
         self.micro_batch_size = micro_batch_size
         self.world_size = world_size or process_count()
@@ -67,6 +118,10 @@ class ElasticTrainer:
             1, (global_batch_size + per_step - 1) // per_step
         )
         self.global_step = 0
+        self._step_file = step_file or os.getenv(
+            STEP_FILE_ENV, default_step_file()
+        )
+        self._device = device
         self._report_interval = report_interval
         self._last_report = 0.0
         self._client = master_client
@@ -95,18 +150,32 @@ class ElasticTrainer:
                     "step", now_w - dur, dur, step=self.global_step
                 )
             self._step_mark = (now_w, now_m)
-        if self.rank != 0:
-            return
         now = time.time()
         if now - self._last_report < self._report_interval:
             return
         self._last_report = now
+        self._write_chip_stats(now)
+        if self.rank != 0:
+            return
+        _write_json(self._step_file,
+                    {"step": self.global_step, "timestamp": now})
         client = self._master_client()
         if client is not None:
             try:
                 client.report_global_step(self.global_step, now)
             except ConnectionError:
                 pass
+
+    def _write_chip_stats(self, now: float):
+        path = os.getenv(CHIP_STATS_ENV, "")
+        stats = card_stats(self._device) if path else None
+        if stats is None:
+            return
+        stats.update(rank=self.rank, step=self.global_step, timestamp=now)
+        if not path.endswith(".json"):  # a directory, a file a rank
+            os.makedirs(path, exist_ok=True)
+            path = os.path.join(path, f"rank{self.rank}.json")
+        _write_json(path, stats)
 
     # -------------------------------------------------------- accumulation
     def accumulate_gradients(

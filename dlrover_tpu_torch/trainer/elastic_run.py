@@ -4,9 +4,13 @@
 Copy of ``dlrover_tpu/trainer/elastic_run.py``; the local master it
 spawns is the port's (``dlrover_tpu_torch.master.main``), and
 ``--compile_cache_dir`` names the kernels' build directory
-(``DLROVER_TPU_TORCH_BUILD_DIR``).  The restart overlap and its
-``--no_restart_overlap`` switch come with ROADMAP A3c; so do
-``--prefork`` and ``--network-check``, which raise until then.
+(``DLROVER_TPU_TORCH_BUILD_DIR``).  ``--prefork`` forks the workers from
+a zygote that imported torch once (``agent/zygote.py``),
+``--network_check`` checks the node's cards before each rendezvous
+(``agent/node_check.py``), ``--no_restart_overlap`` makes a restarted
+worker restore serially (``trainer/restart_path.py``), and the agent
+watches the cloud metadata server for a maintenance event
+(``agent/preemption.py``).
 
 Reference parity: ``dlrover/trainer/torch/elastic_run.py`` —
 ``parse_args:125``, auto-launch of a local master on the rank-0 node
@@ -16,7 +20,7 @@ and ``main:399``.
 Usage::
 
     python -m dlrover_tpu_torch.run --nnodes=1 --nproc_per_node=1 \
-        [--max-restarts=3] train.py --flag ...
+        [--prefork] [--network_check] [--max-restarts=3] train.py --flag ...
 
 The launcher starts (on node rank 0, when no master address is set) a
 local job master subprocess, then runs the per-node
@@ -93,15 +97,23 @@ def parse_args(argv=None):
         "--prefork",
         action="store_true",
         help="fork restarted workers from a pre-imported zygote "
-        "(not ported yet: ROADMAP A3c)",
+        "(removes import torch and torch._dynamo from restart latency)",
+    )
+    parser.add_argument(
+        "--no_restart_overlap",
+        action="store_true",
+        help="disable the overlapped restart critical path (the restore "
+        "prefetch beside the state build; trainer/restart_path.py) — "
+        "workers then restore serially (exports "
+        "DLROVER_TPU_RESTART_OVERLAP=0)",
     )
     parser.add_argument(
         "--network-check",
         "--network_check",
         dest="network_check",
         action="store_true",
-        help="run a health check round before training (not ported "
-        "yet: ROADMAP A3c)",
+        help="run a health check of the node's cards (matmul and "
+        "all-reduce) before each rendezvous",
     )
     parser.add_argument(
         "--standalone",
@@ -270,6 +282,7 @@ def run(args) -> int:
         stop_timeout=args.stop_timeout,
         failure_stop_timeout=args.failure_stop_timeout,
         prefork=args.prefork,
+        restart_overlap=not args.no_restart_overlap,
         node_rank=node_rank,
         compile_cache_dir=args.compile_cache_dir,
     )

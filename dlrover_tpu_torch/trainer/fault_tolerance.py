@@ -4,7 +4,7 @@ Port of ``dlrover_tpu/trainer/fault_tolerance.py``'s ``HangDetector``
 (:26) and its default action.  A hung worker reports the hang to the
 master and exits, and the agent restarts it (the JAX version reports
 only).  The loss-spike capture, ``pytree_digest`` and the
-``NumericChecker`` come with ``replay.py`` (ROADMAP A3c).
+``NumericChecker`` come with ``replay.py`` (ROADMAP A3c.7).
 
 Reference parity: ``HangingDetector`` (``atorch/atorch/fault_tolerance/
 hanging_detector.py:86``): a side thread watches step progress and

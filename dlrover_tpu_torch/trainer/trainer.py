@@ -2,15 +2,14 @@
 device.
 
 Port of ``dlrover_tpu/trainer/trainer.py`` (``TrainingArgs`` :36-80,
-``Trainer`` :83, the serial restore ``_init_or_restore_state`` :255-305,
-``_resolve_snapshot_mode`` :315-349, ``_maybe_checkpoint`` :361-411,
-``_consume_metrics`` :413-433, ``evaluate`` :565-618, ``train``
-:619-860) without what later slices bring: the restart overlap (the
-restore prefetch and ``restart_path.py``) and replay (``replay_dir``):
-ROADMAP A3c; the resident profiler, the metrics exporter and sparse
-tables (``trace_interval``, ``metrics_port``, ``sparse_tables``: A7).
-Setting one of those raises ``NotImplementedError`` rather than doing
-nothing.
+``Trainer`` :83, the restart overlap :131-166, ``_init_or_restore_state``
+:255-305, ``_resolve_snapshot_mode`` :315-349, ``_maybe_checkpoint``
+:361-411, ``_consume_metrics`` :413-433, ``evaluate`` :565-618,
+``train`` :619-860) without what later slices bring: replay
+(``replay_dir``: ROADMAP A3c.7); the resident profiler, the metrics
+exporter and sparse tables (``trace_interval``, ``metrics_port``,
+``sparse_tables``: A7).  Setting one of those raises
+``NotImplementedError`` rather than doing nothing.
 
 Under the elastic launch (``python -m dlrover_tpu_torch.run``) the
 ``Trainer`` joins the agent's world (``init_distributed`` on the train
@@ -28,7 +27,14 @@ one step ahead of it: gradient sync across ranks is ROADMAP A4.
 
 Flash checkpoint (``checkpoint_dir``): on start the state is restored
 from the newest step the engine finds (shared memory first, then disk)
-and training continues from it; every ``save_memory_interval`` steps
+and training continues from it.  The restore is overlapped, as in the
+reference: ``__init__`` starts the engine's restore prefetch
+(``trainer/restart_path.py``), which stages the checkpoint's bytes in
+host memory while ``init_state`` builds the state on the card, and the
+restore then copies the staged leaves in (``finish_restore``).  With
+``DLROVER_TPU_RESTART_OVERLAP=0``, or when the agent's previous world
+(``DLROVER_TPU_PREV_WORLD``) differs from this one, it is the serial
+``engine.load``.  Every ``save_memory_interval`` steps
 the state is snapshotted into shared memory, every
 ``save_storage_interval`` steps also persisted as ``.drckpt`` shards,
 and ``train()`` ends with a persist of the final step.  That persist
@@ -74,7 +80,7 @@ logger = logging.getLogger(__name__)
 
 # option -> the ROADMAP slice that brings it
 _LATER = {
-    "replay_dir": "A3c (replay)",
+    "replay_dir": "A3c.7 (replay)",
     "trace_interval": "A7 (device-side observability)",
     "metrics_port": "A7 (device-side observability)",
     "sparse_tables": "A7 (sparse tables)",
@@ -135,7 +141,8 @@ class Trainer:
         # step a rank
         self.progress = ElasticTrainer(
             global_batch_size=self._ctx.world_size, micro_batch_size=1,
-            world_size=self._ctx.world_size, rank=self._ctx.rank)
+            world_size=self._ctx.world_size, rank=self._ctx.rank,
+            device=self._fns.device)
         self._args = args
         self._data_iter_fn = data_iter_fn
         self._eval_iter_fn = eval_iter_fn
@@ -151,9 +158,13 @@ class Trainer:
         self._snap = None  # "copy": the buffers a snapshot is copied into
         self._storage_step = None  # last step handed to the persist
         #: host wall-clock times (``time.time()``) of the legs a
-        #: (re)start runs through: "state_built", "restored" (checkpoint
-        #: loaded, snapshot buffers ready), "first_step_done"
+        #: (re)start runs through: "state_build_start", "state_built",
+        #: "prefetch_start" and "prefetch_end" (the restore prefetch's
+        #: staging, when it ran), "restore_done" (the checkpoint in
+        #: the state), "restored" (snapshot buffers ready too),
+        #: "first_step_done"
         self.marks = {}
+        self._restart_coord = None
         if args.checkpoint_dir:
             if args.snapshot_mode not in ("auto", "copy", "staged"):
                 raise ValueError(
@@ -175,6 +186,20 @@ class Trainer:
                 node_rank=env.get_node_rank(),
                 local_shard_num=env.get_local_process_count(),
             )
+            # the restart critical path: start staging the restore's
+            # bytes now, so that they stream while init_state builds the
+            # state in _init_or_restore_state.  After a world change the
+            # blind prefetch would stage the old world's shard, so the
+            # restore is the serial, layout-aware load instead
+            prev_world = env.prev_world_size()
+            if not (prev_world > 0
+                    and prev_world != self._ctx.world_size):
+                from dlrover_tpu_torch.trainer.restart_path import (
+                    RestartCoordinator,
+                )
+
+                self._restart_coord = RestartCoordinator(
+                    self._engine).start(device=self._fns.device)
             # graceful drain: the agent's SIGUSR1 switches to a blocking
             # snapshot at every step (_maybe_checkpoint)
             install_drain_handler()
@@ -216,8 +241,10 @@ class Trainer:
     # ------------------------------------------------------------ resume
     def _init_or_restore_state(self) -> int:
         """Initialise the state, then overwrite it with the newest
-        checkpoint the engine agrees on (the serial ``engine.load``),
-        and fault in the shared memory of the snapshots to come."""
+        checkpoint the engine agrees on (the bytes the prefetch staged
+        meanwhile, or the serial ``engine.load``), and fault in the
+        shared memory of the snapshots to come."""
+        self.marks["state_build_start"] = time.time()
         self.state = self._fns.init_state(self._rng_seed)
         self.marks["state_built"] = time.time()
         if self._engine is None:
@@ -227,8 +254,23 @@ class Trainer:
         )
 
         self._layouts = derive_layouts(self.state)
-        step, restored = self._engine.load(
-            target=self.state, layouts=self._layouts)
+        coord, self._restart_coord = self._restart_coord, None
+        if coord is not None:
+            # the derived layouts supersede the blind prefetch's; one
+            # restart, one prefetch: a later re-init reads fresh
+            # availability through the serial load
+            step, restored = coord.finish_restore(
+                target=self.state, layouts=self._layouts)
+            prefetch = coord.prefetch
+            if prefetch is not None:
+                prefetch.join(60)  # past its last leaf already
+                if prefetch.finished_at is not None:
+                    self.marks["prefetch_start"] = prefetch.started_at
+                    self.marks["prefetch_end"] = prefetch.finished_at
+        else:
+            step, restored = self._engine.load(
+                target=self.state, layouts=self._layouts)
+        self.marks["restore_done"] = time.time()
         if step >= 0 and restored is not None:
             logger.info("resumed training from step %d", step)
         self.progress.global_step = self.state["step"]

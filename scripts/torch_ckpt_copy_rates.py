@@ -24,7 +24,13 @@ the card's copies, the host clock where the host takes part):
   ``MADV_POPULATE_WRITE`` and ``MAP_POPULATE``;
 - a restore from a fresh mapping of a faulted segment (what a restarted
   process sees), plain, after ``MADV_WILLNEED`` or ``MADV_POPULATE_*``,
-  and mapped with ``MAP_POPULATE``, and a drain into a fresh mapping;
+  and mapped with ``MAP_POPULATE``; the pages of a fresh mapping
+  touched (one read a page, ``parallel_io.parallel_touch``, as the
+  restart's restore prefetch does) by one worker and by all, and the
+  copy to the card after; ``preadv`` of the segment into the bounce
+  buffers and on to the card (``ckpt_shm.file_to_device``, the restore
+  prefetch's path), which maps no page; and a drain into a fresh
+  mapping;
 - a ``dd``-style write of the same bytes to ``--disk-dir`` (64 MiB
   chunks, then ``fsync``).
 
@@ -185,6 +191,36 @@ def main() -> int:
                 if not torch.equal(back, dev):
                     raise SystemExit(f"{how}: restore differs")
                 del back
+            # the restart's prefetch thread: fault a fresh mapping's pages
+            # in (one read a page) ahead of the copy to the card
+            for workers in (1, parallel_io.copy_workers()):
+                m = mmap.mmap(fd, n)
+                mapped = np.frombuffer(m, dtype=np.uint8)
+                t = time.perf_counter()
+                parallel_io.parallel_touch(mapped, workers=workers)
+                line(f"fresh mapping, pages touched by {workers} "
+                     "worker(s)", time.perf_counter() - t)
+                if workers > 1:
+                    back = torch.empty_like(dev)
+                    t = time.perf_counter()
+                    ckpt_shm.host_to_device(
+                        [(back.view(torch.uint8), mapped)])
+                    line("touched mapping -> card",
+                         time.perf_counter() - t)
+                    if not torch.equal(back, dev):
+                        raise SystemExit("touched restore differs")
+                    del back
+                del mapped
+                m.close()
+            back = torch.empty_like(dev)
+            t = time.perf_counter()
+            ckpt_shm.file_to_device(
+                [(back.view(torch.uint8), ckpt_shm.FileRange(fd, 0, n))])
+            line("preadv of the segment into the bounce buffers -> card "
+                 "(ckpt_shm.file_to_device)", time.perf_counter() - t)
+            if not torch.equal(back, dev):
+                raise SystemExit("pread restore differs")
+            del back
             m = mmap.mmap(fd, n)
             try:
                 m.madvise(MADV_POPULATE_WRITE)

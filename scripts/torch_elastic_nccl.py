@@ -49,9 +49,12 @@ def launch(run_dir: Path, log_dir: Path, device: str, crash: bool):
     if crash:
         cmd += ["--crash_after_step", "3", "--crash_rank", "1"]
     t0 = time.time()
-    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True,
-                          timeout=600,
-                          env=dict(os.environ, PYTHONPATH=str(REPO)))
+    # the agent's preemption watcher (on by default) asks a metadata
+    # endpoint on this machine that refuses connections, never a real one
+    proc = subprocess.run(
+        cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
+        env=dict(os.environ, PYTHONPATH=str(REPO),
+                 DLROVER_TPU_METADATA_BASE="http://127.0.0.1:9/"))
     wall = time.time() - t0
     log = proc.stdout + proc.stderr
     (log_dir / f"{run_dir.name}.log").write_text(log)

@@ -22,10 +22,19 @@
 - The worker's side: after the drain signal the ``Trainer`` snapshots
   every step, blocking; a hung worker's ``HangDetector`` fires and its
   default action exits; ``leaf_digests`` sees one flipped byte.
-- What ROADMAP A3c brings raises ``NotImplementedError`` naming it, and
-  the port's defaults keep each of those switches off.
+- The same launch with the workers forked from the agent's zygote
+  (``--prefork``), the node check before each rendezvous
+  (``--network_check``) and the restart overlap on: every incarnation
+  was forked with torch imported and CUDA untouched, the restarted
+  workers restored through the prefetch, and the run ends bit for bit.
+- What ROADMAP A3c still has to bring (A3c.3: the master's optional
+  subsystems, the deep capture, the distributed master) raises
+  ``NotImplementedError`` naming it, and the port's defaults keep each
+  of those switches off; the agent's switches take the reference's
+  defaults.
 """
 
+import functools
 import json
 import os
 import random
@@ -81,10 +90,16 @@ def _short_tmp(prefix: str) -> str:
                             dir=base if len(base) <= 40 else "/tmp")
 
 
+#: a metadata endpoint on this machine that refuses connections: the
+#: agents' preemption watchers (on by default) never ask a real one
+DEAD_METADATA = "http://127.0.0.1:9/computeMetadata/v1/instance/"
+
+
 @pytest.fixture(autouse=True)
 def _port_sockets(monkeypatch):
     d = _short_tmp("dte")
     monkeypatch.setenv(multi_process.SOCKET_DIR_ENV, d)
+    monkeypatch.setenv("DLROVER_TPU_METADATA_BASE", DEAD_METADATA)
     yield d
     shutil.rmtree(d, ignore_errors=True)
 
@@ -304,12 +319,16 @@ MODEL = ["--device", "cpu", "--dtype", "float32", "--dim", "64",
          "--save_storage_interval", "100"]
 
 
-def _launch(run_dir: Path, sockets: str, crash: bool):
-    """The launcher over two gloo workers; returns {(rank, inc): report}."""
+def _launch(run_dir: Path, sockets: str, crash: bool, flags=(),
+            with_output: bool = False):
+    """The launcher over two gloo workers; returns {(rank, inc): report}
+    (and the launcher's output and events with ``with_output``)."""
     rep = run_dir / "rep"
     rep.mkdir(parents=True)
+    events = run_dir / "events.jsonl"
     cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--nnodes=1",
            "--nproc_per_node=2", "--max-restarts=1", "--monitor_interval=0.2",
+           f"--events_file={events}", *flags,
            "-m", "dlrover_tpu_torch.examples.llama_pretrain", *MODEL,
            "--ckpt_dir", str(run_dir / "ckpt"), "--report_dir", str(rep)]
     if crash:
@@ -318,15 +337,22 @@ def _launch(run_dir: Path, sockets: str, crash: bool):
     proc = subprocess.run(
         cmd, cwd=REPO, capture_output=True, text=True, timeout=240,
         env=dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1",
+                 DLROVER_TPU_NODE_CHECK_DEVICE="cpu",
+                 DLROVER_TPU_METADATA_BASE=DEAD_METADATA,
                  **{multi_process.SOCKET_DIR_ENV: sockets}))
     assert proc.returncode == 0, proc.stderr[-4000:]
     out = {}
     for p in rep.glob("rank*_inc*.json"):
         d = json.loads(p.read_text())
         out[(d["rank"], d["restart_count"])] = d
+    if with_output:
+        from dlrover_tpu_torch.observability.events import read_events
+
+        return out, proc.stdout + proc.stderr, read_events(str(events))
     return out
 
 
+@functools.lru_cache(maxsize=None)
 def _jax_losses(steps: int):
     """The JAX package's ``Trainer`` on the port's initial params
     (converted) and the example's batches."""
@@ -383,8 +409,20 @@ def _jax_losses(steps: int):
     return losses
 
 
-def test_worker_killed_mid_run_resumes_bit_for_bit(tmp_path, _port_sockets):
-    base = _launch(tmp_path / "base", _port_sockets, crash=False)
+@pytest.fixture(scope="module")
+def base_run(tmp_path_factory):
+    """The uninterrupted two-process run both crash runs are held to."""
+    sockets = _short_tmp("dtb")
+    root = tmp_path_factory.mktemp("base")
+    try:
+        yield _launch(root, sockets, crash=False), root / "ckpt"
+    finally:
+        shutil.rmtree(sockets, ignore_errors=True)
+
+
+def test_worker_killed_mid_run_resumes_bit_for_bit(tmp_path, _port_sockets,
+                                                   base_run):
+    base, base_ckpt = base_run
     crash = _launch(tmp_path / "crash", _port_sockets, crash=True)
     assert set(base) == {(0, 0), (1, 0)}
     assert set(crash) == {(1, 0), (0, 1), (1, 1)}  # rank 0 was stopped
@@ -403,12 +441,52 @@ def test_worker_killed_mid_run_resumes_bit_for_bit(tmp_path, _port_sockets):
     assert not [n for n in os.listdir("/dev/shm")
                 if n.startswith("dlrover_tpu_torch_ckpt_")
                 and n.split("_")[-2] in (
-                    _engine_name(tmp_path / "base" / "ckpt"),
+                    _engine_name(base_ckpt),
                     _engine_name(tmp_path / "crash" / "ckpt"))]
     want = _jax_losses(6)
     assert [s for s, _ in want] == list(range(1, 7))
     np.testing.assert_allclose([h["loss"] for h in base[(0, 0)]["history"]],
                                [v for _, v in want], atol=ATOL, rtol=0)
+
+
+def test_prefork_restart_through_the_prefetch_resumes_bit_for_bit(
+        tmp_path, _port_sockets, base_run):
+    """``--prefork --network_check``, the overlap on: the crash run of
+    the test above with every worker forked from the agent's zygote."""
+    base, _ckpt = base_run
+    crash, out, evs = _launch(
+        tmp_path / "crash", _port_sockets, crash=True,
+        flags=("--prefork", "--network_check"), with_output=True)
+    assert set(crash) == {(1, 0), (0, 1), (1, 1)}
+    for rep in crash.values():
+        assert rep["entry"] == {
+            "spawn": "zygote", "spawned_at": rep["entry"]["spawned_at"],
+            "torch_preloaded": True, "cuda_initialized": False}
+    assert "plain spawn" not in out
+    # the node check ran before both rendezvous, and the master found
+    # no fault
+    assert out.count("master verdict: fault nodes [] (normal)") == 2
+    for rank in (0, 1):
+        b, c = base[(rank, 0)], crash[(rank, 1)]
+        assert c["io_log"][0][:2] == ["restore_shm", 3]
+        key = [(h["step"], h["loss"], h["grad_norm"]) for h in c["history"]]
+        assert key == [(h["step"], h["loss"], h["grad_norm"])
+                       for h in b["history"][3:]]
+        assert c["digests"] == b["digests"]
+        m = c["marks"]
+        # the staging overlapped the state build
+        assert m["prefetch_start"] < m["state_built"]
+        assert m["state_build_start"] < m["prefetch_end"]
+        pid = c["pid"]
+        spans = {e["name"]: e for e in evs if e.get("pid") == pid
+                 and e["name"] in ("restore_prefetch", "finish_restore")}
+        assert spans["restore_prefetch"]["labels"]["bytes"] == c[
+            "io_log"][0][2]
+        assert spans["finish_restore"]["labels"]["step"] == 3
+        # the restarted steps are the JAX Trainer's
+        np.testing.assert_allclose(
+            [h["loss"] for h in c["history"]],
+            [v for _, v in _jax_losses(6)[3:]], atol=ATOL, rtol=0)
 
 
 def _engine_name(ckpt_dir) -> str:
@@ -473,9 +551,11 @@ def test_a3c_switches_default_off(monkeypatch):
                 or env.brain_enabled() or env.self_obs_enabled())
     # the client's reconnect and epochs stay on
     assert env.master_failover_enabled()
+    # the agent's switches take the reference's defaults: the watcher
+    # and the restart overlap on, the zygote and the node check off
     config = ElasticLaunchConfig()
-    assert not (config.prefork or config.watch_preemption
-                or config.network_check)
+    assert not (config.prefork or config.network_check)
+    assert config.watch_preemption and config.restart_overlap
     m = LocalJobMaster(get_free_port())
     assert m.health_engine is None and m.brain is None
     assert m.job_epoch == 0 and m.incarnation == 0
@@ -494,19 +574,15 @@ def test_a3c_master_subsystems_raise(monkeypatch, name, value):
 
 
 def test_a3c_agent_and_launcher_options_raise(client, tmp_path):
+    """The zygote, the watcher and the node check run (their own tests);
+    what A3c.3 brings still raises."""
     from dlrover_tpu_torch.master import main as master_main
 
     script = _write_script(tmp_path, "raise SystemExit(0)\n")
-    for field in ("prefork", "watch_preemption"):
-        agent = _agent(client, script, nproc=1)
-        setattr(agent._config, field, True)
-        with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
-            agent.run()
     agent = _agent(client, script, nproc=1)
-    agent._config.network_check = True
-    with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
-        agent.run()
-    with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
+    agent._config.watch_preemption = True
+    assert agent.run() == 0
+    with pytest.raises(NotImplementedError, match="ROADMAP A3c.3"):
         agent._start_capture("hang", 1)
     with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
         master_main.main(["--platform", "k8s"])

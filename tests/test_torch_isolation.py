@@ -75,7 +75,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "master.shard.dataset_splitter", "agent.master_client",
               "agent.training", "agent.monitor", "trainer.elastic_run",
               "trainer.drain", "trainer.fault_tolerance",
-              "trainer.elastic.context", "trainer.elastic.trainer"):
+              "trainer.elastic.context", "trainer.elastic.trainer",
+              # the worker's restart path and the agent's services
+              "trainer.restart_path", "agent.zygote", "agent.node_check",
+              "agent.preemption", "agent.replica", "common.netio"):
         assert f"dlrover_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
