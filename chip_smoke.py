@@ -126,9 +126,10 @@ Phases (any failed check raises, so the script exits nonzero):
    imported and CUDA not initialised at their first line; the restarted
    worker must have restored through the prefetch (``restart_path``
    holding a ``restore_prefetch`` of the state's bytes, and a
-   ``finish_restore``), its prefetch window overlapping ``init_state``;
-   the node check must have run on the card before both rendezvous (its
-   matmul and all-reduce times printed) with a normal master verdict;
+   ``finish_restore``), its prefetch begun before ``init_state`` ended;
+   the node check must have run on the card before both rendezvous,
+   forked from the zygote (its matmul and all-reduce times printed),
+   with a normal master verdict;
    no preemption event may fire; the restarted worker must launch B1,
    its backward and B2-B4 and compile nothing, and the launcher must
    leave no process and no segment behind.  Run 2 launches with plain
@@ -141,7 +142,7 @@ Phases (any failed check raises, so the script exits nonzero):
    to disk, the node check, rendezvous, spawn -> entry, ``import
    torch``, the CUDA context, the kernels' libraries, imports,
    ``auto_accelerate``, ``init_state``, the restore, the first step; the
-   prefetch's window and GB/s) and the restarted worker's step times on
+   prefetch's window) and the restarted worker's step times on
    the card's clock.  The training rows of the kernels line carry run
    1's restarted worker's counts as ``elastic_launches``.
 8. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
@@ -3386,8 +3387,8 @@ def zygote_verdict(r):
 def overlap_verdict(r, state_bytes: int):
     """(ok, reading): the restarted worker restored through the prefetch:
     its ``restart_path`` span holds a ``restore_prefetch`` of the state's
-    bytes and a ``finish_restore``, and the prefetch's window overlaps
-    ``init_state``'s."""
+    bytes and a ``finish_restore``, and the prefetch began before
+    ``init_state`` ended."""
     inc1 = r["inc1"]
     m = inc1["marks"]
     mine = [e for e in r["events"] if e.get("pid") == inc1["pid"]]
@@ -3404,14 +3405,13 @@ def overlap_verdict(r, state_bytes: int):
     p = pre[0]
     nbytes = p["labels"]["bytes"]
     inside = path_b[0] <= p["wall"] and p["wall"] + p["dur"] <= path_e[0]
-    lo = max(m["prefetch_start"], m["state_build_start"])
-    hi = min(m["prefetch_end"], m["state_built"])
-    ok = nbytes == state_bytes and inside and hi > lo and bool(fin)
+    lead = m["state_built"] - m["prefetch_start"]
+    ok = nbytes == state_bytes and inside and lead > 0 and bool(fin)
     return ok, (f"restart_path contains restore_prefetch: {inside}; "
-                f"staged {nbytes} B (state {state_bytes} B); "
+                f"prefetched {nbytes} B (state {state_bytes} B); "
                 f"finish_restore {fin[0]['dur']:.3f} s; prefetch window "
-                f"{m['prefetch_end'] - m['prefetch_start']:.3f} s overlaps "
-                f"init_state by {max(hi - lo, 0.0):.3f} s")
+                f"{m['prefetch_end'] - m['prefetch_start']:.3f} s, begun "
+                f"{lead:.3f} s before init_state ended")
 
 
 #: a restart's legs: (label, where its end is read) in order; "mark:"
@@ -3439,8 +3439,8 @@ RESTART_LEGS = (
 
 def restart_legs(r):
     """{leg: seconds} of a restart on the host clock, each from the leg
-    before it, starting at the crashed worker's exit; "total" and the
-    prefetch's window and rate."""
+    before it, starting at the crashed worker's exit; "total", the
+    prefetch's window and the restore's rate."""
     inc0, inc1, evs = r["inc0"], r["inc1"], r["events"]
     m = inc1["marks"]
     # a span's end carries its writer's incarnation, not the label its
@@ -3469,15 +3469,7 @@ def restart_legs(r):
         prev = t
     legs["total"] = prev - inc0["crashed_at"]
     if "prefetch_start" in m:
-        window = m["prefetch_end"] - m["prefetch_start"]
-        staged = [e["labels"] for e in evs
-                  if e["name"] == "restore_prefetch"
-                  and e.get("pid") == inc1["pid"]]
-        legs["prefetch window"] = window
-        if staged:
-            legs["prefetch GB/s"] = staged[0]["bytes"] / 1e9 / window
-            legs["prefetch: allocating on the card"] = staged[0]["alloc_s"]
-            legs["prefetch: preadv -> card"] = staged[0]["copy_s"]
+        legs["prefetch window"] = m["prefetch_end"] - m["prefetch_start"]
     restore = inc1["io_log"][0]
     legs["restore GB/s (bytes over restore)"] = (
         restore[2] / 1e9 / legs["restore (finish_restore or serial load)"])
@@ -3491,8 +3483,7 @@ def print_restart_legs(card, runs):
     log(f"[elastic] {card} | restart legs (host clock, seconds; "
         f"{' | '.join(names)}):")
     order = [label for label, _ in RESTART_LEGS] + [
-        "total", "prefetch window", "prefetch GB/s",
-        "prefetch: allocating on the card", "prefetch: preadv -> card",
+        "total", "prefetch window",
         "restore GB/s (bytes over restore)"]
     for label in order:
         vals = [legs[n].get(label) for n in names]
@@ -3503,16 +3494,18 @@ def print_restart_legs(card, runs):
     return legs
 
 
-def node_check_reading(output: str, kind: str):
-    """(ok, lines): the launcher's node checks ran on the card and the
-    master found no fault, before both rendezvous."""
+def node_check_reading(output: str, kind: str, spawn: str):
+    """(ok, lines): the launcher's node checks ran on the card, spawned
+    as ``spawn`` says ("zygote": forked), and the master found no
+    fault, before both rendezvous."""
     passed = [ln.split("] ", 3)[-1] for ln in output.splitlines()
               if "node check passed in" in ln]
     verdicts = [ln.split("] ", 3)[-1] for ln in output.splitlines()
                 if "master verdict:" in ln]
     ok = (len(passed) == 2 and all(kind in ln for ln in passed)
           and len(verdicts) == 2
-          and all("fault nodes [] (normal)" in v for v in verdicts))
+          and all(f"({spawn} spawn)" in v and "fault nodes [] (normal)"
+                  in v for v in verdicts))
     return ok, passed + verdicts
 
 
@@ -3612,11 +3605,12 @@ def elastic_path(args):
         log(f"[elastic] crash: overlap: {ov}")
         require(ov_ok, f"the restart did not restore through the prefetch "
                 f"beside init_state: {ov}")
-        nc_ok, nc = node_check_reading(r["output"], kind)
+        nc_ok, nc = node_check_reading(r["output"], kind, "zygote")
         for line in nc:
             log(f"[elastic] {card} | crash: {line}")
-        require(nc_ok, "the node check did not pass on the card with a "
-                "normal master verdict before both rendezvous")
+        require(nc_ok, "the node check was not forked by the zygote, or "
+                "did not pass on the card with a normal master verdict, "
+                "before both rendezvous")
         preempt = [e for e in r["events"] if e["name"] in (
             "preemption_signal", "preemption_drain")]
         log(f"[elastic] crash: the preemption watcher polled the stand-in "

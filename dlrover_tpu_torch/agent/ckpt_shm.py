@@ -34,9 +34,12 @@ What changed against the reference, where it touched ``jax``:
 - ``load_state`` hands back CPU tensors viewing the segment (or one
   private copy); ``restore_to_target`` copies them into the target's
   tensors in place, CUDA ones through the same bounce buffers.
-- ``slot_file`` and ``file_to_device`` (new) read a slot with
-  ``preadv`` into the bounce buffers and on to the card, mapping none of
-  the segment's pages (the restart's restore prefetch).
+- ``open_slot`` (new) gives a slot's leaves as ``FileLeaf``s of the
+  segment's file, read with ``preadv``: into private host tensors, or
+  into the bounce buffers and on to the card (``file_to_device``).
+  Both restores read shm this way.  No page of the segment is mapped,
+  so a restarted process does not wait on the first-touch faults of a
+  fresh mapping (``PERF.md``).
 """
 
 import os
@@ -323,53 +326,84 @@ def file_to_device(pieces):
         b.stream.synchronize()
 
 
+class FileLeaf:
+    """One leaf of a shared-memory slot, in the segment's open file:
+    ``read()`` gives a private host tensor; as a ``restore_to_target``
+    value it is read straight onto a CUDA target leaf."""
+
+    def __init__(self, fd: int, offset: int, dts: str, shape, nbytes: int):
+        self.fd, self.offset, self.nbytes = fd, offset, nbytes
+        self.dtype = torch_dtype(dts)
+        self.shape = tuple(int(d) for d in shape)
+
+    def range(self) -> FileRange:
+        return FileRange(self.fd, self.offset, self.nbytes)
+
+    def read(self) -> torch.Tensor:
+        t = torch.empty(self.shape, dtype=self.dtype)
+        if self.nbytes:
+            parallel_io.parallel_pread(self.fd, _u8(t).numpy(), self.offset)
+        return t
+
+
 def _as_tensor(value) -> torch.Tensor:
     if torch.is_tensor(value):
         return value
     return torch.from_numpy(np.ascontiguousarray(np.asarray(value)))
 
 
-def restore_to_target(target, arrays: Dict[str, torch.Tensor],
-                      copy_host: bool = False):
-    """Copy {keypath: CPU tensor} into ``target``: a port train state
-    (its tensors are written in place, its Python counts set; the same
-    object is returned) or a nested dict (tensors written in place, any
-    other leaf replaced by the restored value, in a new dict).  CUDA
-    targets are filled through the bounce buffers and the call returns
-    once the bytes are on the card, so the source views (zero-copy shm)
-    may be dropped.  ``copy_host=True`` copies values that stay on the
-    host (required when ``arrays`` views live shm)."""
+def restore_to_target(target, arrays: Dict[str, object]):
+    """Copy {keypath: CPU tensor or ``FileLeaf``} into ``target``: a port
+    train state (its tensors are written in place, its Python counts
+    set; the same object is returned) or a nested dict (tensors written
+    in place, any other leaf replaced by the restored value, in a new
+    dict).  CUDA targets are filled through the bounce buffers and the
+    call returns once the bytes are on the card."""
     leaves = _target_leaves(target)
     missing = [key for key, _leaf in leaves if key not in arrays]
     if missing:
         raise KeyError(f"checkpoint missing leaf {missing[0]}")
     return restore_batches_to_target(
-        target, [[(key, arrays[key]) for key, _leaf in leaves]], copy_host)
+        target, [[(key, arrays[key]) for key, _leaf in leaves]])
 
 
-def restore_batches_to_target(target, batches, copy_host: bool = False):
+def _reads_onto(leaf, value) -> bool:
+    """Whether the ``FileLeaf`` ``value`` can be read straight into the
+    target ``leaf``: a contiguous CUDA tensor of its dtype and shape."""
+    return (isinstance(value, FileLeaf) and torch.is_tensor(leaf)
+            and leaf.device.type == "cuda" and leaf.is_contiguous()
+            and leaf.dtype == value.dtype
+            and tuple(leaf.shape) == value.shape)
+
+
+def restore_batches_to_target(target, batches):
     """``restore_to_target`` over leaves that arrive in batches (lists of
-    ``(keypath, CPU tensor)``, the restore prefetch's leaves as their
-    pages land): each batch's CUDA leaves cross in one ``host_to_device``
-    before the next batch is awaited.  Keys the target lacks are
-    ignored; a target leaf no batch brought raises ``KeyError`` at the
-    end."""
+    ``(keypath, CPU tensor or FileLeaf)``, the restore prefetch's leaves
+    as they land): each batch's CUDA leaves cross in one
+    ``host_to_device`` and one ``file_to_device`` before the next batch
+    is awaited.  Keys the target lacks are ignored; a target leaf no
+    batch brought raises ``KeyError`` at the end."""
     slots = dict(_target_leaves(target))
     replaced = {}
     seen = set()
     for batch in batches:
-        device_pieces = []
+        device_pieces, file_pieces = [], []
         for key, value in batch:
             leaf = slots.get(key)
             if leaf is None:
                 continue
             seen.add(key)
+            if _reads_onto(leaf, value):
+                file_pieces.append((_u8(leaf), value.range()))
+                continue
+            if isinstance(value, FileLeaf):
+                value = value.read()
             value = _as_tensor(value)
             if isinstance(leaf, HostScalar):
                 leaf.set(value.item())
                 continue
             if not torch.is_tensor(leaf):
-                replaced[key] = value.clone() if copy_host else value
+                replaced[key] = value
                 continue
             if tuple(value.shape) != tuple(leaf.shape):
                 raise ValueError(
@@ -383,11 +417,10 @@ def restore_batches_to_target(target, batches, copy_host: bool = False):
                         f"leaf {key}: target is not contiguous")
                 device_pieces.append((_u8(leaf), _u8(value).numpy()))
             else:
-                # host to host, or a leaf the restore prefetch already
-                # staged on the card: a copy on the current stream
                 with torch.no_grad():
                     leaf.copy_(value)
         host_to_device(device_pieces)
+        file_to_device(file_pieces)
     missing = sorted(set(slots) - seen)
     if missing:
         raise KeyError(f"checkpoint missing leaf {missing[0]}")
@@ -690,6 +723,23 @@ class SharedMemoryHandler:
         return (os.path.join(SHM_DIR, self._shm_name),
                 int(slot.get("step", -1)), int(slot.get("base", 0)),
                 slot["specs"])
+
+    def open_slot(self, step: Optional[int] = None
+                  ) -> Optional[Tuple[int, int, Dict[str, FileLeaf]]]:
+        """``(fd, step, {keypath: FileLeaf})`` of the slot holding
+        ``step`` (None = newest), or None; the caller closes ``fd`` (an
+        open one keeps an unlinked segment's memory)."""
+        src = self.slot_file(step)
+        if src is None:
+            return None
+        path, got, base, specs = src
+        try:
+            fd = os.open(path, os.O_RDONLY)
+        except FileNotFoundError:
+            return None
+        return fd, got, {
+            key: FileLeaf(fd, base + int(off), dts, shape, int(nbytes))
+            for key, dts, shape, off, nbytes in specs}
 
     def load_state(self, copy: bool = True, step: Optional[int] = None
                    ) -> Tuple[int, Dict[str, torch.Tensor]]:

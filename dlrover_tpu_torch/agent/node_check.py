@@ -14,8 +14,9 @@ card, gloo on the CPU (``DLROVER_TPU_NODE_CHECK_DEVICE=cpu``; the
 default is the card, and without one the check fails).  A plain
 ``torch.matmul``: no Pallas kernel stands behind the reference's.
 
-The payload runs in a throwaway subprocess so a wedged card cannot hang
-the agent; the elapsed time goes back to the master's
+The payload runs in a throwaway subprocess (forked from the agent's
+zygote under ``--prefork``) so a wedged card cannot hang the agent; the
+elapsed time goes back to the master's
 ``NetworkCheckRendezvousManager``, which shuffles pair groups across two
 rounds to isolate the straggler / fault node.
 """
@@ -24,6 +25,7 @@ import json
 import os
 import time
 
+from dlrover_tpu_torch.agent.zygote import SPAWN_ENV
 from dlrover_tpu_torch.common.log import default_logger as logger
 
 # the reference's payload scale (matmul K x K, 16M-element allreduce)
@@ -143,6 +145,8 @@ def main() -> int:
     except Exception as e:  # noqa: BLE001
         logger.error("node check failed: %s", e)
         return 1
+    # how the agent started this payload: forked from its zygote, or not
+    result["spawn"] = os.getenv(SPAWN_ENV, "plain")
     # elapsed seconds on the first line, as the reference writes it (the
     # agent forwards it to the master: report_network_status), then the
     # timings as JSON

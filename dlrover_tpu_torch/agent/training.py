@@ -659,9 +659,10 @@ class ElasticTrainingAgent:
         faults, reason = self._client.check_fault_node()
         slowest = max(results, key=lambda r: r["elapsed"], default={})
         self.node_check = dict(slowest, fault_nodes=faults, reason=reason)
+        spawns = ",".join(sorted({r.get("spawn", "?") for r in results}))
         logger.info(
-            "node check of node %d: %s in %.3fs; master verdict: fault "
-            "nodes %s%s", self._node_rank,
+            "node check of node %d (%s spawn): %s in %.3fs; master "
+            "verdict: fault nodes %s%s", self._node_rank, spawns or "no",
             "passed" if rc == 0 else f"failed (exit {rc})", elapsed,
             faults, f" ({reason})" if reason else " (normal)")
         if rc != 0:
@@ -670,9 +671,11 @@ class ElasticTrainingAgent:
             )
 
     def _run_node_check_payload(self, tmp: str):
-        """Run ``nproc_per_node`` payload processes; returns (their
-        results, the worst exit code).  A wedged card must not hang the
-        agent: a payload still running after 300 s is killed."""
+        """Run ``nproc_per_node`` payload processes, forked from the
+        zygote when there is one (no ``import torch`` of their own);
+        returns (their results, the worst exit code).  A wedged card
+        must not hang the agent: a payload still running after 300 s is
+        killed."""
         from dlrover_tpu_torch.agent import node_check
 
         nproc = max(self._config.nproc_per_node, 1)
@@ -687,9 +690,12 @@ class ElasticTrainingAgent:
                 node_check.WORLD_ENV: str(nproc),
                 node_check.ADDR_ENV: addr,
             })
-            procs.append(subprocess.Popen(  # noqa: S603
-                [sys.executable, "-m", "dlrover_tpu_torch.agent.node_check"],
-                env=env))
+            argv = [sys.executable, "-m",
+                    "dlrover_tpu_torch.agent.node_check"]
+            if self._zygote is not None:
+                procs.append(self._zygote.spawn(argv, env))
+            else:
+                procs.append(subprocess.Popen(argv, env=env))  # noqa: S603
         deadline = time.time() + 300
         rc = 0
         for proc in procs:

@@ -22,14 +22,14 @@ What changed against the reference, where it touched ``jax``:
   on the caller's stream at the call.
 - A restore copies into the initialised state's tensors in place (the
   reference ``device_put``s onto the target's shardings).
-- The prefetch stages shm leaves on the card when it has room: read
-  with ``preadv`` through the bounce buffers, so no page of the segment
-  is mapped, and the restore copies card to card.  Otherwise it maps
-  each leaf's pages on its own thread (one read a page) before
-  publishing the view.  The reference publishes zero-copy views whose
-  pages the consumer faults in on the main thread: on the card's
-  machine those first touches are the whole of the restore's cost
-  (``PERF.md``).
+- Both restores read shm with ``preadv`` of the segment's file
+  (``SharedMemoryHandler.open_slot``) straight into the target's
+  tensors, so no page of it is mapped; the prefetch opens the slot and
+  copies none of it.  The reference maps the slot and hands out views
+  whose pages the consumer faults in on the main thread: on the card's
+  machine those first touches are the whole of the restore's cost, and
+  staging the slot in host memory beside ``init_state`` stretches
+  ``init_state`` by more than it saves (``PERF.md``).
 - The restore-step consensus is the local answer when the world is 1,
   ``torch.distributed.all_gather_object`` when a process group is
   initialised, and an error otherwise: a multi-process engine with no
@@ -70,16 +70,13 @@ from dlrover_tpu_torch.agent.ckpt_shm import (
     _flatten_keyed,
     _leaf_meta,
     _target_leaves,
-    FileRange,
-    _u8,
-    file_to_device,
+    FileLeaf,
     itemsize,
     read_shard_file,
     restore_batches_to_target,
     restore_to_target,
     shard_lock,
     stream_shard_leaves,
-    torch_dtype,
 )
 from dlrover_tpu_torch.common.env import ckpt_close_timeout_s
 from dlrover_tpu_torch.trainer.checkpoint import reshard as _reshard
@@ -125,38 +122,49 @@ def _agent_factory_queue_exists() -> bool:
         probe.close()
 
 
-#: shm leaves smaller than this are staged in host memory (a step count,
-#: norm weights), the rest on the card
-DEVICE_STAGE_MIN_BYTES = 1 << 20
-#: card memory left free beyond the state and its staged copy
-CARD_STAGE_HEADROOM_BYTES = 4 << 30
-
-
 class _StagedCandidate:
-    """Leaves of one restorable step, published as their bytes land.
+    """Leaves of one restorable step, published as they become readable.
 
     The prefetch thread is the single producer; ``finish_restore`` is
-    the single consumer.  A condition variable lets the consumer copy
-    leaf k to the card while the producer is still staging leaf k+1 —
-    the restore's device transfers pipeline against the tail of the
-    staging instead of waiting on a whole-state barrier."""
+    the single consumer.  A storage candidate publishes each leaf as its
+    bytes land in host memory, and the consumer copies leaf k to the
+    card while the producer reads leaf k+1.  A shm candidate publishes
+    every leaf of the slot at once, as a ``FileLeaf`` of the segment's
+    file, which the consumer reads straight into the target: staging a
+    slot in host memory beside ``init_state`` stretches ``init_state``
+    by more than the copy it saves (``PERF.md``)."""
 
-    def __init__(self, source: str, zero_copy: bool):
+    def __init__(self, source: str):
         self.source = source  # "shm" | "storage"
-        #: True when arrays are views onto live shm (the consumer must
-        #: copy any leaf that stays on host, like the serial path)
-        self.zero_copy = zero_copy
-        self.arrays: Dict[str, torch.Tensor] = {}
+        self.arrays: Dict[str, object] = {}
         self._order: List[str] = []
         self._cv = threading.Condition()
         self._done = False
         self.failed = False
+        #: the slot's open file (shm), closed by ``close``
+        self._fd: Optional[int] = None
 
     def publish(self, key: str, arr):
         with self._cv:
             self.arrays[key] = arr
             self._order.append(key)
             self._cv.notify_all()
+
+    def publish_file(self, fd: int, leaves: Dict[str, FileLeaf]):
+        """Publish a slot's leaves, readable from ``fd`` (now owned)."""
+        with self._cv:
+            self._fd = fd
+            self.arrays.update(leaves)
+            self._order.extend(leaves)
+            self._cv.notify_all()
+
+    def close(self):
+        """Close the slot's file and drop the leaves."""
+        with self._cv:
+            fd, self._fd = self._fd, None
+            self.arrays.clear()
+        if fd is not None:
+            os.close(fd)
 
     def finish(self, failed: bool = False):
         with self._cv:
@@ -167,9 +175,9 @@ class _StagedCandidate:
             self._cv.notify_all()
 
     def iter_batches(self, timeout: float = 600.0):
-        """Yield lists of ``(key, tensor)``: every leaf that landed since
-        the last yield, blocking for the next while the producer is
-        still staging."""
+        """Yield lists of ``(key, tensor or FileLeaf)``: every leaf
+        published since the last yield, blocking for the next while the
+        producer is still at work."""
         i = 0
         deadline = time.monotonic() + timeout
         while True:
@@ -188,46 +196,42 @@ class _StagedCandidate:
                     return
                 keys = self._order[i:]
                 i = len(self._order)
-            yield [(key, self.arrays[key]) for key in keys]
+                batch = [(key, self.arrays[key]) for key in keys]
+            yield batch
 
-    def wait_all(self, timeout: float = 600.0) -> Dict[str, torch.Tensor]:
+    def wait_all(self, timeout: float = 600.0) -> Dict[str, object]:
         for _ in self.iter_batches(timeout):
             pass
         return self.arrays
 
 
 class RestorePrefetch:
-    """Background staging of restore bytes into host memory, started the
-    moment the worker knows its rank and checkpoint dir, so that the
-    staging overlaps the state build (``init_state``) and any other leg
-    of the restart before the restore.
+    """Background preparation of the restore, started the moment the
+    worker knows its rank and checkpoint dir, so that it overlaps the
+    state build (``init_state``) and any other leg of the restart
+    before the restore.
 
-    Stages the newest shm snapshot and, when storage holds a step shm
-    does not, streams that shard file leaf by leaf into one private
-    buffer.  A restarted process maps the agent's segment afresh, and
-    the first touch of each page, not the copy, is what a restore
-    through a mapping waits on (``PERF.md``).  So with a CUDA ``device``
-    and room on it for a second copy of the state, each shm leaf is read
-    with ``preadv`` (no page mapped) through the pinned bounce buffers
-    into a tensor of its own on the card (``ckpt_shm.file_to_device``),
-    leaves under ``DEVICE_STAGE_MIN_BYTES`` into host memory; the
-    restore then copies card to card.  Otherwise each leaf is a view of
-    the segment whose pages this thread maps, one read a page
-    (``parallel_io.parallel_touch``).  Both release the GIL, so the
-    main thread builds the state meanwhile.  Nothing here agrees a
-    step or writes the state;
-    :meth:`CheckpointEngine.finish_restore` consumes the staged leaves
-    after the cross-rank step agreement, and ANY failure in this thread
-    degrades the restore to the serial ``load`` path (``error`` is set,
-    nothing is ever half-applied)."""
+    Resolves what is restorable (the shm steps, the newest committed
+    storage step), opens the newest shm slot and publishes its leaves as
+    ``FileLeaf``s, and, when storage holds a step shm does not, streams
+    that shard file leaf by leaf into host memory.  A shm slot is not
+    copied here: ``finish_restore`` reads it with ``preadv`` straight
+    into the built state, which maps no page of the segment (a fresh
+    mapping's first touches are what a restore through one waits on),
+    and a copy into host memory beside ``init_state`` stretches
+    ``init_state`` by more than it saves (``PERF.md``).  Nothing here
+    agrees a step or writes the state;
+    :meth:`CheckpointEngine.finish_restore` consumes the published
+    leaves after the cross-rank step agreement, and ANY failure in this
+    thread degrades the restore to the serial ``load`` path (``error``
+    is set, nothing is ever half-applied)."""
 
     def __init__(self, engine: "CheckpointEngine",
                  checkpoint_dir: Optional[str] = None,
-                 start_gate=None, layouts=None, device=None):
+                 start_gate=None, layouts=None):
         self._engine = engine
         self._dir = checkpoint_dir
         self._gate = start_gate
-        self._device = None if device is None else torch.device(device)
         #: requested per-leaf global layouts for THIS rank's new
         #: slices (reshard-aware restore); None = same-world
         self._layouts = layouts
@@ -235,12 +239,9 @@ class RestorePrefetch:
         self.shm_steps: List[int] = []
         self.storage_step = -1
         self.storage_dir: Optional[str] = None
+        #: bytes made readable: the shm slot's leaves, the storage leaves
+        #: landed in host memory
         self.staged_bytes = 0
-        #: where the shm leaves were staged ("card" or "host") and the
-        #: seconds the card staging spent allocating and copying
-        self.staged_on = ""
-        self.alloc_s = 0.0
-        self.copy_s = 0.0
         #: host wall-clock times (``time.time()``) the staging began and
         #: ended (None until then)
         self.started_at: Optional[float] = None
@@ -265,6 +266,13 @@ class RestorePrefetch:
 
     def join(self, timeout: float = 300.0):
         self._thread.join(timeout)
+
+    def release(self, timeout: float = 300.0):
+        """Wait for the thread, then drop what it holds: the slot's file
+        and the storage leaves."""
+        self.join(timeout)
+        for cand in list(self._candidates.values()):
+            cand.close()
 
     @property
     def done(self) -> bool:
@@ -306,7 +314,7 @@ class RestorePrefetch:
         newest_shm = self.shm_steps[0] if self.shm_steps else -1
         shm_cand = None
         if newest_shm >= 0:
-            shm_cand = _StagedCandidate("shm", zero_copy=True)
+            shm_cand = _StagedCandidate("shm")
             self._candidates[newest_shm] = shm_cand
         storage_cand = None
         if (
@@ -320,7 +328,7 @@ class RestorePrefetch:
             # read of exactly that step
             and self.storage_step > newest_shm
         ):
-            storage_cand = _StagedCandidate("storage", zero_copy=False)
+            storage_cand = _StagedCandidate("storage")
             self._candidates[self.storage_step] = storage_cand
         self._avail.set()
         if shm_cand is not None:
@@ -337,34 +345,20 @@ class RestorePrefetch:
             dur,
             bytes=self.staged_bytes,
             steps=sorted(self._candidates),
-            staged_on=self.staged_on,
-            alloc_s=round(self.alloc_s, 6),
-            copy_s=round(self.copy_s, 6),
         )
 
     def _stage_shm(self, step: int, cand: _StagedCandidate):
         try:
-            src = self._engine._shm_handler.slot_file(step)
-            if src is None or src[1] != step:
+            slot = self._engine._shm_handler.open_slot(step)
+            if slot is not None and slot[1] != step:
+                os.close(slot[0])
+                slot = None
+            if slot is None:
                 cand.finish(failed=True)
                 return
-            if self._card_has_room(src[3]):
-                cand.zero_copy = False  # private tensors, not views
-                self.staged_on = "card"
-                self._stage_shm_on_card(src, cand)
-                return
-            self.staged_on = "host"
-            got, arrays = self._engine._shm_handler.load_state(
-                copy=False, step=step
-            )
-            if got != step:
-                cand.finish(failed=True)
-                return
-            for key, value in arrays.items():
-                if value.numel():
-                    parallel_io.parallel_touch(_u8(value).numpy())
-                self.staged_bytes += int(value.nbytes)
-                cand.publish(key, value)
+            fd, _step, leaves = slot
+            cand.publish_file(fd, leaves)
+            self.staged_bytes += sum(leaf.nbytes for leaf in leaves.values())
             cand.finish()
         except Exception as e:  # noqa: BLE001
             cand.finish(failed=True)
@@ -372,43 +366,6 @@ class RestorePrefetch:
                 "rank %s: shm prefetch of step %s failed: %s",
                 self._engine._rank, step, e,
             )
-
-    def _card_has_room(self, specs) -> bool:
-        """A CUDA device with room for the state, its staged copy and
-        ``CARD_STAGE_HEADROOM_BYTES`` (the state is built beside it)."""
-        dev = self._device
-        if dev is None or dev.type != "cuda":
-            return False
-        free, _total = torch.cuda.mem_get_info(dev)
-        need = sum(int(spec[4]) for spec in specs)
-        return free >= 2 * need + CARD_STAGE_HEADROOM_BYTES
-
-    def _stage_shm_on_card(self, src, cand: _StagedCandidate):
-        path, _step, base, specs = src
-        dev = self._device
-        fd = os.open(path, os.O_RDONLY)
-        try:
-            with torch.cuda.device(dev):
-                for key, dts, shape, off, nbytes in specs:
-                    nbytes = int(nbytes)
-                    host = nbytes < DEVICE_STAGE_MIN_BYTES
-                    t0 = time.perf_counter()
-                    t = torch.empty(tuple(shape), dtype=torch_dtype(dts),
-                                    device="cpu" if host else dev)
-                    t1 = time.perf_counter()
-                    if host:
-                        parallel_io.parallel_pread(
-                            fd, _u8(t).numpy(), base + int(off))
-                    elif nbytes:
-                        file_to_device([(_u8(t), FileRange(
-                            fd, base + int(off), nbytes))])
-                    self.alloc_s += t1 - t0
-                    self.copy_s += time.perf_counter() - t1
-                    self.staged_bytes += nbytes
-                    cand.publish(key, t)
-        finally:
-            os.close(fd)
-        cand.finish()
 
     def _stage_storage(self, step: int, ckpt_dir: str,
                        cand: _StagedCandidate):
@@ -701,8 +658,9 @@ class CheckpointEngine:
     # -- load --------------------------------------------------------------
     def load(self, target=None, checkpoint_dir: Optional[str] = None,
              layouts=None):
-        """Restore the newest globally-agreed state: shm first
-        (zero-copy views copied straight to the card), storage next.
+        """Restore the newest globally-agreed state: shm first (read
+        from the segment's file straight into the target), storage
+        next.
 
         The restore step is reconciled across processes before any data
         moves: after a node replacement, surviving ranks may hold a
@@ -742,48 +700,44 @@ class CheckpointEngine:
         data path, shared by ``load`` and ``finish_restore``'s
         fallback)."""
         shm_step = shm_steps[0] if shm_steps else -1
-        zero_copy = False
         source = "shm"
-        step, arrays = -1, {}
+        step, arrays, fd = -1, {}, None
         if agreed in shm_steps:
-            # zero-copy: views onto shm, copied to the card in
-            # restore_to_target (which returns once the bytes are
-            # there, so the next snapshot can't clobber the views)
-            zero_copy = target is not None
-            step, arrays = self._shm_handler.load_state(
-                copy=not zero_copy, step=agreed
+            slot = self._shm_handler.open_slot(agreed)
+            if slot is not None:
+                fd, step, arrays = slot
+        try:
+            if step != agreed and storage_step == agreed:
+                # shm miss (or invalidated between get_step and
+                # open_slot): storage holds the agreed step too
+                source = "storage"
+                step, arrays = self._read_storage_step_dir(
+                    latest_dir, layouts
+                )
+            if step != agreed:
+                source = "storage"
+                step, arrays = self._load_storage_step(
+                    agreed, checkpoint_dir, layouts
+                )
+            if step != agreed or not arrays:
+                # peers WILL resume from `agreed`; silently starting
+                # fresh here would be exactly the mixed-step divergence
+                # the consensus exists to prevent — fail loudly instead
+                raise RuntimeError(
+                    f"rank {self._rank}: globally-agreed restore step "
+                    f"{agreed} unavailable locally (shm={shm_step} "
+                    f"storage={storage_step})"
+                )
+            restored_bytes = sum(
+                int(getattr(v, "nbytes", 0)) for v in arrays.values()
             )
-        if step != agreed and storage_step == agreed:
-            # shm miss (or invalidated between get_step and load_state):
-            # storage holds the agreed step too
-            zero_copy = False
-            source = "storage"
-            step, arrays = self._read_storage_step_dir(
-                latest_dir, layouts
-            )
-        if step != agreed:
-            zero_copy = False
-            source = "storage"
-            step, arrays = self._load_storage_step(
-                agreed, checkpoint_dir, layouts
-            )
-        if step != agreed or not arrays:
-            # peers WILL resume from `agreed`; silently starting fresh
-            # here would be exactly the mixed-step divergence the
-            # consensus exists to prevent — fail loudly instead
-            raise RuntimeError(
-                f"rank {self._rank}: globally-agreed restore step "
-                f"{agreed} unavailable locally (shm={shm_step} "
-                f"storage={storage_step})"
-            )
-        restored_bytes = sum(
-            int(getattr(v, "nbytes", 0)) for v in arrays.values()
-        )
-        if target is not None:
-            # copy_host guards non-device leaves from aliasing live shm
-            arrays = restore_to_target(
-                target, arrays, copy_host=zero_copy
-            )
+            if target is not None:
+                arrays = restore_to_target(target, arrays)
+            else:
+                arrays = _private(arrays)
+        finally:
+            if fd is not None:
+                os.close(fd)
         from dlrover_tpu_torch.common.parallel_io import throughput_gbps
         from dlrover_tpu_torch.observability.metrics import record_ckpt_io
 
@@ -801,21 +755,20 @@ class CheckpointEngine:
         return step, arrays
 
     def start_prefetch(self, checkpoint_dir: Optional[str] = None,
-                       start_gate=None, layouts=None,
-                       device=None) -> RestorePrefetch:
-        """Begin staging restore bytes into host memory on a background
-        thread — the first leg of the overlapped restart critical path
+                       start_gate=None, layouts=None) -> RestorePrefetch:
+        """Begin preparing the restore on a background thread (the
+        restorable steps, the newest shm slot opened, a storage step
+        that shm lacks streamed into host memory) — the first leg of
+        the overlapped restart critical path
         (see ``trainer/restart_path.py``).  Callable before the state
         or the process group exist: it touches only shm and storage.
         ``layouts`` makes the staging reshard-aware: the byte stream
-        reads whichever shard files cover this rank's NEW slices.
-        ``device`` is where the state will live: a CUDA device with room
-        gets the shm leaves staged on it (``RestorePrefetch``).  Pair
+        reads whichever shard files cover this rank's NEW slices.  Pair
         with :meth:`finish_restore`; ``load`` stays the serial
         equivalent."""
         return RestorePrefetch(
             self, checkpoint_dir=checkpoint_dir,
-            start_gate=start_gate, layouts=layouts, device=device,
+            start_gate=start_gate, layouts=layouts,
         )
 
     def finish_restore(self, prefetch: Optional[RestorePrefetch],
@@ -827,14 +780,14 @@ class CheckpointEngine:
 
         Runs the SAME cross-rank step consensus as ``load`` (over the
         prefetch's availability snapshot — the row this rank publishes
-        must describe the bytes it staged), then copies the staged
-        leaves into ``target`` batch by batch as they land: card to card
-        for leaves staged on the card, through the bounce pipeline for
-        host ones.  Any prefetch failure, consensus
-        miss on the staged step, or staging error degrades to the
-        serial ``_restore_agreed``/``load`` path — byte-identical
-        result, never a half-applied state.  Returns what ``load``
-        returns.
+        must describe the bytes it staged), then copies the published
+        leaves into ``target`` batch by batch as they land: a shm
+        slot's from the segment's file straight into the target, a
+        storage stream's from host memory.  Any prefetch
+        failure, consensus miss on the staged step, or staging error
+        degrades to the serial ``_restore_agreed``/``load`` path —
+        byte-identical result, never a half-applied state.  Returns
+        what ``load`` returns.
 
         ``layouts`` supersedes the prefetch's (a caller may only learn
         its target slices AFTER the blind prefetch launched — the
@@ -843,17 +796,23 @@ class CheckpointEngine:
         every fallback is layout-aware, so a blind prefetch that staged
         the wrong world's shard degrades into the reshard leg instead
         of a mis-sharded (or failed) restore."""
+        if prefetch is None:
+            return self.load(target=target, checkpoint_dir=checkpoint_dir,
+                             layouts=layouts)
+        try:
+            return self._finish_restore(prefetch, target, checkpoint_dir,
+                                        layouts)
+        finally:
+            prefetch.release()
+
+    def _finish_restore(self, prefetch: RestorePrefetch, target,
+                        checkpoint_dir, layouts):
         t0_mono = time.monotonic()
         t0_wall = anchored_now(t0_mono)
-        if layouts is None and prefetch is not None:
+        if layouts is None:
             layouts = prefetch._layouts
-        if (
-            prefetch is None
-            or not prefetch.wait_available(300)
-            or prefetch.error is not None
-        ):
-            if prefetch is not None:
-                prefetch.join()
+        if not prefetch.wait_available(300) or prefetch.error is not None:
+            prefetch.release()
             return self.load(
                 target=target, checkpoint_dir=checkpoint_dir,
                 layouts=layouts,
@@ -868,11 +827,10 @@ class CheckpointEngine:
             shm_steps, prefetch.storage_step
         )
         if agreed < 0:
-            prefetch.join()
             return -1, None
 
         def _serial():
-            prefetch.join()
+            prefetch.release()
             return self._restore_agreed(
                 agreed, target, checkpoint_dir, shm_steps,
                 prefetch.storage_step, prefetch.storage_dir,
@@ -923,17 +881,12 @@ class CheckpointEngine:
 
     def _consume_staged(self, cand: _StagedCandidate, agreed: int,
                         target):
-        """Apply one staged candidate.  With a target, each batch of
-        landed leaves crosses to the card the moment it lands (one
-        ``host_to_device`` a batch, while the producer stages the
-        next): the same values and the same host-copy discipline as
-        ``restore_to_target``."""
+        """Apply one staged candidate: copy each batch of published
+        leaves into ``target`` as it lands (a shm slot's all at once,
+        read from its file; a storage stream's while the producer reads
+        the next batch): the same values as ``restore_to_target``."""
         if target is None:
-            arrays = dict(cand.wait_all())
-            if cand.zero_copy:
-                # serial parity: load(target=None) returns standalone
-                # copies (shm may be overwritten afterwards)
-                arrays = {k: v.clone() for k, v in arrays.items()}
+            arrays = _private(cand.wait_all())
             nbytes = sum(int(v.nbytes) for v in arrays.values())
             return agreed, arrays, nbytes
         nbytes = 0
@@ -944,12 +897,7 @@ class CheckpointEngine:
                 nbytes += sum(int(v.nbytes) for _k, v in batch)
                 yield batch
 
-        state = restore_batches_to_target(
-            target, batches(), copy_host=cand.zero_copy)
-        # the staged copies (on the card, a second state) go now, before
-        # the caller allocates its snapshot buffers and activations
-        cand.arrays.clear()
-        return agreed, state, nbytes
+        return agreed, restore_batches_to_target(target, batches()), nbytes
 
     def _sync_restore_step(self, shm_steps, storage_step: int) -> int:
         """Cross-process consensus on the restore step: the NEWEST step
@@ -1227,6 +1175,12 @@ class CheckpointEngine:
         if self._local_saver is not None:
             self._local_saver.close(unlink=True)
             AsyncCheckpointSaver._instance = None
+
+
+def _private(arrays) -> Dict[str, torch.Tensor]:
+    """{keypath: CPU tensor}, the slot's leaves read out of its file."""
+    return {k: v.read() if isinstance(v, FileLeaf) else v
+            for k, v in arrays.items()}
 
 
 def _ready_event(pairs) -> Optional["torch.cuda.Event"]:

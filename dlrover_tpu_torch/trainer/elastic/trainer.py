@@ -11,18 +11,17 @@ exposes ``num_micro_steps`` and ``accumulate_gradients``, an eager sum
 over micro-batches whose grads are tensors (or dicts, lists and tuples
 of them).  Progress reporting goes straight to the master over gRPC
 from rank 0 and to a step file the agent's ``TrainingMonitor`` watches
-(``DLROVER_TPU_STEP_FILE``, which the agent sets per job; the JAX
-version's default is one path a machine, ``/tmp/dlrover_tpu_global_step
-.json``, the port's ``dlrover_tpu_torch_global_step.json`` in the temp
-dir).  Each rank on a card also writes the card's memory in use
-(``torch.cuda``) to ``DLROVER_TPU_CHIP_STATS_FILE`` (a ``.json`` file,
-or a directory with one ``rank<r>.json`` a rank), which the agent's
-``ResourceMonitor`` reads.
+(``DLROVER_TPU_STEP_FILE``, which the agent sets per job; with none set,
+no step file is written: the JAX version's default of one path a
+machine has no reader outside an agent).  Each rank on a card also
+writes the card's memory in use (``torch.cuda``) to
+``DLROVER_TPU_CHIP_STATS_FILE`` (a ``.json`` file, or a directory with
+one ``rank<r>.json`` a rank), which the agent's ``ResourceMonitor``
+reads.
 """
 
 import json
 import os
-import tempfile
 import time
 from typing import Callable, Optional
 
@@ -41,11 +40,6 @@ from dlrover_tpu_torch.trainer.elastic.context import (
 
 STEP_FILE_ENV = "DLROVER_TPU_STEP_FILE"
 CHIP_STATS_ENV = "DLROVER_TPU_CHIP_STATS_FILE"
-
-
-def default_step_file() -> str:
-    return os.path.join(tempfile.gettempdir(),
-                        "dlrover_tpu_torch_global_step.json")
 
 
 def _write_json(path: str, data):
@@ -118,9 +112,7 @@ class ElasticTrainer:
             1, (global_batch_size + per_step - 1) // per_step
         )
         self.global_step = 0
-        self._step_file = step_file or os.getenv(
-            STEP_FILE_ENV, default_step_file()
-        )
+        self._step_file = step_file or os.getenv(STEP_FILE_ENV, "")
         self._device = device
         self._report_interval = report_interval
         self._last_report = 0.0
@@ -157,8 +149,9 @@ class ElasticTrainer:
         self._write_chip_stats(now)
         if self.rank != 0:
             return
-        _write_json(self._step_file,
-                    {"step": self.global_step, "timestamp": now})
+        if self._step_file:
+            _write_json(self._step_file,
+                        {"step": self.global_step, "timestamp": now})
         client = self._master_client()
         if client is not None:
             try:

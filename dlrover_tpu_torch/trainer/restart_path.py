@@ -6,8 +6,7 @@ latency is goodput lost to every failure, and the post-restart sequence
 first step — would run strictly serially although its expensive legs
 use disjoint resources:
 
-- **restore** moves bytes (shm/storage → host memory → card); from shm
-  its cost is the first touch of the agent's pages in a fresh mapping;
+- **restore** moves bytes (shm/storage → host memory → card);
 - **state build** (``init_state``: the params and optimizer state on
   the card) runs kernels and the caching allocator;
 - **rendezvous** is pure coordination wait.
@@ -16,11 +15,12 @@ This module sequences them so the restore's staging runs beside the
 others:
 
 1. :meth:`RestartCoordinator.start` kicks the restore **byte prefetch**
-   (``CheckpointEngine.start_prefetch``: the shm slot read onto the
-   card, or the leaf-streamed storage read, on a thread) the moment the
-   worker knows its checkpoint dir;
+   (``CheckpointEngine.start_prefetch``: what is restorable, the shm
+   slot opened, or the leaf-streamed storage read, on a thread) the
+   moment the worker knows its checkpoint dir;
 2. :meth:`finish_restore` runs the cross-rank step consensus and copies
-   the staged leaves to the card as they land
+   the leaves to the card, a shm slot's straight from the segment's
+   file, a storage stream's as they land
    (``CheckpointEngine.finish_restore``);
 3. :meth:`resolve_train_step` hands the first step a compiled artifact
    when a compile leg delivered one.  The reference's compile leg
@@ -152,7 +152,7 @@ class RestartCoordinator:
     # ------------------------------------------------------------ legs
     def start(self, compile_fn: Optional[Callable] = None,
               checkpoint_dir: Optional[str] = None,
-              layouts=None, device=None) -> "RestartCoordinator":
+              layouts=None) -> "RestartCoordinator":
         """Launch the overlappable legs.  Safe to call once; a second
         ``start`` only adds a compile leg if none ran yet (the worker
         may start the prefetch before the process group and a compile
@@ -163,8 +163,7 @@ class RestartCoordinator:
         prefetch reshard-aware: after a world change it streams
         whichever shard files cover this rank's NEW slices — the
         reshard-copy leg then rides the same overlap window as the
-        state build and the rendezvous.  ``device`` is where the state
-        will live (``CheckpointEngine.start_prefetch``)."""
+        state build and the rendezvous."""
         if not self.overlap:
             return self
         legs = []
@@ -186,7 +185,7 @@ class RestartCoordinator:
                 self._prefetch = self._engine.start_prefetch(
                     checkpoint_dir=checkpoint_dir,
                     start_gate=_gate_for(barrier),
-                    layouts=layouts, device=device,
+                    layouts=layouts,
                 )
             if "compile" in legs:
                 self._pending.add("compile")

@@ -29,9 +29,12 @@ Flash checkpoint (``checkpoint_dir``): on start the state is restored
 from the newest step the engine finds (shared memory first, then disk)
 and training continues from it.  The restore is overlapped, as in the
 reference: ``__init__`` starts the engine's restore prefetch
-(``trainer/restart_path.py``), which stages the checkpoint's bytes in
-host memory while ``init_state`` builds the state on the card, and the
-restore then copies the staged leaves in (``finish_restore``).  With
+(``trainer/restart_path.py``), which finds what is restorable and opens
+the newest shared-memory slot (or streams a checkpoint on disk into
+host memory) while ``init_state`` builds the state on the card; the
+restore then reads the slot straight onto the card (``finish_restore``).
+Staging the slot in host memory beside ``init_state`` was measured to
+stretch ``init_state`` by more than it saves (``PERF.md``).  With
 ``DLROVER_TPU_RESTART_OVERLAP=0``, or when the agent's previous world
 (``DLROVER_TPU_PREV_WORLD``) differs from this one, it is the serial
 ``engine.load``.  Every ``save_memory_interval`` steps
@@ -199,7 +202,7 @@ class Trainer:
                 )
 
                 self._restart_coord = RestartCoordinator(
-                    self._engine).start(device=self._fns.device)
+                    self._engine).start()
             # graceful drain: the agent's SIGUSR1 switches to a blocking
             # snapshot at every step (_maybe_checkpoint)
             install_drain_handler()

@@ -25,12 +25,11 @@ the card's copies, the host clock where the host takes part):
 - a restore from a fresh mapping of a faulted segment (what a restarted
   process sees), plain, after ``MADV_WILLNEED`` or ``MADV_POPULATE_*``,
   and mapped with ``MAP_POPULATE``; the pages of a fresh mapping
-  touched (one read a page, ``parallel_io.parallel_touch``, as the
-  restart's restore prefetch does) by one worker and by all, and the
-  copy to the card after; ``preadv`` of the segment into the bounce
-  buffers and on to the card (``ckpt_shm.file_to_device``, the restore
-  prefetch's path), which maps no page; and a drain into a fresh
-  mapping;
+  touched (one read a page, ``parallel_io.parallel_touch``) by one
+  worker and by all, and the copy to the card after; ``preadv`` of the
+  segment into the bounce buffers and on to the card
+  (``ckpt_shm.file_to_device``, the restores' path), which maps no
+  page; and a drain into a fresh mapping;
 - a ``dd``-style write of the same bytes to ``--disk-dir`` (64 MiB
   chunks, then ``fsync``).
 

@@ -10,10 +10,12 @@ shared memory: step 3, or an earlier one where rank 0's snapshot of
 step 3 was skipped behind a running drain (rank 1 snapshots step 3
 blocking before it dies; rank 0 does not know it will be needed).
 Checks that each worker joined an NCCL world with a gloo host group,
-that both restarted ranks restored the same step from shm, and that
-their steps after it and every state leaf equal the uninterrupted run's
-bit for bit.  Prints each rank's step times on the card's clock and the
-card's name and power limit.  The runs live under
+that both restarted ranks restored the same step from shm through the
+restore prefetch (a ``restore_prefetch`` and a ``finish_restore`` span
+of each in the launcher's events file), and that their steps after it
+and every state leaf equal the uninterrupted run's bit for bit.  Prints
+each rank's step times on the card's clock and the card's name and
+power limit.  The runs live under
 ``build/elastic_nccl/``; the launchers' output goes to
 ``chiprun_out/elastic_nccl/``.
 
@@ -37,12 +39,17 @@ MODEL = ["--dim", "512", "--layers", "2", "--heads", "4", "--seq", "256",
 
 
 def launch(run_dir: Path, log_dir: Path, device: str, crash: bool):
-    """One launcher run; returns ({(rank, inc): report}, its log, seconds)."""
+    """One launcher run; returns ({(rank, inc): report}, its log, seconds,
+    its events)."""
+    from dlrover_tpu_torch.observability.events import read_events
+
     rep = run_dir / "rep"
     rep.mkdir(parents=True)
+    events = run_dir / "events.jsonl"
     cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--nnodes=1",
            "--nproc_per_node=2", "--max-restarts=1", "--monitor_interval=0.2",
-           "-m", "dlrover_tpu_torch.examples.llama_pretrain", *MODEL,
+           f"--events_file={events}", "-m",
+           "dlrover_tpu_torch.examples.llama_pretrain", *MODEL,
            "--ckpt_dir", str(run_dir / "ckpt"), "--report_dir", str(rep)]
     if device:
         cmd += ["--device", device, "--dtype", "float32"]
@@ -51,10 +58,15 @@ def launch(run_dir: Path, log_dir: Path, device: str, crash: bool):
     t0 = time.time()
     # the agent's preemption watcher (on by default) asks a metadata
     # endpoint on this machine that refuses connections, never a real one
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               DLROVER_TPU_METADATA_BASE="http://127.0.0.1:9/")
+    if device == "cpu":
+        # one thread a worker: a CPU matmul whose thread count follows
+        # the machine's load rounds differently from run to run
+        env["OMP_NUM_THREADS"] = "1"
     proc = subprocess.run(
         cmd, cwd=REPO, capture_output=True, text=True, timeout=600,
-        env=dict(os.environ, PYTHONPATH=str(REPO),
-                 DLROVER_TPU_METADATA_BASE="http://127.0.0.1:9/"))
+        env=env)
     wall = time.time() - t0
     log = proc.stdout + proc.stderr
     (log_dir / f"{run_dir.name}.log").write_text(log)
@@ -65,7 +77,7 @@ def launch(run_dir: Path, log_dir: Path, device: str, crash: bool):
     for p in rep.glob("rank*_inc*.json"):
         d = json.loads(p.read_text())
         out[(d["rank"], d["restart_count"])] = d
-    return out, log, wall
+    return out, log, wall, read_events(str(events))
 
 
 def require(ok, what):
@@ -97,10 +109,10 @@ def main():
         shutil.rmtree(d, ignore_errors=True)
     logs.mkdir(parents=True)
     try:
-        base, log_b, wall_b = launch(root / "base", logs, args.device,
-                                     crash=False)
-        crash, log_c, wall_c = launch(root / "crash", logs, args.device,
-                                      crash=True)
+        base, log_b, wall_b, _ = launch(root / "base", logs, args.device,
+                                        crash=False)
+        crash, log_c, wall_c, evs = launch(root / "crash", logs,
+                                           args.device, crash=True)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     backend = "gloo" if args.device == "cpu" else "nccl, gloo host group"
@@ -119,6 +131,12 @@ def main():
             ", not one step from shm")
     step = restored.pop()
     require(1 <= step <= 3, f"restored step {step}")
+    for rank in (0, 1):
+        pid = crash[(rank, 1)]["pid"]
+        spans = {e["name"] for e in evs if e.get("pid") == pid}
+        require({"restore_prefetch", "finish_restore"} <= spans,
+                f"rank {rank}'s restart did not restore through the "
+                f"prefetch: {sorted(spans)}")
     for rank in (0, 1):
         b, c = base[(rank, 0)], crash[(rank, 1)]
         key = [(h["step"], h["loss"], h["grad_norm"]) for h in c["history"]]
@@ -142,7 +160,8 @@ def main():
             "the two ranks' replicas differ")
     print(f"launcher runs {wall_b:.1f} s (uninterrupted), {wall_c:.1f} s "
           f"(killed and restarted); both ranks restored step {step} from "
-          f"shm; steps {step + 1}-6 and every leaf bit for bit", flush=True)
+          f"shm through the prefetch; steps {step + 1}-6 and every leaf bit "
+          f"for bit", flush=True)
     print(json.dumps({"ok": True}))
 
 

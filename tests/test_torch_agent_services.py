@@ -275,7 +275,37 @@ def test_the_agent_s_node_check_against_a_master(client, monkeypatch,
     nc = agent.node_check
     assert nc["world"] == 2 and nc["device"] == "cpu"
     assert nc["fault_nodes"] == [] and nc["reason"] == ""
+    assert nc["spawn"] == "plain"
     assert client.check_fault_node() == ([], "")
+
+
+def test_the_agent_s_node_check_forks_from_its_zygote(client, monkeypatch):
+    """Under ``--prefork`` the payloads are forked from the agent's
+    zygote, with torch already imported."""
+    from dlrover_tpu_torch.agent.training import (
+        ElasticLaunchConfig,
+        ElasticTrainingAgent,
+    )
+    from dlrover_tpu_torch.agent.zygote import ZygotePool
+
+    monkeypatch.setenv(tnc.DEVICE_ENV, "cpu")
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
+    monkeypatch.setenv("PYTHONPATH", str(REPO))
+    config = ElasticLaunchConfig(nproc_per_node=2, network_check=True,
+                                 rdzv_timeout=30, node_rank=0)
+    agent = ElasticTrainingAgent(config, [sys.executable, "-c", "0"],
+                                 client=client, start_ckpt_saver=False)
+    pool = ZygotePool(name=f"z{os.getpid()}", preload=("torch",))
+    assert pool.start(env=dict(os.environ), wait=True)
+    agent._zygote = pool
+    try:
+        agent._run_network_check()
+    finally:
+        pool.close()
+    nc = agent.node_check
+    assert nc["spawn"] == "zygote"
+    assert nc["world"] == 2 and nc["device"] == "cpu"
+    assert nc["fault_nodes"] == []
 
 
 # -------------------------------------------------------------- monitors
@@ -317,6 +347,25 @@ def test_step_file_becomes_a_global_step_as_in_jax(tmp_path, monkeypatch):
     assert out["torch"] == out["jax"]
     assert out["jax"] == (["step", "timestamp"],
                           [("GlobalStep", 3), ("GlobalStep", 5)])
+
+
+def test_the_step_file_is_the_agent_s_or_none(tmp_path, monkeypatch):
+    """Outside an agent (no ``DLROVER_TPU_STEP_FILE``) rank 0 writes no
+    step file; under one it writes the agent's."""
+    monkeypatch.delenv("DLROVER_TPU_MASTER_ADDR", raising=False)
+    monkeypatch.delenv(tet.STEP_FILE_ENV, raising=False)
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    trainer = tet.ElasticTrainer(1, 1, world_size=1, rank=0,
+                                 report_interval=0)
+    trainer.step_done()
+    assert list(tmp_path.iterdir()) == []
+    path = tmp_path / "agent" / "step.json"
+    path.parent.mkdir()
+    monkeypatch.setenv(tet.STEP_FILE_ENV, str(path))
+    trainer = tet.ElasticTrainer(1, 1, world_size=1, rank=0,
+                                 report_interval=0)
+    trainer.step_done(2)
+    assert json.loads(path.read_text())["step"] == 2
 
 
 def test_a_rank_on_the_cpu_writes_no_card_stats(tmp_path, monkeypatch):

@@ -14,8 +14,10 @@
   the serial result, through the serial path.
 - The ``Trainer`` starts the prefetch unless ``DLROVER_TPU_PREV_WORLD``
   names another world, as the JAX ``Trainer`` does.
+- The prefetch publishes a shm slot's leaves as ``FileLeaf``s and the
+  restore reads them from the segment's file straight into the target.
 - The pieces under the prefetch: ``parallel_pread``, ``parallel_touch``,
-  ``FileRange`` batches and ``slot_file``.
+  ``FileRange`` batches, ``slot_file`` and ``open_slot``.
 
 Every comparison is exact.
 """
@@ -43,15 +45,16 @@ from dlrover_tpu_torch.agent.ckpt_saver import (  # noqa: E402
     AsyncCheckpointSaver,
 )
 from dlrover_tpu_torch.agent.ckpt_shm import (  # noqa: E402
+    FileLeaf,
     FileRange,
     SharedMemoryHandler,
     _batches,
     _flatten_keyed,
+    restore_to_target,
 )
 from dlrover_tpu_torch.common import multi_process, parallel_io  # noqa: E402
 from dlrover_tpu_torch.observability import events as tevents  # noqa: E402
 from dlrover_tpu_torch.trainer import restart_path as trp  # noqa: E402
-from dlrover_tpu_torch.trainer.checkpoint import engine as teng  # noqa: E402
 from dlrover_tpu_torch.trainer.checkpoint.engine import (  # noqa: E402
     CheckpointEngine,
 )
@@ -506,10 +509,63 @@ def test_slot_file_preads_the_bytes_load_state_views(agent):
         eng.close()
 
 
-def test_card_staging_needs_a_card_with_room():
-    pf = teng.RestorePrefetch.__new__(teng.RestorePrefetch)
-    specs = [("k", "float32", (4,), 0, 16)]
-    pf._device = None
-    assert not pf._card_has_room(specs)
-    pf._device = torch.device("cpu")
-    assert not pf._card_has_room(specs)
+def test_open_slot_gives_file_leaves_of_the_slot(agent):
+    state = torch_state(make_numpy_state(7))
+    name = uniq("l")
+    handler = SharedMemoryHandler(0, name=name, host=False)
+    eng = CheckpointEngine(tempfile.gettempdir(), name=name)
+    try:
+        assert eng.save_to_memory(3, state)
+        fd, step, leaves = handler.open_slot(3)
+        try:
+            assert step == 3
+            want = dict(_flatten_keyed(state))
+            assert sorted(leaves) == sorted(want)
+            for key, leaf in leaves.items():
+                got = leaf.read()
+                assert got.dtype == leaf.dtype == torch.as_tensor(
+                    want[key]).dtype
+                assert np.array_equal(bits(got), bits(want[key])), key
+            # a CPU target takes them as restore_to_target values
+            target = zeros_like(state)
+            restore_to_target(target, leaves)
+            assert_same(target, state)
+        finally:
+            os.close(fd)
+        assert handler.open_slot(99) is None
+    finally:
+        handler.close()
+        eng.close()
+
+
+def test_the_shm_prefetch_publishes_the_slot_s_file_leaves(
+        monkeypatch, tmp_path, agent, ckpt_dir):
+    """The prefetch opens the slot and copies none of it: the restore
+    reads every leaf from the segment's file."""
+    state = torch_state(make_numpy_state(8))
+    name = uniq("h")
+    eng = CheckpointEngine(ckpt_dir, name=name)
+    try:
+        assert eng.save_to_memory(6, state)
+    finally:
+        eng.close()
+    path = str(tmp_path / "ev.jsonl")
+    _timeline(monkeypatch, path)
+    eng = CheckpointEngine(ckpt_dir, name=name)
+    try:
+        pf = eng.start_prefetch()
+        pf.join()
+        cand = pf.candidate(6)
+        assert cand.source == "shm"
+        assert all(isinstance(v, FileLeaf) for v in cand.arrays.values())
+        step, got = eng.finish_restore(pf, target=zeros_like(state))
+        assert cand.arrays == {} and cand._fd is None  # released
+    finally:
+        eng.close()
+    assert step == 6
+    assert_same(got, state)
+    evs = {e["name"]: e for e in tevents.read_events(path)}
+    total = sum(int(torch.as_tensor(v).nbytes)
+                for _k, v in _flatten_keyed(state))
+    assert evs["restore_prefetch"]["labels"]["bytes"] == total
+    assert evs["finish_restore"]["labels"]["bytes"] == total
