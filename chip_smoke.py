@@ -78,13 +78,28 @@ Phases (any failed check raises, so the script exits nonzero):
    optimizer times are on the card's clock.  Layer 0's RMSNorm (both
    entries) and flash inputs and a fused norm's backward are captured,
    checked (flash and the backward three runs bit for bit) and timed
-   against their plain versions, ``F.rms_norm`` and SDPA.
+   against their plain versions, ``F.rms_norm`` and SDPA.  The batches
+   reach the step through ``data.prefetch.device_prefetch`` (pinned
+   host rows, a copy stream, two in flight): the bytes and the copy's
+   milliseconds per batch are printed.
+5a. stall check, at the training leg's depth on its trained state: ``STALL_STEPS`` steps each with an
+   instant iterator, with one that sleeps half the step per batch
+   (pipelined), and with the same sleep fed serially
+   (``DLROVER_TPU_INPUT_PIPELINE=0``).  The pipelined window must stay
+   within 5 % of the instant one, the serial feed must add 0.5-1.1 of
+   the sleep to each step, and the events file must hold
+   ``data_stall`` spans with ``stage=host_fetch``.
+5b'. the sharded step's code path at ``{data 1, fsdp 1}`` (param axes,
+   placements, the per-layer gather hook; its collectives are no-ops)
+   for two steps from the training leg's init: losses and grad norms
+   equal the unsharded leg's bit for bit, and B1-B4 launch.
 5b. int8 leg: Llama-2-7B at ``--int8-layers`` layers (default 32, full
    depth) trained the same way with ``QuantizedMoments(lr=3e-4,
    weight_decay=0.1)``: launches per step (B9 once per leaf) and at init
    (B7 twice per leaf), the loss falling, peak memory; the trained
    moments dequantized (B8) and their norms printed; the last step's
-   largest leaf captured, B7-B9 checked and timed on it.
+   largest leaf captured, B7-B9 checked and timed on it.  Its batches
+   too cross through ``device_prefetch`` (bytes and copy ms printed).
 6. flash-checkpoint leg: the ``df`` of ``/dev/shm`` and of the
    checkpoint dir (under ``build/``, made fresh and removed at the end),
    free RAM, and the pinned 1 GiB copy rate each way (the yardstick).
@@ -145,7 +160,9 @@ Phases (any failed check raises, so the script exits nonzero):
    prefetch's window) and the restarted worker's step times on
    the card's clock.  The training rows of the kernels line carry run
    1's restarted worker's counts as ``elastic_launches``.
-8. a ``{"kernels": [...]}`` line, the ``nvidia-smi`` line, and last
+8. an ``{"input_plane": ...}`` line (the h2d readings, the stall check,
+   the ``{data 1, fsdp 1}`` comparison), a ``{"kernels": [...]}`` line,
+   the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
 It exits nonzero without printing a result when CUDA is unavailable or
@@ -178,6 +195,9 @@ POISON = 1e4
 # measured, at most 3.94 with 63 decoded tokens per request
 ACCEPT_FLOOR = 2.5
 SEED = 0  # weights and prompts
+#: the input plane's readings of this run (h2d, the stall check, the
+#: sharded step at {data 1, fsdp 1}), printed as one line at the end
+INPUT_PLANE = {}
 
 
 def log(*parts):
@@ -1919,6 +1939,161 @@ def rms_bwd_row(fused, cap, launches):
     return row
 
 
+PINNED_H2D_GBPS = 55.0  # pinned host -> card, 1 GiB (PERF.md, PR 8)
+# the stall check: the slowed iterator sleeps this share of the step
+STALL_SLEEP_SHARE = 0.5
+STALL_STEPS = 6
+# the pipelined window with the slowed iterator, over the instant one
+STALL_PIPELINED_MAX = 1.05
+# the serial feed adds this share of the sleep to a step, at least / most
+STALL_SERIAL_ADDED = (0.5, 1.1)
+
+
+def h2d_reading(tag, trainer):
+    """Per-batch bytes of the rank's rows and their copy to the card
+    (``device_prefetch``'s copy stream, on the card's clock; the host's
+    staging on its own).  Returns the readings."""
+    h = trainer.h2d_times()
+    require(h and all(t["copy_ms"] is not None for t in h),
+            f"{tag}: no batch crossed through device_prefetch")
+    copy = [t["copy_ms"] for t in h]
+    nbytes = h[0]["bytes"]
+    med = statistics.median(copy)
+    log(f"{tag} h2d through device_prefetch: {len(h)} batches of "
+        f"{nbytes} bytes (the rank's rows), copy_ms (card clock) median "
+        f"{med:.4f} min {min(copy):.4f} max {max(copy):.4f} = "
+        f"{nbytes / med / 1e6:.3f} GB/s (pinned yardstick "
+        f"{PINNED_H2D_GBPS} GB/s at 1 GiB), host staging ms median "
+        f"{statistics.median(t['host_ms'] for t in h):.4f}")
+    return {"batches": len(h), "bytes": nbytes, "copy_ms_median": med,
+            "host_ms_median": statistics.median(t["host_ms"] for t in h)}
+
+
+def stall_check(result, state, tokens, step_s):
+    """The input plane against a slow host iterator, at the training
+    leg's depth, continuing ``state``: ``STALL_STEPS`` steps with an
+    instant iterator (pipelined), with one that sleeps half the step
+    per batch (pipelined), and with the same sleep fed serially
+    (``DLROVER_TPU_INPUT_PIPELINE=0``).  Windows are steps 2..N on the
+    card's clock; the events file must hold ``data_stall`` spans with
+    ``stage=host_fetch``."""
+    from dlrover_tpu_torch.observability import events
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+
+    sleep = STALL_SLEEP_SHARE * step_s
+    os.makedirs("build", exist_ok=True)
+    path = os.path.abspath(f"build/stall_events_{os.getpid()}.jsonl")
+    saved = {k: os.environ.get(k) for k in ("DLROVER_TPU_EVENTS_FILE",
+                                            "DLROVER_TPU_INPUT_PIPELINE")}
+    os.environ["DLROVER_TPU_EVENTS_FILE"] = path
+    events.set_default_event_logger(None)
+    windows, stalls, seen = {}, {}, 0
+    try:
+        for name, delay, pipelined in (("instant", 0.0, True),
+                                       ("slow_pipelined", sleep, True),
+                                       ("slow_serial", sleep, False)):
+            os.environ["DLROVER_TPU_INPUT_PIPELINE"] = (
+                "1" if pipelined else "0")
+
+            def data_iter(delay=delay):
+                while True:
+                    if delay:
+                        time.sleep(delay)
+                    yield {"tokens": tokens}
+
+            t = Trainer(result, TrainingArgs(
+                max_steps=state["step"] + STALL_STEPS, log_interval=0),
+                data_iter)
+            t.state = state
+            t.train()
+            hist = t.history
+            windows[name] = sum(r["step_time_s"] for r in hist[1:]) / (
+                len(hist) - 1)
+            evs = [e for e in events.read_events(path)
+                   if e["name"] == "data_stall"]
+            stalls[name] = [e["labels"].get("stage") for e in evs[seen:]]
+            seen = len(evs)
+            del t
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        events.set_default_event_logger(None)
+        if os.path.exists(path):
+            os.remove(path)
+    ratio = windows["slow_pipelined"] / windows["instant"]
+    added = windows["slow_serial"] - windows["instant"]
+    log(f"[stall] sleep per batch {1e3 * sleep:.3f} ms ({STALL_SLEEP_SHARE} "
+        f"of the {1e3 * step_s:.3f} ms step), step_ms_window(2-"
+        f"{STALL_STEPS}) instant={1e3 * windows['instant']:.3f} "
+        f"slow_pipelined={1e3 * windows['slow_pipelined']:.3f} "
+        f"slow_serial={1e3 * windows['slow_serial']:.3f}; pipelined/instant"
+        f"={ratio:.4f} (limit {STALL_PIPELINED_MAX}); serial adds "
+        f"{1e3 * added:.3f} ms a step = {added / sleep:.3f} of the sleep "
+        f"(limits {STALL_SERIAL_ADDED}); data_stall spans per run "
+        f"{ {k: len(v) for k, v in stalls.items()} }, stages "
+        f"{sorted({s for v in stalls.values() for s in v})}")
+    require(ratio <= STALL_PIPELINED_MAX,
+            "the pipelined feed did not hide the slow iterator")
+    require(STALL_SERIAL_ADDED[0] <= added / sleep <= STALL_SERIAL_ADDED[1],
+            "the serial feed did not add about the sleep to each step")
+    require(stalls["slow_serial"] and set(
+        s for v in stalls.values() for s in v) == {"host_fetch"},
+        "no data_stall span with stage=host_fetch in the events file")
+    return {"sleep_ms": 1e3 * sleep,
+            "window_ms": {k: 1e3 * v for k, v in windows.items()},
+            "pipelined_over_instant": ratio,
+            "serial_added_over_sleep": added / sleep,
+            "data_stall_spans": {k: len(v) for k, v in stalls.items()}}
+
+
+def sharded_one_one_check(cfg, init_fn, tokens, hist):
+    """The sharded step's code path at ``{data 1, fsdp 1}`` (param axes,
+    rules, placements, the per-layer gather hook, no-op collectives) for
+    two steps from the training leg's init and batch: its losses and
+    grad norms must equal the unsharded leg's bit for bit, and it must
+    launch the training path's kernels."""
+    from dlrover_tpu_torch.accelerate import Strategy, auto_accelerate
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.optimizers import AGD
+    from dlrover_tpu_torch.parallel.train_step import param_leaves
+
+    result = auto_accelerate(
+        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+        optimizer=lambda ps: AGD(ps, lr=3e-4), init_params_fn=init_fn,
+        param_axes=llama.param_logical_axes(cfg),
+        load_strategy=Strategy(data=1, fsdp=1), device="cuda")
+    fns = result.fns
+    state = fns.init_state(0)
+    batch = fns.batch_sharding.local(
+        {"tokens": torch.from_numpy(tokens).cuda()})
+    got = []
+    _build.reset_launches()
+    for _ in range(2):
+        state, m = fns.train_step(state, batch)
+        got.append((float(m["loss"]), float(m["grad_norm"])))
+    torch.cuda.synchronize()
+    counts = {k: _build.launches[k] for k in TRAIN_KERNELS}
+    want = [(r["loss"], r["grad_norm"]) for r in hist[:2]]
+    gathered = len(fns.last_gather.gathered)
+    sharded = sum(p.sharded for p in param_leaves(fns.placements))
+    log(f"[train] sharded code path at {{data 1, fsdp 1}} (strategy "
+        f"{result.strategy.describe()}): (loss, grad_norm) {got} against "
+        f"the unsharded leg's {want}; gathers in the last step {gathered} "
+        f"(the hook ran), sharded leaves {sharded}, launches {counts}")
+    require(got == want, "the {data 1, fsdp 1} step differs from the "
+            "unsharded one")
+    require(gathered > 0 and sharded == 0 and all(counts.values()),
+            "the sharded code path did not run its hook or the kernels")
+    del state, fns, result
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"equal": got == want, "launches": counts}
+
+
 def train_path(args):
     """Llama-2-7B width (dim 4096, 32 heads, MHA, mlp 11008, vocab
     32000) at ``--train-layers`` layers through ``auto_accelerate`` ->
@@ -2091,6 +2266,9 @@ def train_path(args):
     require(per_step == expect, f"launches per step {per_step} != {expect}")
     require(d_loss <= STEP0_TOL["loss"] and d_norm <= STEP0_TOL["grad_norm"],
             "step 0 differs from the plain attention")
+    INPUT_PLANE["train_h2d"] = h2d_reading("[train]", trainer)
+    INPUT_PLANE["stall"] = stall_check(result, trainer.state, tokens,
+                                       step_s)
     if args.profile:
         state = trainer.state
         batch_dev = {"tokens": torch.from_numpy(tokens).cuda()}
@@ -2104,6 +2282,8 @@ def train_path(args):
     del trainer, result, fns
     gc.collect()
     torch.cuda.empty_cache()
+    INPUT_PLANE["sharded_1x1"] = sharded_one_one_check(cfg, init_fn, tokens,
+                                                       hist)
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     # the training path's RMSNorm: bf16 x with the fp32 master weight,
@@ -2588,6 +2768,7 @@ def int8_path(args):
     require(per_step == expect, f"launches per step {per_step} != {expect}")
     require(counts["quantize"] == 2 * expect["int8_adam"]
             and counts["dequantize"] == 0, "int8 init launches")
+    INPUT_PLANE["int8_h2d"] = h2d_reading("[int8]", trainer)
     if args.profile:
         batch_dev = {"tokens": torch.from_numpy(tokens).cuda()}
 
@@ -3763,6 +3944,8 @@ def main() -> int:
             if key is not None:
                 row["elastic_launches"] = elastic["launches"][key]
 
+    if INPUT_PLANE:
+        log(json.dumps({"input_plane": INPUT_PLANE}))
     if rows:
         log(json.dumps({"kernels": rows}))
     log(smi_line())

@@ -48,6 +48,20 @@ def get_local_process_count() -> int:
     return _get_int(NodeEnv.LOCAL_PROCESS_COUNT, 1)
 
 
+INPUT_PIPELINE_ENV = "DLROVER_TPU_INPUT_PIPELINE"
+
+
+def input_pipeline_enabled() -> bool:
+    """Kill-switch for the pipelined input plane (background host
+    fetch in ``ElasticDataLoader``/``device_prefetch`` and the
+    shard-task RPC prefetch).  ``DLROVER_TPU_INPUT_PIPELINE=0``
+    reproduces the serial path — same batch order, byte-identical
+    batches (pinned by tests).  Default: enabled."""
+    return os.getenv(INPUT_PIPELINE_ENV, "1").lower() not in (
+        "0", "false", "off",
+    )
+
+
 CONTROL_LONGPOLL_ENV = "DLROVER_TPU_CONTROL_LONGPOLL"
 CONTROL_BATCH_ENV = "DLROVER_TPU_CONTROL_BATCH"
 

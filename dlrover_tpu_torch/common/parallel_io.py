@@ -38,6 +38,7 @@ import numpy as np
 
 COPY_WORKERS_ENV = "DLROVER_TPU_CKPT_COPY_WORKERS"
 CHUNK_MB_ENV = "DLROVER_TPU_CKPT_CHUNK_MB"
+INPUT_COPY_WORKERS_ENV = "DLROVER_TPU_INPUT_COPY_WORKERS"
 
 _DEFAULT_CHUNK_MB = 64
 #: below this, thread dispatch costs more than the copy saves
@@ -53,6 +54,20 @@ def copy_workers() -> int:
         except ValueError:
             pass
     return max(1, min(os.cpu_count() or 1, 8))
+
+
+def input_copy_workers() -> int:
+    """Copy-thread count for the input data plane (shm batch ring,
+    pipelined loader).  ``DLROVER_TPU_INPUT_COPY_WORKERS`` when set,
+    else the checkpoint worker count — ``1`` remains the byte-identical
+    serial fallback for both planes."""
+    raw = os.getenv(INPUT_COPY_WORKERS_ENV, "")
+    if raw:
+        try:
+            return max(1, int(raw))
+        except ValueError:
+            pass
+    return copy_workers()
 
 
 def chunk_nbytes() -> int:

@@ -3,9 +3,13 @@ AGD, with flash checkpoint and the elastic launch.
 
 Port of ``examples/llama_pretrain.py`` (the same CLI, config recipe and
 data stream) for one device a process.  It joins the world the agent
-assembled (``init_distributed``, as the JAX example does at :47-49);
-at world > 1 each rank trains the whole replica on the same batches,
-since gradient sync across ranks is ROADMAP A4::
+assembled (``init_distributed``, as the JAX example does at :47-49) and
+trains over a mesh of ``--data`` x ``--fsdp`` ranks (default: data
+parallel over the world): each rank draws the global batch of
+``--batch`` rows and the step takes the rank's rows by the batch
+sharding (``BATCH -> (data, fsdp)``), as the JAX example's
+``jax.device_put(batch, batch_sharding)`` does; the gradients are
+averaged over the ranks::
 
     python -m dlrover_tpu_torch.examples.llama_pretrain --steps 50
     python -m dlrover_tpu_torch.examples.llama_pretrain --device cpu \\
@@ -35,7 +39,9 @@ launch counts, zeroed after the restore and read after the last step.
 A finished run adds a digest of every state leaf (``leaf_digests``).
 ``--crash_after_step N`` SIGKILLs rank ``--crash_rank`` of the first
 incarnation (``DLROVER_TPU_RESTART_COUNT=0``) once step N's snapshot is
-in shared memory: the fault the elastic launch recovers from.
+in shared memory: the fault the elastic launch recovers from.  The
+hook runs before step N + 1 on the training thread (the data iterator
+runs ahead on the prefetch's thread).
 """
 
 import time
@@ -104,6 +110,10 @@ def parse_args(argv=None):
     p.add_argument("--report_dir", default="")
     p.add_argument("--crash_after_step", type=int, default=0)
     p.add_argument("--crash_rank", type=int, default=0)
+    p.add_argument("--data", type=int, default=-1,
+                   help="data-parallel ranks (-1: the world over --fsdp)")
+    p.add_argument("--fsdp", type=int, default=1,
+                   help="ranks each param is sharded over (ZeRO-3)")
     return p.parse_args(argv)
 
 
@@ -146,15 +156,24 @@ def batches(done: int, args, vocab: int):
         yield {"tokens": draw()}
 
 
-def leaf_digests(state) -> dict:
+def leaf_digests(state, placements=None, group=None) -> dict:
     """{JAX key path: digest} of a train state.  A tensor's digest is the
     plain and the position-weighted sum of its 32-bit words (bytes when
     its size is not a multiple of 4), each mod 2^64, computed where the
     tensor lies: a change of any one word changes the weighted sum
     (the weights are odd).  A Python number (a step count) is its
-    value."""
+    value.  With the train step's ``placements`` and the fsdp ``group``
+    they are the digests of the global state: each fsdp slice is
+    gathered first (a collective: every rank of the group calls it)."""
     from dlrover_tpu_torch.models.convert import HostScalar, train_state_leaves
 
+    layouts = None
+    if placements is not None:
+        from dlrover_tpu_torch.trainer.checkpoint.reshard import (
+            derive_layouts,
+        )
+
+        layouts = derive_layouts(state, placements)
     out = {}
     for key, leaf in train_state_leaves(state):
         if isinstance(leaf, HostScalar):
@@ -162,6 +181,14 @@ def leaf_digests(state) -> dict:
         if not torch.is_tensor(leaf):
             out[key] = repr(np.asarray(leaf).tolist())
             continue
+        lay = layouts[key] if layouts is not None else None
+        if lay is not None and lay["shape"] != lay["global_shape"]:
+            from dlrover_tpu_torch.parallel.collectives import all_gather_dim
+
+            dim = next(i for i, (a, b) in enumerate(
+                zip(lay["shape"], lay["global_shape"])) if a != b)
+            with torch.no_grad():
+                leaf = all_gather_dim(leaf.detach(), dim, group)
         flat = leaf.detach().contiguous().view(-1)
         if flat.numel() * flat.element_size() % 4 == 0:
             words = flat.view(torch.int32)
@@ -199,6 +226,10 @@ class _Report:
         d = self.data
         d["compiled"] = list(_build.compiled)
         d["launches"] = dict(_build.launches)
+        if torch.cuda.is_initialized():
+            d["cuda_memory"] = {
+                "max_reserved": torch.cuda.max_memory_reserved(),
+                "max_allocated": torch.cuda.max_memory_allocated()}
         if trainer is not None:
             d["marks"].update(trainer.marks)
             d["history"] = trainer.history
@@ -233,19 +264,27 @@ def main(argv=None):
         if report:
             report.data["marks"]["kernels_loaded"] = time.time()
 
-    from dlrover_tpu_torch.accelerate import auto_accelerate
-    from dlrover_tpu_torch.models.llama import init_params, loss_fn
+    from dlrover_tpu_torch.accelerate import Strategy, auto_accelerate
+    from dlrover_tpu_torch.models.llama import (
+        init_params,
+        loss_fn,
+        param_logical_axes,
+    )
     from dlrover_tpu_torch.optimizers import AGD
+    from dlrover_tpu_torch.parallel.train_step import param_leaves
     from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
 
     if report:
         report.data["marks"]["modules_imported"] = time.time()
     cfg = model_config(args)
+    data = args.data if args.data > 0 else ctx.world_size // args.fsdp
     result = auto_accelerate(
         loss_fn=lambda p, b: loss_fn(p, b, cfg),
         optimizer=lambda ps: AGD(ps, lr=3e-4),
         init_params_fn=lambda gen, dev: init_params(
             cfg, gen, dev, dtype=torch.float32),
+        param_axes=param_logical_axes(cfg),
+        load_strategy=Strategy(data=data, fsdp=args.fsdp),
         device=ctx.device,
     )
     if report:
@@ -260,10 +299,14 @@ def main(argv=None):
     trainer = None
 
     def data_iter():
-        step = trainer.progress.global_step
-        stream = batches(step, args, cfg.vocab_size)
-        while True:
-            if crash and step == args.crash_after_step:
+        return batches(trainer.progress.global_step, args, cfg.vocab_size)
+
+    if crash:
+        train_step = result.fns.train_step
+
+        def crashing_step(state, batch):
+            step = state["step"]
+            if step == args.crash_after_step:
                 # step N is done and N + 1 not queued: put step N in
                 # shared memory (its "copy" snapshot may have been
                 # skipped behind a running drain), then die as a killed
@@ -274,8 +317,9 @@ def main(argv=None):
                     report.write(trainer, crashed_at=time.time(),
                                  crash_step=step)
                 os.kill(os.getpid(), signal.SIGKILL)
-            step += 1
-            yield next(stream)
+            return train_step(state, batch)
+
+        result.fns.train_step = crashing_step
 
     def eval_iter():
         # fixed held-out set (seeded separately from training data)
@@ -301,8 +345,16 @@ def main(argv=None):
     _build.reset_launches()  # count this incarnation's steps only
     summary = trainer.train()
     if report:
+        extra = {}
+        fns = result.fns
+        if any(p.sharded for p in param_leaves(fns.placements or {})):
+            from dlrover_tpu_torch.parallel.mesh import AxisName
+
+            extra["global_digests"] = leaf_digests(
+                trainer.state, fns.placements,
+                fns.mesh_ctx.group(AxisName.FSDP))
         report.write(trainer, summary=summary,
-                     digests=leaf_digests(trainer.state))
+                     digests=leaf_digests(trainer.state), **extra)
     if args.eval_interval and summary["final_step"] % args.eval_interval:
         print(f"final eval: {trainer.evaluate()}", flush=True)
     print(f"done: {summary}", flush=True)

@@ -16,7 +16,12 @@ on the CPU).
 Params are a plain dict with the JAX package's layout: ``embed [V, D]``,
 ``layers`` a dict of tensors stacked on dim 0 (``wq [L, D, H*hd]``,
 projections ``[in, out]``), ``final_norm [D]``, ``lm_head [D, V]``.  The
-JAX ``lax.scan`` over stacked layers is a Python loop here.
+JAX ``lax.scan`` over stacked layers is a Python loop here.  Under the
+sharded train step's fsdp axis each leaf is the rank's slice
+(``param_logical_axes``, ``parallel/sharding.py``): the training forward
+takes its full weights from the active ``ParamGather``, a layer's inside
+its (checkpointed) layer function, the embedding, final norm and head
+where they are used.
 
 Serving weights are stored once in ``cfg.dtype``: JAX keeps fp32 master
 weights and casts them at every matmul, which gives the same numbers.
@@ -42,6 +47,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+from dlrover_tpu_torch.parallel import sharding as sh
 from dlrover_tpu_torch.ops.flash_attention import flash_attention
 from dlrover_tpu_torch.ops.fused import (
     _mm_f32,
@@ -167,6 +173,33 @@ def init_params(
         "final_norm": norm(d),
         "lm_head": dense(d, cfg.vocab_size, fan_in=d),
     }
+
+
+def param_logical_axes(cfg: LlamaConfig) -> Dict:
+    """Same structure as ``init_params``, leaves = logical-axes tuples
+    (None = replicated dim); a copy of the JAX version's."""
+    return {
+        "embed": (sh.VOCAB, sh.EMBED),
+        "layers": {
+            "attn_norm": (sh.LAYERS, None),
+            "wq": (sh.LAYERS, sh.EMBED, sh.HEADS),
+            "wk": (sh.LAYERS, sh.EMBED, sh.KV_HEADS),
+            "wv": (sh.LAYERS, sh.EMBED, sh.KV_HEADS),
+            "wo": (sh.LAYERS, sh.HEADS, sh.EMBED),
+            "mlp_norm": (sh.LAYERS, None),
+            "w_gate": (sh.LAYERS, sh.EMBED, sh.MLP),
+            "w_up": (sh.LAYERS, sh.EMBED, sh.MLP),
+            "w_down": (sh.LAYERS, sh.MLP, sh.EMBED),
+        },
+        "final_norm": (None,),
+        "lm_head": (sh.EMBED, sh.VOCAB),
+    }
+
+
+def _full(gather, params: Params, name: str) -> torch.Tensor:
+    """A top-level leaf, gathered around its use under fsdp."""
+    t = params[name]
+    return t if gather is None else gather.leaf(name, t)
 
 
 def rope_frequencies(cfg: LlamaConfig, positions: torch.Tensor):
@@ -477,9 +510,14 @@ def forward_hidden(
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     if attention_fn is None:
         attention_fn = flash_attention
+    # under fsdp (the sharded train step) each leaf is this rank's slice
+    # and the full weights are gathered where they are used: a layer's
+    # inside ``block``, so that the checkpoint's recompute gathers them
+    # again and no more than one layer's full weights live at a time
+    gather = sh.active_gather()
     dt = cfg.dtype
     s = tokens.shape[1]
-    x = params["embed"].to(dt)[tokens.long()]
+    x = _full(gather, params, "embed").to(dt)[tokens.long()]
     cos, sin = rope_frequencies(
         cfg, torch.arange(s, device=tokens.device)
     )
@@ -489,6 +527,8 @@ def forward_hidden(
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
 
     def block(lp, x):
+        if gather is not None:
+            lp = gather.layer(lp)
         return _layer_forward(cfg, attention_fn, lp, x, cos, sin)
 
     for i in range(cfg.n_layers):
@@ -497,7 +537,7 @@ def forward_hidden(
             x = checkpoint(block, lp, x, use_reentrant=False)
         else:
             x = block(lp, x)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return rms_norm(x, _full(gather, params, "final_norm"), cfg.norm_eps)
 
 
 def forward(
@@ -509,7 +549,8 @@ def forward(
     """tokens ``[B, S]`` -> logits ``[B, S, vocab]`` (fp32)."""
     x = forward_hidden(params, tokens, cfg, attention_fn)
     b, s, d = x.shape
-    logits = _mm_f32(x.reshape(b * s, d), params["lm_head"].to(cfg.dtype))
+    head = _full(sh.active_gather(), params, "lm_head")
+    logits = _mm_f32(x.reshape(b * s, d), head.to(cfg.dtype))
     return logits.reshape(b, s, -1)
 
 
@@ -535,7 +576,8 @@ def loss_fn(
     if fused_ce:
         hidden = forward_hidden(params, inputs, cfg, attention_fn)
         return fused_linear_cross_entropy(
-            hidden, params["lm_head"], targets, mask,
+            hidden, _full(sh.active_gather(), params, "lm_head"), targets,
+            mask,
             chunk_rows=cfg.ce_chunk_rows,
         )
     logits = forward(params, inputs, cfg, attention_fn)

@@ -87,6 +87,28 @@ def record_ckpt_io(kind: str, nbytes: int, seconds: float):
         logger.warning("ckpt io metric export failed: %s", e)
 
 
+def record_input_io(stage: str, nbytes: int, seconds: float):
+    """Export one input data-plane measurement as gauges
+    (``dlrover_tpu_input_gbps{stage=...}`` / ``_bytes{stage=...}``).
+    ``stage``: ``host_fetch`` (what the consumer waited on) |
+    ``read_batch`` (the loader producer pool's raw fetch bandwidth) |
+    ``h2d``.  Never raises — metrics must not break the input
+    pipeline."""
+    try:
+        reg = get_registry()
+        gbps = nbytes / 1e9 / max(seconds, 1e-9)
+        reg.set_gauge(
+            "dlrover_tpu_input_gbps", gbps, labels={"stage": stage}
+        )
+        reg.set_gauge(
+            "dlrover_tpu_input_bytes",
+            float(nbytes),
+            labels={"stage": stage},
+        )
+    except Exception as e:  # noqa: BLE001
+        logger.warning("input io metric export failed: %s", e)
+
+
 def record_reshard_io(from_world: int, to_world: int, nbytes: int,
                       seconds: float):
     """One resharded restore as gauges labeled with the world

@@ -1,4 +1,5 @@
-"""The train step ``auto_accelerate`` hands back, on one device.
+"""The train step ``auto_accelerate`` hands back, on one card or over a
+mesh of ``data`` and ``fsdp`` axes, one process per card.
 
 Port of ``dlrover_tpu/parallel/train_step.py:31-242``.  The state is a
 dict ``{"step": int, "params": nested dict of leaf tensors,
@@ -11,9 +12,37 @@ in fp32 and scaled by ``1 / n``, and so is the loss.  ``grad_norm`` is
 the global L2 norm of those grads (``optax.global_norm``), before the
 update.
 
-What has no counterpart on one device is left out: the mesh, the
-param/batch shardings, buffer donation and AOT compilation
-(``aot_compile``); they come with ROADMAP A4.
+Over a mesh (``mesh_ctx``, ``param_axes`` and ``rules``, as the JAX
+``build_train_step`` takes them):
+
+- each rank gets the rows of the global batch that ``batch_sharding``
+  gives it (``BATCH -> (data, fsdp)``), cut on the host by
+  ``data.prefetch.device_prefetch``;
+- under ``fsdp > 1`` each leaf is kept as the rank's slice along the dim
+  ``param_sharding_with_fsdp`` picks (``placements``), and the loss
+  runs under a ``ParamGather``: the model gathers each layer's slices
+  inside its layer loop (again in a ``remat="full"`` recompute) and the
+  embedding, final norm and head around their own use, so no card holds
+  every layer's full weights at once.  The gather's gradient is a
+  reduce-scatter onto the slice;
+- the grads are mean-reduced over the data-flavoured axes
+  (``collectives.grad_sync``, one all-reduce per leaf), ``grad_norm`` is
+  the norm of the whole gradient (the squared norms of the slices summed
+  over ``fsdp``), and the optimizer updates each rank's slice
+  elementwise;
+- the loss is each rank's mean over its rows, averaged over the ranks:
+  the global batch's mean when every row carries the same number of
+  tokens (no mask), as the JAX step's is;
+- ``QuantizedMoments`` under ``fsdp > 1`` raises (ROADMAP A6): its
+  1,024-element blocks run over the flattened global leaf, and a slice
+  of ``[L, D, F]`` along dim 1 is not a run of that order.
+
+Collectives over an axis of one rank are no-ops, so at ``{data 1,
+fsdp 1}`` the sharded step computes what the unsharded one does, bit
+for bit, with the gather hook and the placements in place.  Tensor,
+seq and pipe axes above 1 raise (ROADMAP A4b), expert (A7).  Buffer
+donation and AOT compilation (``aot_compile``) have no counterpart:
+PyTorch updates the state in place and compiles nothing ahead.
 """
 
 from dataclasses import dataclass
@@ -22,6 +51,21 @@ from typing import Any, Callable, Dict, List, Optional
 import torch
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
+from dlrover_tpu_torch.parallel.mesh import AxisName, MeshContext
+from dlrover_tpu_torch.parallel.sharding import (
+    BATCH,
+    LATER_AXES,
+    BatchSharding,
+    LogicalAxisRules,
+    ParamGather,
+    Placement,
+    gather_scope,
+    logical_sharding,
+    param_sharding_with_fsdp,
+    rules_scope,
+    shard_pytree,
+    tree_map,
+)
 
 #: ``init_params_fn(generator, device) -> params`` (nested dict of
 #: tensors); ``optimizer_fn(list of leaves) -> torch.optim.Optimizer``
@@ -36,22 +80,56 @@ def param_leaves(params) -> List[torch.Tensor]:
     return [params]
 
 
-def batch_to_device(batch: Dict[str, Any], device: torch.device):
-    """A batch of numpy arrays or tensors -> the same keys as tensors on
-    ``device``."""
-    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
-
-
 @dataclass
 class TrainStepFns:
     """What ``build_train_step`` hands back."""
 
     # (state, batch) -> (state, {"loss", "grad_norm"[, "done"]}); on
-    # CUDA "done" is an event recorded after the optimizer update
+    # CUDA "done" is an event recorded after the optimizer update; the
+    # batch is this rank's rows (``batch_sharding.local``) on ``device``
     train_step: Callable
     init_state: Callable  # (seed) -> state
     eval_step: Callable  # (state, batch) -> {"loss"}
     device: torch.device
+    batch_sharding: BatchSharding = None
+    # a Placement per param leaf (the params' structure); None unsharded
+    placements: Optional[Dict] = None
+    mesh_ctx: Optional[MeshContext] = None
+    #: the ParamGather of the last train or eval step (None unsharded)
+    last_gather: Optional[ParamGather] = None
+
+
+def _paths(tree, prefix=""):
+    """``(path, leaf)`` of nested dicts, ``/``-joined, in leaf order."""
+    if isinstance(tree, dict):
+        return [kv for k, v in tree.items()
+                for kv in _paths(v, f"{prefix}{k}/")]
+    return [(prefix[:-1], tree)]
+
+
+def _check_axes(mesh_ctx: MeshContext):
+    for name, label in LATER_AXES.items():
+        if mesh_ctx.axis_size(name) > 1:
+            raise NotImplementedError(
+                f"a mesh with {name}={mesh_ctx.axis_size(name)}: this port "
+                f"shards over data and fsdp; {name} is ROADMAP {label}")
+
+
+def _placements(mesh_ctx, rules, param_axes, shapes) -> Dict:
+    fsdp = mesh_ctx.axis_size(AxisName.FSDP)
+    index = mesh_ctx.axis_index(AxisName.FSDP)
+    uses_fsdp = rules.uses_axis(AxisName.FSDP)
+
+    def one(axes, shape):
+        if uses_fsdp:
+            dim = param_sharding_with_fsdp(mesh_ctx, rules, axes, shape)
+        else:
+            logical_sharding(mesh_ctx, rules, axes)
+            dim = None
+        return Placement.of(shape, dim, fsdp, index)
+
+    # in the params' own order: the step zips placements with leaves
+    return tree_map(lambda shape, axes: one(axes, shape), shapes, param_axes)
 
 
 def build_train_step(
@@ -60,15 +138,59 @@ def build_train_step(
     init_params_fn: InitParamsFn,
     num_micro_steps: int = 1,
     device: DeviceLike = None,
+    mesh_ctx: Optional[MeshContext] = None,
+    param_axes: Optional[Dict] = None,
+    rules: Optional[LogicalAxisRules] = None,
+    batch_logical_axes=(BATCH,),
 ) -> TrainStepFns:
     if num_micro_steps < 1:
         raise ValueError(f"num_micro_steps must be >= 1, got "
                          f"{num_micro_steps}")
     dev = resolve_device(device)
+    placements, sharded, group, sharded_paths = None, None, None, []
+    batch_sharding = BatchSharding(1, 0, dev)
+    if mesh_ctx is not None:
+        if param_axes is None or rules is None:
+            raise ValueError("a sharded train step needs param_axes and "
+                             "rules beside mesh_ctx")
+        _check_axes(mesh_ctx)
+        logical_sharding(mesh_ctx, rules, batch_logical_axes)
+        shapes = tree_map(lambda t: tuple(t.shape),
+                          init_params_fn(None, torch.device("meta")))
+        placements = _placements(mesh_ctx, rules, param_axes, shapes)
+        sharded = [p.sharded for p in param_leaves(placements)]
+        sharded_paths = [k for k, p in _paths(placements) if p.sharded]
+        fsdp = mesh_ctx.axis_size(AxisName.FSDP)
+        group = mesh_ctx.group(AxisName.FSDP)
+        batch_sharding = BatchSharding(
+            mesh_ctx.axis_size(AxisName.DATA) * fsdp,
+            mesh_ctx.axis_index(AxisName.DATA) * fsdp
+            + mesh_ctx.axis_index(AxisName.FSDP),
+            dev)
+        if any(sharded):
+            from dlrover_tpu_torch.optimizers.low_bit import (
+                QuantizedMoments,
+            )
+
+            meta = [torch.empty(p.local_shape, device="meta")
+                    for p in param_leaves(placements)]
+            if isinstance(optimizer_fn(meta), QuantizedMoments):
+                raise NotImplementedError(
+                    "QuantizedMoments under fsdp > 1: its 1,024-element "
+                    "blocks run over the flattened global leaf, which a "
+                    "slice along an inner dim does not hold in order: "
+                    "ROADMAP A6")
+    fns = TrainStepFns(train_step=None, init_state=None, eval_step=None,
+                       device=dev, batch_sharding=batch_sharding,
+                       placements=placements, mesh_ctx=mesh_ctx)
 
     def init_state(seed: int = 0):
         gen = torch.Generator(device=dev).manual_seed(seed)
         params = init_params_fn(gen, dev)
+        if placements is not None:
+            # every rank draws the same global params from the seed and
+            # keeps its slices
+            params = shard_pytree(params, placements)
         leaves = param_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -77,8 +199,25 @@ def build_train_step(
             opt.init_state()  # the reference's opt.init(params)
         return {"step": 0, "params": params, "opt_state": opt}
 
+    def run_loss(params, batch):
+        """The loss under this step's rules and, over a mesh, a fresh
+        ``ParamGather``."""
+        if placements is None:
+            return loss_fn(params, batch)
+        gather = ParamGather(placements, group)
+        fns.last_gather = gather
+        with rules_scope(rules), gather_scope(gather):
+            loss = loss_fn(params, batch)
+        missing = set(sharded_paths) - {p for p, _ in gather.gathered}
+        if missing:
+            raise RuntimeError(
+                f"the loss used {sorted(missing)} without gathering them: "
+                "under fsdp the model takes its weights from "
+                "parallel.sharding.active_gather()")
+        return loss
+
     def loss_and_grads(params, leaves, batch):
-        loss = loss_fn(params, batch)
+        loss = run_loss(params, batch)
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach().float(), grads
 
@@ -109,9 +248,20 @@ def build_train_step(
             torch._foreach_mul_(grads, scale)
         else:
             loss, grads = loss_and_grads(params, leaves, batch)
-        grad_norm = torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm([g.float() for g in grads]))
-        )
+        if placements is None:
+            grad_norm = torch.linalg.vector_norm(torch.stack(
+                torch._foreach_norm([g.float() for g in grads])))
+        else:
+            from dlrover_tpu_torch.parallel.collectives import (
+                global_norm,
+                grad_sync,
+                mean_all_reduce_,
+            )
+
+            grads = list(grads)
+            grad_sync(grads, mesh_ctx, sharded)
+            grad_norm = global_norm(grads, mesh_ctx, sharded)
+            mean_all_reduce_([loss], mesh_ctx.data_group())
         for p, g in zip(leaves, grads):
             p.grad = g.to(p.dtype)
         del grads
@@ -130,11 +280,16 @@ def build_train_step(
 
     @torch.no_grad()
     def eval_step(state, batch):
-        return {"loss": loss_fn(state["params"], batch).float()}
+        loss = run_loss(state["params"], batch).float()
+        if placements is not None:
+            from dlrover_tpu_torch.parallel.collectives import (
+                mean_all_reduce_,
+            )
 
-    return TrainStepFns(
-        train_step=train_step,
-        init_state=init_state,
-        eval_step=eval_step,
-        device=dev,
-    )
+            mean_all_reduce_([loss], mesh_ctx.data_group())
+        return {"loss": loss}
+
+    fns.train_step = train_step
+    fns.init_state = init_state
+    fns.eval_step = eval_step
+    return fns

@@ -312,10 +312,14 @@ class RestorePrefetch:
         # and silently take the serial path (the consumer blocks on
         # iter_batches until the bytes land instead)
         newest_shm = self.shm_steps[0] if self.shm_steps else -1
-        shm_cand = None
-        if newest_shm >= 0:
-            shm_cand = _StagedCandidate("shm")
-            self._candidates[newest_shm] = shm_cand
+        # every usable slot, not only the newest: staging a slot opens
+        # its file and reads nothing, and at world > 1 the step the
+        # ranks agree on may be this rank's older slot (a peer skipped
+        # the newer snapshot behind a running drain)
+        shm_cands = [(step, _StagedCandidate("shm"))
+                     for step in self.shm_steps]
+        for step, cand in shm_cands:
+            self._candidates[step] = cand
         storage_cand = None
         if (
             self.storage_step >= 0
@@ -331,8 +335,8 @@ class RestorePrefetch:
             storage_cand = _StagedCandidate("storage")
             self._candidates[self.storage_step] = storage_cand
         self._avail.set()
-        if shm_cand is not None:
-            self._stage_shm(newest_shm, shm_cand)
+        for step, cand in shm_cands:
+            self._stage_shm(step, cand, count=step == newest_shm)
         if storage_cand is not None:
             self._stage_storage(
                 self.storage_step, self.storage_dir, storage_cand
@@ -347,7 +351,11 @@ class RestorePrefetch:
             steps=sorted(self._candidates),
         )
 
-    def _stage_shm(self, step: int, cand: _StagedCandidate):
+    def _stage_shm(self, step: int, cand: _StagedCandidate,
+                   count: bool = True):
+        """Open the slot holding ``step``; ``count`` adds its bytes to
+        ``staged_bytes`` (the newest slot's only: the span reports one
+        state's bytes made readable)."""
         try:
             slot = self._engine._shm_handler.open_slot(step)
             if slot is not None and slot[1] != step:
@@ -358,7 +366,9 @@ class RestorePrefetch:
                 return
             fd, _step, leaves = slot
             cand.publish_file(fd, leaves)
-            self.staged_bytes += sum(leaf.nbytes for leaf in leaves.values())
+            if count:
+                self.staged_bytes += sum(
+                    leaf.nbytes for leaf in leaves.values())
             cand.finish()
         except Exception as e:  # noqa: BLE001
             cand.finish(failed=True)

@@ -6,8 +6,9 @@ reference's (numpy, no ``jax``); what changed: leaves are named through
 the port's ``_flatten_keyed`` (JAX key paths), a leaf's dtype string is
 mapped by the port's own table (``agent/ckpt_shm.py``, so ``bfloat16``
 needs no ``ml_dtypes``), a streamed leaf is a CPU tensor, and
-``derive_layouts`` gives replicated layouts: a one-process state holds
-every leaf whole (the DTensor form comes with ROADMAP A4).
+``derive_layouts`` reads the placements the sharded train step recorded
+(the fsdp slice of each param and of its moments), where the reference
+reads ``jax.Array`` shardings.
 
 What follows is the reference's account of the format.
 
@@ -31,7 +32,7 @@ resharded read:
   the full leaf: the data-parallel case), :func:`axis0_layouts` (the
   leading dim sharded evenly across ranks: the FSDP host-sharding
   case, and the simulated-host harness in ``tests/test_reshard.py``),
-  :func:`derive_layouts` (replicated, for a one-process state).
+  :func:`derive_layouts` (from the train step's placements).
 - :func:`iter_copy_runs` — the N-d intersection math: given a source
   shard's block and a target block of the same global leaf, yield the
   ``(src_offset, dst_offset, nbytes)`` contiguous runs that move
@@ -171,11 +172,44 @@ def axis0_layouts(local_tree, rank: int, world: int,
     return out
 
 
-def derive_layouts(state) -> Optional[Dict[str, Dict]]:
-    """Layouts of a one-process state: every leaf whole (replicated).
-    The reference derives them from live ``jax.Array`` shardings; the
-    port has no sharded state yet (ROADMAP A4)."""
-    return replicated_layouts(state)
+def derive_layouts(state, placements=None) -> Optional[Dict[str, Dict]]:
+    """Layouts of this rank's state from the placements the train step
+    recorded (``TrainStepFns.placements``: a ``parallel.sharding.
+    Placement`` per param, the params' structure).  A param and each of
+    its optimizer moments (``['params']<path>``, ``['opt_state'].<name>
+    <path>``) carry the param's global shape, its slice's start and its
+    local shape; every other leaf (the steps) is whole.  With no
+    placements (a one-card step) every leaf is whole.  The reference
+    derives the same from live ``jax.Array`` shardings."""
+    if placements is None:
+        return replicated_layouts(state)
+    from dlrover_tpu_torch.models.convert import _dict_paths
+
+    by_path = dict(_dict_paths(placements))
+    out = {}
+    for key, leaf in _keyed_leaves(state):
+        shape = _leaf_shape(leaf)
+        place = None
+        if key.startswith("['params']"):
+            place = by_path.get(key[len("['params']"):])
+        elif key.startswith("['opt_state']."):
+            rest = key[len("['opt_state']."):]
+            path = rest[rest.find("["):] if "[" in rest else ""
+            place = by_path.get(path)
+        if place is None or not place.sharded:
+            out[key] = LeafLayout(
+                global_shape=shape, start=tuple(0 for _ in shape),
+                shape=shape).as_dict()
+            continue
+        if tuple(place.local_shape) != shape:
+            raise ValueError(
+                f"{key}: local shape {shape}, placement says "
+                f"{tuple(place.local_shape)}")
+        start = [0] * len(shape)
+        start[place.dim] = place.start
+        out[key] = LeafLayout(global_shape=tuple(place.global_shape),
+                              start=tuple(start), shape=shape).as_dict()
+    return out
 
 
 # ----------------------------------------------------- box arithmetic

@@ -1,5 +1,6 @@
-"""The training loop over ``auto_accelerate``'s train step, on one
-device.
+"""The training loop over ``auto_accelerate``'s train step, on one card
+or data-parallel over a mesh of ``data`` and ``fsdp`` axes, one process
+per card.
 
 Port of ``dlrover_tpu/trainer/trainer.py`` (``TrainingArgs`` :36-80,
 ``Trainer`` :83, the restart overlap :131-166, ``_init_or_restore_state``
@@ -19,11 +20,21 @@ step's device), reports progress to the master through an
 reports the hang and exits, and the agent restarts it), and with
 ``checkpoint_dir`` installs the drain handler: after the agent's
 SIGUSR1 every step is snapshotted to shared memory, blocking
-(``trainer/drain.py``).  At world > 1 each rank trains the whole replica
-on the batches it is given, and the ranks meet at a barrier after every
-step, on a gloo group of the host loops (``ElasticContext.host_group``),
-so that the barrier never waits on the card and the loop still queues
-one step ahead of it: gradient sync across ranks is ROADMAP A4.
+(``trainer/drain.py``).  At world > 1 the train step is the sharded one
+(``parallel/train_step.py``): each rank takes its rows of every global
+batch (``BATCH -> (data, fsdp)``), and the gradients are mean-reduced
+over the ranks, so that the ranks train one model.  The ranks also meet
+at a barrier after every step, on a gloo group of the host loops
+(``ElasticContext.host_group``), so that the barrier never waits on the
+card and the loop still queues one step ahead of it (``_couple_ranks``).
+
+Batches reach the step through ``data.prefetch.device_prefetch(...,
+size=2, sharding=fns.batch_sharding, pipelined=True)``, as in the
+reference: the host iterator runs on a background thread, the rank's
+rows cross to the card on a copy stream, two batches in flight.  With
+``DLROVER_TPU_INPUT_PIPELINE=0`` the fetch is inline (``pipelined=
+False``), the same batches in the same order.  ``h2d_times()`` reads
+each batch's copy.
 
 Flash checkpoint (``checkpoint_dir``): on start the state is restored
 from the newest step the engine finds (shared memory first, then disk)
@@ -70,14 +81,13 @@ read appends ``{"step", "loss", "grad_norm", "step_time_s"}`` to
 ``history``.
 """
 
+import collections
 import logging
 import time
 from dataclasses import dataclass
 from typing import Callable, Iterable, Optional
 
 import torch
-
-from dlrover_tpu_torch.parallel.train_step import batch_to_device
 
 logger = logging.getLogger(__name__)
 
@@ -168,6 +178,8 @@ class Trainer:
         #: "first_step_done"
         self.marks = {}
         self._restart_coord = None
+        #: the device_prefetch of the last passes over the data
+        self.prefetches = collections.deque(maxlen=16)
         if args.checkpoint_dir:
             if args.snapshot_mode not in ("auto", "copy", "staged"):
                 raise ValueError(
@@ -256,7 +268,7 @@ class Trainer:
             derive_layouts,
         )
 
-        self._layouts = derive_layouts(self.state)
+        self._layouts = derive_layouts(self.state, self._fns.placements)
         coord, self._restart_coord = self._restart_coord, None
         if coord is not None:
             # the derived layouts supersede the blind prefetch's; one
@@ -392,16 +404,37 @@ class Trainer:
             self._snap = None  # a drain still running holds its own refs
 
     def _couple_ranks(self):
-        """At world > 1, the ranks meet after every step.  Without
-        gradient sync (ROADMAP A4) nothing else couples them, and a rank
-        running on past a dead peer would leave the ranks' snapshots at
-        no common step, so that the restart would find none to restore.
-        The barrier runs on the host (gloo): an NCCL barrier would
-        synchronise the card's stream at every step."""
+        """At world > 1, the ranks' host loops meet after every step.
+        The gradient all-reduce couples the ranks' arithmetic, but it is
+        queued on the card: the host goes on before it completes, and
+        NCCL reports a dead peer only at its timeout.  Without the
+        barrier a rank would snapshot a step that a dead peer never
+        finished, and the ranks' snapshots would share no step for the
+        restart (C4).  The barrier runs on the host (gloo), where a dead
+        peer fails it at once; an NCCL barrier would synchronise the
+        card's stream at every step."""
         if self._ctx.world_size > 1:
             import torch.distributed as dist
 
             dist.barrier(group=self._ctx.host_group)
+
+    def _prefetch(self, iterator):
+        """The pass's batches on the card: the rank's rows, copied on a
+        copy stream two batches ahead (inline fetch when the input
+        pipeline is switched off)."""
+        from dlrover_tpu_torch.common.env import input_pipeline_enabled
+        from dlrover_tpu_torch.data.prefetch import device_prefetch
+
+        it = device_prefetch(iterator, size=2,
+                             sharding=self._fns.batch_sharding,
+                             pipelined=input_pipeline_enabled())
+        self.prefetches.append(it)
+        return it
+
+    def h2d_times(self):
+        """``{"bytes", "host_ms", "copy_ms"}`` of the batches the
+        passes so far handed out (the last 1,024 of each pass)."""
+        return [t for it in self.prefetches for t in it.h2d_times()]
 
     def _mark_start(self):
         """Where the next step's time starts: now, on the card's clock
@@ -445,15 +478,18 @@ class Trainer:
         max_batches = max_batches or self._args.eval_max_batches
         t0 = time.perf_counter()
         total, count, pending = 0.0, 0, None
-        for batch in it_fn():
-            if max_batches and count >= max_batches:
-                break
-            metrics = self._fns.eval_step(
-                self.state, batch_to_device(batch, self._fns.device))
-            if pending is not None:
-                total += float(pending["loss"])
-            pending = metrics
-            count += 1
+        batches = self._prefetch(it_fn())
+        try:
+            for batch in batches:
+                if max_batches and count >= max_batches:
+                    break
+                metrics = self._fns.eval_step(self.state, batch)
+                if pending is not None:
+                    total += float(pending["loss"])
+                pending = metrics
+                count += 1
+        finally:
+            batches.close()
         if pending is not None:
             total += float(pending["loss"])
         if count == 0:
@@ -493,32 +529,35 @@ class Trainer:
         self._mark_start()
         try:
             while step < self._args.max_steps:
-                for batch in self._data_iter_fn():
-                    if step >= self._args.max_steps:
-                        break
-                    batch = batch_to_device(batch, self._fns.device)
-                    whole = False
-                    self.state, metrics = self._fns.train_step(
-                        self.state, batch)
-                    step += 1
-                    self.progress.step_done()
-                    hang.report_step(step)
-                    self._couple_ranks()
-                    whole = True
-                    if pending is not None:
-                        step_times.append(self._consume_metrics(*pending))
-                    pending = (step, metrics)
-                    self._maybe_checkpoint(step)
-                    if eval_every and step % eval_every == 0:
-                        # settle the pending read so the eval pause is
-                        # not booked as a step time
-                        step_times.append(self._consume_metrics(*pending))
-                        pending = None
-                        self.evaluate()
-                        self._mark_start()
-                else:
-                    continue
-                break
+                batches = self._prefetch(self._data_iter_fn())
+                try:
+                    for batch in batches:
+                        if step >= self._args.max_steps:
+                            break
+                        whole = False
+                        self.state, metrics = self._fns.train_step(
+                            self.state, batch)
+                        step += 1
+                        self.progress.step_done()
+                        hang.report_step(step)
+                        self._couple_ranks()
+                        whole = True
+                        if pending is not None:
+                            step_times.append(self._consume_metrics(*pending))
+                        pending = (step, metrics)
+                        self._maybe_checkpoint(step)
+                        if eval_every and step % eval_every == 0:
+                            # settle the pending read so the eval pause is
+                            # not booked as a step time
+                            step_times.append(self._consume_metrics(*pending))
+                            pending = None
+                            self.evaluate()
+                            self._mark_start()
+                    else:
+                        continue
+                    break
+                finally:
+                    batches.close()
             if pending is not None:
                 step_times.append(self._consume_metrics(*pending))
         except BaseException:

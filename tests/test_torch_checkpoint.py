@@ -574,18 +574,28 @@ def test_snapshot_of_a_step_already_in_shm_keeps_the_other_slot(
                for _ in range(4)]
     seen = []
     trainer = None
+    result = _result(npp, torch.float32, "agd")
+    train_step = result.fns.train_step
+
+    def hooked_step(state, batch):
+        # between steps 3 and 4, on the training thread, where the
+        # example's crash hook runs (the data iterator runs ahead of the
+        # steps on the prefetch's thread)
+        if state["step"] == 3:
+            engine = trainer.checkpoint_engine
+            engine.wait_for_snapshot(timeout=60)
+            seen.append(engine._shm_handler.steps_available())
+            seen.append(trainer.snapshot())
+            seen.append(engine._shm_handler.steps_available())
+        return train_step(state, batch)
+
+    result.fns.train_step = hooked_step
 
     def data():
-        yield from batches[:3]
-        engine = trainer.checkpoint_engine
-        engine.wait_for_snapshot(timeout=60)
-        seen.append(engine._shm_handler.steps_available())
-        seen.append(trainer.snapshot())
-        seen.append(engine._shm_handler.steps_available())
-        yield batches[3]
+        yield from batches
 
     trainer = Trainer(
-        _result(npp, torch.float32, "agd"),
+        result,
         TrainingArgs(max_steps=4, log_interval=0, checkpoint_dir=ckpt_dir,
                      save_memory_interval=1, save_storage_interval=100,
                      snapshot_mode="staged"), data)

@@ -78,7 +78,14 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "trainer.elastic.context", "trainer.elastic.trainer",
               # the worker's restart path and the agent's services
               "trainer.restart_path", "agent.zygote", "agent.node_check",
-              "agent.preemption", "agent.replica", "common.netio"):
+              "agent.preemption", "agent.replica", "common.netio",
+              # the data plane, and data-parallel and FSDP training
+              "data.prefetch", "data.shm_dataloader",
+              "data.elastic_dataloader", "data.coworker",
+              "trainer.elastic.sampler", "trainer.sharding",
+              "parallel.mesh", "parallel.sharding", "parallel.collectives",
+              "accelerate.analyser", "accelerate.strategy",
+              "accelerate.solver"):
         assert f"dlrover_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -569,3 +569,39 @@ def test_the_shm_prefetch_publishes_the_slot_s_file_leaves(
                 for _k, v in _flatten_keyed(state))
     assert evs["restore_prefetch"]["labels"]["bytes"] == total
     assert evs["finish_restore"]["labels"]["bytes"] == total
+
+
+def test_the_prefetch_stages_both_slots_so_an_older_agreed_step_overlaps(
+        monkeypatch, tmp_path, agent, ckpt_dir):
+    """Both shm slots are opened: when the ranks agree on this rank's
+    older slot (a peer skipped the newer snapshot behind a running
+    drain), the restore still goes through ``finish_restore``, reading
+    the older slot, and the span reports one state's bytes."""
+    old, new = (torch_state(make_numpy_state(s)) for s in (8, 9))
+    name = uniq("h")
+    eng = CheckpointEngine(ckpt_dir, name=name)
+    try:
+        assert eng.save_to_memory(5, old)
+        eng.wait_for_snapshot(timeout=60)
+        assert eng.save_to_memory(6, new)
+    finally:
+        eng.close()
+    path = str(tmp_path / "ev.jsonl")
+    _timeline(monkeypatch, path)
+    # the peers' newest common step is 5 (this rank's row is [6, 5, ..])
+    eng = CheckpointEngine(ckpt_dir, name=name,
+                           step_sync_fn=lambda row: 5 if 5 in row else -1)
+    try:
+        pf = eng.start_prefetch()
+        pf.join()
+        assert {pf.candidate(s).source for s in (5, 6)} == {"shm"}
+        step, got = eng.finish_restore(pf, target=zeros_like(old))
+    finally:
+        eng.close()
+    assert step == 5
+    assert_same(got, old)
+    evs = {e["name"]: e for e in tevents.read_events(path)}
+    total = sum(int(torch.as_tensor(v).nbytes)
+                for _k, v in _flatten_keyed(old))
+    assert evs["finish_restore"]["labels"]["step"] == 5
+    assert evs["restore_prefetch"]["labels"]["bytes"] == total

@@ -473,10 +473,17 @@ def test_left_out_options_raise_not_implemented():
         with pytest.raises(NotImplementedError, match=f"ROADMAP {where}"):
             Trainer(result, args, lambda: iter(()))
     kw = dict(loss_fn=None, optimizer=None, init_params_fn=_init_fn(npp))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    # one process drives one card: the mesh is the world of processes
+    with pytest.raises(ValueError, match="one process"):
         auto_accelerate(**kw, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A4"):
+    with pytest.raises(ValueError, match="param_axes"):
         auto_accelerate(**kw, load_strategy=Strategy(data=2), device="cpu")
+    for strategy, where in ((Strategy(tensor=2), "A4b"),
+                            (Strategy(seq=2), "A4b"),
+                            (Strategy(pipe=2), "A4b"),
+                            (Strategy(expert=2), "A7")):
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {where}"):
+            auto_accelerate(**kw, load_strategy=strategy, device="cpu")
 
 
 def test_entry_points_need_cuda_or_an_explicit_cpu(monkeypatch):
