@@ -43,7 +43,15 @@ Phases (any failed check raises, so the script exits nonzero):
    causal or not, NaN past every input, each check also shown to reject
    a kernel that drops one tile, and the three kernels at the training
    shape, three runs bit for bit and timed against SDPA, with their
-   ``ptxas`` registers, spills and shared memory); blockwise int8
+   ``ptxas`` registers, spills and shared memory); ring attention
+   (``parallel.collectives``: ``ring_block`` and ``ring_merge`` over the
+   2 and 4 chunks of one ``[1, 4096, 32, 128]`` bf16 causal sequence,
+   every rank's loop in turn, the rotation being the indexing) held per
+   row against ``flash_attention`` on the whole sequence (o, dq, dk,
+   dv), also shown to reject one block merged without its lse rescale
+   and the lse cotangent dropped, with its launches counted and its
+   kernels held against their plain versions and timed on the n = 2
+   off-diagonal block; blockwise int8
    quantize, dequantize and the fused
    Adam update over ragged sizes, an all-zero block, a one-spike block
    and the half-way block, bit for bit, each check also shown to reject
@@ -91,8 +99,10 @@ Phases (any failed check raises, so the script exits nonzero):
    ``data_stall`` spans with ``stage=host_fetch``.
 5b'. the sharded step's code path at ``{data 1, fsdp 1}`` (param axes,
    placements, the per-layer gather hook; its collectives are no-ops)
-   for two steps from the training leg's init: losses and grad norms
-   equal the unsharded leg's bit for bit, and B1-B4 launch.
+   for two steps from the training leg's init, through
+   ``auto_accelerate`` and again with the full rule table (tensor, seq
+   and pipe rules over axes of size 1): losses and grad norms equal the
+   unsharded leg's bit for bit, and B1-B4 launch.
 5b. int8 leg: Llama-2-7B at ``--int8-layers`` layers (default 32, full
    depth) trained the same way with ``QuantizedMoments(lr=3e-4,
    weight_decay=0.1)``: launches per step (B9 once per leaf) and at init
@@ -958,6 +968,200 @@ def flash_small_d_times(fa, gen):
             f"{[fa.smem_bytes(x, d) for x in ('fwd', 'dkv', 'dq')]}")
         del q, k, v, dout, o, lse, bargs, fns, qt, kt, vt, out_t, dout_t
     torch.cuda.empty_cache()
+
+
+# ------------------------------------------------------ ring attention
+
+
+RING_SHAPE = (1, 4096, 32, 128)
+RING_CHUNKS = (2, 4)
+RING_OUT = ("o", "dq", "dk", "dv")
+
+
+def ring_loop(q, k, v, n, scale, block_fn, merge=None):
+    """The port's ring attention over ``n`` chunks of one sequence, every
+    rank's loop run here one after the other: chunk ``i`` of q meets, at
+    step ``s``, the K/V chunk a ring of ``n`` ranks hands rank ``i``
+    after ``s`` rotations (chunk ``(i - s) mod n``), through
+    ``collectives.ring_block`` and ``ring_merge`` (or ``merge``); the
+    rotation, the ring's only collective, is the indexing."""
+    from dlrover_tpu_torch.parallel import collectives as C
+
+    if merge is None:
+        def merge(state, out_i, lse_i, where):
+            return C.ring_merge(state, out_i, lse_i)
+    qs, ks, vs = (t.chunk(n, dim=1) for t in (q, k, v))
+    outs = []
+    for i in range(n):
+        state = C.ring_init(qs[i])
+        for step in range(n):
+            src = (i - step) % n
+            res = C.ring_block(qs[i], ks[src], vs[src], i, src, True, scale,
+                               block_fn)
+            if res is not None:
+                state = merge(state, *res, (i, src))
+        outs.append(C.ring_finish(state, q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+def ring_grads(fn, q, k, v, dout):
+    """``{o, dq, dk, dv}`` of ``fn(q, k, v)`` with output gradient
+    ``dout``."""
+    leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    o = fn(*leaves)
+    grads = torch.autograd.grad(o, leaves, dout)
+    return dict(zip(RING_OUT, [o.detach()] + [g.detach() for g in grads]))
+
+
+def ring_errs(got, ref):
+    """{output: worst row error / the bf16 flash limit}."""
+    tol = FLASH_TOL[torch.bfloat16]["rows"]
+    return {n: row_err(got[n], ref[n]) / tol for n in RING_OUT}
+
+
+def ring_phase():
+    """Ring attention (``parallel.collectives``) over the 2 and 4 chunks
+    of one ``[1, 4096, 32, 128]`` bf16 causal sequence on the kernels
+    (B2 per visible block, causal on the diagonal; B3/B4 with the merge's
+    lse cotangent), held per row against ``flash_attention`` on the whole
+    sequence (o, dq, dk, dv) with the flash checks' bf16 limit.  It must
+    reject two planted faults: one block merged without its lse rescale
+    (the last block of the last chunk), and the lse cotangent dropped
+    (every block's lse detached).  Launches are counted over the sound
+    loops alone; the kernels are then held against their plain versions
+    and timed on the inputs of the ring's off-diagonal block (n = 2).
+    Returns the kernel rows."""
+    import torch.nn.functional as F
+
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.ops import flash_attention as fa
+    from dlrover_tpu_torch.parallel import collectives as C
+
+    b, s, h, d = RING_SHAPE
+    scale = d ** -0.5
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    q, k, v, dout = (torch.randn(RING_SHAPE, device="cuda", generator=gen)
+                     .to(torch.bfloat16) for _ in range(4))
+    ref = ring_grads(lambda q, k, v: fa.flash_attention(q, k, v, True),
+                     q, k, v, dout)
+
+    def no_rescale(n):
+        def merge(state, out_i, lse_i, where):
+            if where != (n - 1, 0):
+                return C.ring_merge(state, out_i, lse_i)
+            acc, m, den = state
+            # the block's weight taken as the running one's: no exp(lse)
+            return acc + out_i.float(), m, den + 1.0
+        return merge
+
+    def no_glse(q, k, v, causal, scale):
+        o, lse = C.flash_block(q, k, v, causal, scale)
+        return o, lse.detach()
+
+    # the dK/dV call of the n = 2 ring's off-diagonal block (lse
+    # cotangent given, no causal mask)
+    cap = Capture(fa, "flash_bwd_dkv", score=lambda: 0,
+                  when=lambda *a: a[6] is not None and not a[7])
+    _build.reset_launches()
+    try:
+        sound = {}
+        for n in RING_CHUNKS:
+            got = ring_grads(lambda q, k, v, n=n: ring_loop(
+                q, k, v, n, scale, C.flash_block), q, k, v, dout)
+            sound[n] = ring_errs(got, ref)
+            torch.cuda.synchronize()
+            if n == RING_CHUNKS[0]:
+                cap.restore()
+    finally:
+        cap.restore()
+    counts = {kk: _build.launches[kk] for kk in FLASH_OUT}
+    blocks = sum(n * (n + 1) // 2 for n in RING_CHUNKS)
+    faults = {}
+    for n in RING_CHUNKS:
+        bad = ring_grads(lambda q, k, v, n=n: ring_loop(
+            q, k, v, n, scale, C.flash_block, no_rescale(n)), q, k, v, dout)
+        faults[f"no_rescale_{n}"] = ring_errs(bad, ref)
+        bad = ring_grads(lambda q, k, v, n=n: ring_loop(
+            q, k, v, n, scale, no_glse), q, k, v, dout)
+        faults[f"no_glse_{n}"] = ring_errs(bad, ref)
+    worst = max(e for r in sound.values() for e in r.values())
+    least = min(max(r.values()) for r in faults.values())
+    log(f"[ring] {list(RING_SHAPE)} bf16 causal over {RING_CHUNKS} chunks, "
+        f"against flash_attention on the whole sequence, err/limit "
+        f"{sound}; planted faults err/limit {faults}; limit rows "
+        f"{FLASH_TOL[torch.bfloat16]['rows']}; launches {counts} "
+        f"(blocks {blocks})")
+    require(worst <= 1.0 < least, "ring attention differs from flash on the "
+            "whole sequence, or a planted fault passes")
+    require(counts == {"flash_fwd": blocks, "flash_bwd_dkv": blocks,
+                       "flash_bwd_dq": blocks},
+            f"ring launches {counts}, blocks {blocks}")
+
+    # the kernels on the ring block's inputs, against their plain versions
+    qb, kb, vb, gb, lse_b, delta_b, glse_b = cap.args[:7]
+    require(tuple(qb.shape) == (b, s // 2, h, d) and glse_b is not None,
+            "captured ring block")
+    bargs = (qb, kb, vb, gb, lse_b, delta_b, glse_b, False, scale)
+    o, lse = fa.flash_fwd_kernel(qb, kb, vb, False, scale)
+    o_ref, lse_ref = fa.flash_fwd_plain(qb, kb, vb, False, scale)
+    dk, dv = fa.flash_bwd_dkv_kernel(*bargs)
+    dq = fa.flash_bwd_dq_kernel(*bargs)
+    dk_ref, dv_ref = fa.flash_bwd_dkv_plain(*bargs)
+    torch.cuda.synchronize()
+    got = dict(o=o, lse=lse, dq=dq, dk=dk, dv=dv)
+    plain = dict(o=o_ref, lse=lse_ref, dq=fa.flash_bwd_dq_plain(*bargs),
+                 dk=dk_ref, dv=dv_ref)
+    errs = flash_errs(got, plain, torch.bfloat16)
+    abs_err = {kern: max(max_err(got[nn], plain[nn]) for nn in outs)
+               for kern, outs in FLASH_OUT.items()}
+    log(f"[ring] block kernels on the captured n=2 off-diagonal block "
+        f"{tuple(qb.shape)} (lse cotangent given) against their plain "
+        f"versions err/limit {errs}")
+    require(all(e <= 1.0 for e in errs.values()), "a ring block kernel "
+            "differs from its plain version")
+    del got, plain, o, lse, dk, dv, dq, o_ref, lse_ref, dk_ref, dv_ref
+    qt, kt, vt = (t.transpose(1, 2).contiguous().requires_grad_(True)
+                  for t in (qb, kb, vb))
+    with torch.no_grad():
+        sdpa_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(qt, kt,
+                                                                   vt))
+    out_t = F.scaled_dot_product_attention(qt, kt, vt)
+    gt = gb.transpose(1, 2).contiguous()
+    sdpa_bwd = events_ms(lambda: torch.autograd.grad(
+        out_t, (qt, kt, vt), gt, retain_graph=True))
+    del qt, kt, vt, out_t, gt
+    csrc = "dlrover_tpu_torch/ops/csrc/"
+    rows = []
+    for name, replaces, kind, fn, plain_fn, lib in (
+        ("flash_fwd", "dlrover_tpu/ops/flash_attention.py:42", "fwd",
+         lambda: fa.flash_fwd_kernel(qb, kb, vb, False, scale),
+         lambda: fa.flash_fwd_plain(qb, kb, vb, False, scale), sdpa_fwd),
+        ("flash_bwd_dkv", "dlrover_tpu/ops/flash_attention.py:275", "dkv",
+         lambda: fa.flash_bwd_dkv_kernel(*bargs),
+         lambda: fa.flash_bwd_dkv_plain(*bargs), sdpa_bwd),
+        ("flash_bwd_dq", "dlrover_tpu/ops/flash_attention.py:340", "dq",
+         lambda: fa.flash_bwd_dq_kernel(*bargs),
+         lambda: fa.flash_bwd_dq_plain(*bargs), None),
+    ):
+        src = csrc + ("flash_attention.cu" if kind == "fwd"
+                      else "flash_attention_bwd.cu")
+        row = kernel_row(name + "_ring", src, replaces, counts[name],
+                         abs_err[name], FLASH_TOL[torch.bfloat16], fn,
+                         plain_fn, None,
+                         flash_bound_ms(kind, qb, kb, causal=False))
+        row["library_ms"] = lib
+        if name == "flash_bwd_dkv":
+            row["library_note"] = ("SDPA backward, dq+dk+dv in one call: "
+                                   "compare with flash_bwd_dkv + "
+                                   "flash_bwd_dq")
+        row["ring"] = {"chunks": list(RING_CHUNKS), "err_over_limit": worst,
+                       "least_fault_err_over_limit": least}
+        log_row(row)
+        rows.append(row)
+    del q, k, v, dout, ref, cap, bargs, qb, kb, vb, gb
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
 
 
 def serving_window(gen, lanes=13, heads=32, head_dim=128, block_size=16,
@@ -1826,15 +2030,16 @@ def _leaves(tree):
     return [tree]
 
 
-def flash_pairs(b, h, s):
-    """(query, key) pairs a causal pass visits, for this run's shape."""
-    return b * h * s * (s + 1) // 2
+def flash_pairs(b, h, s, causal=True):
+    """(query, key) pairs a pass visits, for this run's shape."""
+    return b * h * s * (s + 1) // 2 if causal else b * h * s * s
 
 
-def flash_bound_ms(kind, q, k):
+def flash_bound_ms(kind, q, k, causal=True):
     """Bytes: each input once, each output once.  Operations: 2 * D per
     visible (query, key) pair and product: forward 2 products (q k^T,
-    p v), dK/dV 4 (s, dp, dv, dk), dQ 3 (s, dp, dq)."""
+    p v), dK/dV 4 (s, dp, dv, dk), dQ 3 (s, dp, dq).  The backward's
+    lse cotangent, where the ring passes one, is one more row read."""
     b, s, h, d = q.shape
     item = q.element_size()
     qb, kb, row = q.numel() * item, k.numel() * item, b * h * s * 4
@@ -1844,7 +2049,8 @@ def flash_bound_ms(kind, q, k):
         "dkv": 2 * qb + 2 * kb + 2 * row + 2 * kb,
         "dq": 2 * qb + 2 * kb + 2 * row + qb,
     }[kind]
-    return bound(nbytes, products * 2 * d * flash_pairs(b, h, s), q.dtype)
+    return bound(nbytes, products * 2 * d * flash_pairs(b, h, s, causal),
+                 q.dtype)
 
 
 def events_ms(fn, iters: int = 10) -> float:
@@ -2052,46 +2258,69 @@ def stall_check(result, state, tokens, step_s):
 def sharded_one_one_check(cfg, init_fn, tokens, hist):
     """The sharded step's code path at ``{data 1, fsdp 1}`` (param axes,
     rules, placements, the per-layer gather hook, no-op collectives) for
-    two steps from the training leg's init and batch: its losses and
-    grad norms must equal the unsharded leg's bit for bit, and it must
-    launch the training path's kernels."""
+    two steps from the training leg's init and batch, once through
+    ``auto_accelerate`` and once with the full rule table (the tensor,
+    seq and pipe rules too, over a mesh of every axis at size 1: the
+    model's tensor, seq and pipe branches with no collective): both
+    runs' losses and grad norms must equal the unsharded leg's bit for
+    bit, and each must launch the training path's kernels."""
     from dlrover_tpu_torch.accelerate import Strategy, auto_accelerate
     from dlrover_tpu_torch.models import llama
     from dlrover_tpu_torch.ops import _build
     from dlrover_tpu_torch.optimizers import AGD
-    from dlrover_tpu_torch.parallel.train_step import param_leaves
+    from dlrover_tpu_torch.parallel.mesh import create_parallel_mesh
+    from dlrover_tpu_torch.parallel.sharding import default_rules
+    from dlrover_tpu_torch.parallel.train_step import (
+        build_train_step,
+        param_leaves,
+    )
 
-    result = auto_accelerate(
-        loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
-        optimizer=lambda ps: AGD(ps, lr=3e-4), init_params_fn=init_fn,
-        param_axes=llama.param_logical_axes(cfg),
-        load_strategy=Strategy(data=1, fsdp=1), device="cuda")
-    fns = result.fns
-    state = fns.init_state(0)
-    batch = fns.batch_sharding.local(
-        {"tokens": torch.from_numpy(tokens).cuda()})
-    got = []
-    _build.reset_launches()
-    for _ in range(2):
-        state, m = fns.train_step(state, batch)
-        got.append((float(m["loss"]), float(m["grad_norm"])))
-    torch.cuda.synchronize()
-    counts = {k: _build.launches[k] for k in TRAIN_KERNELS}
     want = [(r["loss"], r["grad_norm"]) for r in hist[:2]]
-    gathered = len(fns.last_gather.gathered)
-    sharded = sum(p.sharded for p in param_leaves(fns.placements))
-    log(f"[train] sharded code path at {{data 1, fsdp 1}} (strategy "
-        f"{result.strategy.describe()}): (loss, grad_norm) {got} against "
-        f"the unsharded leg's {want}; gathers in the last step {gathered} "
-        f"(the hook ran), sharded leaves {sharded}, launches {counts}")
-    require(got == want, "the {data 1, fsdp 1} step differs from the "
-            "unsharded one")
-    require(gathered > 0 and sharded == 0 and all(counts.values()),
-            "the sharded code path did not run its hook or the kernels")
-    del state, fns, result
-    gc.collect()
-    torch.cuda.empty_cache()
-    return {"equal": got == want, "launches": counts}
+    out = {}
+    for label in ("auto_accelerate", "full_rules"):
+        kw = dict(loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+                  init_params_fn=init_fn, device="cuda",
+                  param_axes=llama.param_logical_axes(cfg))
+        if label == "auto_accelerate":
+            result = auto_accelerate(
+                optimizer=lambda ps: AGD(ps, lr=3e-4),
+                load_strategy=Strategy(data=1, fsdp=1), **kw)
+            fns, what = result.fns, result.strategy.describe()
+        else:
+            rules = default_rules(fsdp=True, tensor_parallel=True,
+                                  sequence_parallel=True, pipeline=True)
+            fns = build_train_step(
+                optimizer_fn=lambda ps: AGD(ps, lr=3e-4),
+                mesh_ctx=create_parallel_mesh(Strategy().mesh_dims(),
+                                              device="cuda",
+                                              set_global=False),
+                rules=rules, **kw)
+            result, what = None, "every axis 1, every rule"
+        state = fns.init_state(0)
+        batch = fns.batch_sharding.local(
+            {"tokens": torch.from_numpy(tokens).cuda()})
+        got = []
+        _build.reset_launches()
+        for _ in range(2):
+            state, m = fns.train_step(state, batch)
+            got.append((float(m["loss"]), float(m["grad_norm"])))
+        torch.cuda.synchronize()
+        counts = {k: _build.launches[k] for k in TRAIN_KERNELS}
+        gathered = len(fns.last_gather.gathered)
+        sharded = sum(p.sharded for p in param_leaves(fns.placements))
+        log(f"[train] sharded code path at {{data 1, fsdp 1}} ({label}: "
+            f"{what}): (loss, grad_norm) {got} against the unsharded "
+            f"leg's {want}; gathers in the last step {gathered} (the hook "
+            f"ran), sharded leaves {sharded}, launches {counts}")
+        require(got == want, f"the {{data 1, fsdp 1}} step ({label}) "
+                "differs from the unsharded one")
+        require(gathered > 0 and sharded == 0 and all(counts.values()),
+                "the sharded code path did not run its hook or the kernels")
+        out[label] = {"equal": got == want, "launches": counts}
+        del state, fns, result
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {"equal": all(v["equal"] for v in out.values()), **out}
 
 
 def train_path(args):
@@ -3925,10 +4154,10 @@ def main() -> int:
         return 0
     kernel_checks()
     flash_checks()
+    rows = ring_phase()
     int8_checks()
     tiny_parity()
     train_parity()
-    rows = []
     if not (args.kernels_only or args.skip_serve):
         rows += main_path(args)
     if not (args.kernels_only or args.skip_train):

@@ -1,6 +1,6 @@
 """``auto_accelerate`` of the port (``dlrover_tpu/accelerate``): one
-card, or a mesh of ``data`` and ``fsdp`` axes over the world's ranks;
-tensor, sequence and pipeline strategies are ROADMAP A4b."""
+card, or a mesh of ``data``, ``fsdp``, ``tensor``, ``seq`` and ``pipe``
+axes over the world's ranks; the strategy search is not ported yet."""
 
 from dlrover_tpu_torch.accelerate.analyser import (
     ModelProfile,

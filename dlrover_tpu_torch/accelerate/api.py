@@ -1,5 +1,6 @@
 """``auto_accelerate``: from loss, optimizer and param init to a train
-step, on one card or over a mesh of ``data`` and ``fsdp`` axes.
+step, on one card or over a mesh of ``data``, ``fsdp``, ``tensor``,
+``seq`` and ``pipe`` axes.
 
 Port of ``dlrover_tpu/accelerate/api.py:26-225`` (the ``load_strategy``
 path), with ``Strategy`` from ``accelerate/strategy.py`` and the
@@ -13,14 +14,13 @@ own card only).
 - With ``param_axes`` (the params' logical axes, as the JAX version
   takes them) the step is ``build_train_step`` over the strategy's mesh
   and ``default_rules(**strategy.rule_flags())``.  At ``{data 1,
-  fsdp 1}`` its collectives are no-ops.  A strategy sized for another
-  world raises: the JAX version re-solves the factorization
-  (``solver.resolve_for_world``), whose candidates include the axes
-  that wait for A4b.
-- ``tensor``, ``seq`` and ``pipe`` > 1 raise (ROADMAP A4b), ``expert``
-  > 1 too (A7).  There is no candidate search or dry run yet: without
-  ``load_strategy`` the strategy is pure data parallelism over the
-  world.
+  fsdp 1}`` its collectives are no-ops.  Under ``pipe > 1`` the mesh's
+  ``pipeline_microbatches`` is ``Strategy.pipe_microbatches`` or
+  ``2 x pipe``.  A strategy sized for another world raises: the JAX
+  version re-solves the factorization (``solver.resolve_for_world``).
+- ``expert`` > 1 raises (ROADMAP A7).  There is no candidate search or
+  dry run yet: without ``load_strategy`` the strategy is
+  pure data parallelism over the world.
 """
 
 from dataclasses import dataclass
@@ -89,7 +89,8 @@ def auto_accelerate(
         if dict(strategy.mesh_dims())[name] > 1:
             raise NotImplementedError(
                 f"strategy {strategy.describe()}: {name} parallelism is "
-                f"ROADMAP {label}; this port shards over data and fsdp")
+                f"ROADMAP {label}; this port shards over data, fsdp, "
+                "tensor, seq and pipe")
     profile = analyse_model(init_params_fn, optimizer)
     if param_axes is None:
         if strategy.n_devices > 1 or ctx.world_size > 1:
@@ -112,6 +113,9 @@ def auto_accelerate(
             f"strategy {strategy.describe()} covers {strategy.n_devices} "
             f"devices, the world has {ctx.world_size} ranks")
     mesh_ctx = create_parallel_mesh(strategy.mesh_dims(), device=dev)
+    if strategy.pipe > 1:
+        mesh_ctx.pipeline_microbatches = (
+            strategy.pipe_microbatches or 2 * strategy.pipe)
     rules = default_rules(**strategy.rule_flags())
     fns = build_train_step(
         loss_fn=loss_fn,

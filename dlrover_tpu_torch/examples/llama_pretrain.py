@@ -4,8 +4,10 @@ AGD, with flash checkpoint and the elastic launch.
 Port of ``examples/llama_pretrain.py`` (the same CLI, config recipe and
 data stream) for one device a process.  It joins the world the agent
 assembled (``init_distributed``, as the JAX example does at :47-49) and
-trains over a mesh of ``--data`` x ``--fsdp`` ranks (default: data
-parallel over the world): each rank draws the global batch of
+trains over a mesh of ``--data`` x ``--fsdp`` x ``--tensor`` ranks
+(default: data parallel over the world; ``main(strategy=...)`` takes
+any ``Strategy``, the seq and pipe axes too): each rank draws the
+global batch of
 ``--batch`` rows and the step takes the rank's rows by the batch
 sharding (``BATCH -> (data, fsdp)``), as the JAX example's
 ``jax.device_put(batch, batch_sharding)`` does; the gradients are
@@ -114,6 +116,8 @@ def parse_args(argv=None):
                    help="data-parallel ranks (-1: the world over --fsdp)")
     p.add_argument("--fsdp", type=int, default=1,
                    help="ranks each param is sharded over (ZeRO-3)")
+    p.add_argument("--tensor", type=int, default=1,
+                   help="tensor-parallel ranks (heads, MLP columns, vocab)")
     return p.parse_args(argv)
 
 
@@ -156,24 +160,25 @@ def batches(done: int, args, vocab: int):
         yield {"tokens": draw()}
 
 
-def leaf_digests(state, placements=None, group=None) -> dict:
+def leaf_digests(state, placements=None, mesh_ctx=None) -> dict:
     """{JAX key path: digest} of a train state.  A tensor's digest is the
     plain and the position-weighted sum of its 32-bit words (bytes when
     its size is not a multiple of 4), each mod 2^64, computed where the
     tensor lies: a change of any one word changes the weighted sum
     (the weights are odd).  A Python number (a step count) is its
-    value.  With the train step's ``placements`` and the fsdp ``group``
-    they are the digests of the global state: each fsdp slice is
-    gathered first (a collective: every rank of the group calls it)."""
+    value.  With the train step's ``placements`` and its ``mesh_ctx``
+    they are the digests of the global state: each slice is gathered
+    over every axis that cuts it first (collectives: every rank of the
+    mesh calls them in one order)."""
     from dlrover_tpu_torch.models.convert import HostScalar, train_state_leaves
 
-    layouts = None
+    places = {}
     if placements is not None:
         from dlrover_tpu_torch.trainer.checkpoint.reshard import (
-            derive_layouts,
+            placements_by_key,
         )
 
-        layouts = derive_layouts(state, placements)
+        places = placements_by_key(state, placements)
     out = {}
     for key, leaf in train_state_leaves(state):
         if isinstance(leaf, HostScalar):
@@ -181,14 +186,15 @@ def leaf_digests(state, placements=None, group=None) -> dict:
         if not torch.is_tensor(leaf):
             out[key] = repr(np.asarray(leaf).tolist())
             continue
-        lay = layouts[key] if layouts is not None else None
-        if lay is not None and lay["shape"] != lay["global_shape"]:
+        place = places.get(key)
+        if place is not None and place.sharded:
             from dlrover_tpu_torch.parallel.collectives import all_gather_dim
 
-            dim = next(i for i, (a, b) in enumerate(
-                zip(lay["shape"], lay["global_shape"])) if a != b)
             with torch.no_grad():
-                leaf = all_gather_dim(leaf.detach(), dim, group)
+                leaf = leaf.detach()
+                for shard in place.shards:
+                    leaf = all_gather_dim(leaf, shard.dim,
+                                          mesh_ctx.group(shard.axis))
         flat = leaf.detach().contiguous().view(-1)
         if flat.numel() * flat.element_size() % 4 == 0:
             words = flat.view(torch.int32)
@@ -243,7 +249,10 @@ class _Report:
         os.replace(tmp, self.path)
 
 
-def main(argv=None):
+def main(argv=None, strategy=None):
+    """``strategy`` (an ``accelerate.Strategy``) replaces the one the
+    flags give: a caller can run the seq and pipe axes, which the
+    reference example has no flags for."""
     args = parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(message)s")
 
@@ -277,14 +286,17 @@ def main(argv=None):
     if report:
         report.data["marks"]["modules_imported"] = time.time()
     cfg = model_config(args)
-    data = args.data if args.data > 0 else ctx.world_size // args.fsdp
+    if strategy is None:
+        data = args.data if args.data > 0 else (
+            ctx.world_size // (args.fsdp * args.tensor))
+        strategy = Strategy(data=data, fsdp=args.fsdp, tensor=args.tensor)
     result = auto_accelerate(
         loss_fn=lambda p, b: loss_fn(p, b, cfg),
         optimizer=lambda ps: AGD(ps, lr=3e-4),
         init_params_fn=lambda gen, dev: init_params(
             cfg, gen, dev, dtype=torch.float32),
         param_axes=param_logical_axes(cfg),
-        load_strategy=Strategy(data=data, fsdp=args.fsdp),
+        load_strategy=strategy,
         device=ctx.device,
     )
     if report:
@@ -348,11 +360,8 @@ def main(argv=None):
         extra = {}
         fns = result.fns
         if any(p.sharded for p in param_leaves(fns.placements or {})):
-            from dlrover_tpu_torch.parallel.mesh import AxisName
-
             extra["global_digests"] = leaf_digests(
-                trainer.state, fns.placements,
-                fns.mesh_ctx.group(AxisName.FSDP))
+                trainer.state, fns.placements, fns.mesh_ctx)
         report.write(trainer, summary=summary,
                      digests=leaf_digests(trainer.state), **extra)
     if args.eval_interval and summary["final_step"] % args.eval_interval:

@@ -17,11 +17,24 @@ Params are a plain dict with the JAX package's layout: ``embed [V, D]``,
 ``layers`` a dict of tensors stacked on dim 0 (``wq [L, D, H*hd]``,
 projections ``[in, out]``), ``final_norm [D]``, ``lm_head [D, V]``.  The
 JAX ``lax.scan`` over stacked layers is a Python loop here.  Under the
-sharded train step's fsdp axis each leaf is the rank's slice
-(``param_logical_axes``, ``parallel/sharding.py``): the training forward
-takes its full weights from the active ``ParamGather``, a layer's inside
-its (checkpointed) layer function, the embedding, final norm and head
-where they are used.
+sharded train step each leaf is the rank's slice (``param_logical_axes``,
+``parallel/sharding.py``), and the training forward reads the mesh from
+the active ``ParamGather``:
+
+- fsdp: the gather returns full weights where they are used, a layer's
+  inside its (checkpointed) layer function, the embedding, final norm
+  and head around their own use;
+- tensor: ``wq``/``wk``/``wv``/``w_gate``/``w_up`` are column-parallel
+  over the local heads and MLP columns, ``wo``/``w_down`` row-parallel,
+  each followed by a sum over the tensor group (Megatron's conjugate
+  pair, ``parallel.collectives.copy_to``/``reduce_from``); the embedding
+  and the head are vocab-parallel (a masked lookup summed over tensor,
+  and a cross entropy over the vocab shard);
+- seq: ``loss_fn`` cuts the inputs and targets to the rank's chunk of
+  the sequence, RoPE positions start at the chunk's, and the attention
+  is Ulysses or ring (``accelerate.module_replace.select_attention``);
+- pipe: the rank's layers are one stage of the GPipe executor
+  (``module_replace.select_layer_executor``).
 
 Serving weights are stored once in ``cfg.dtype``: JAX keeps fp32 master
 weights and casts them at every matmul, which gives the same numbers.
@@ -48,12 +61,15 @@ from torch.utils.checkpoint import checkpoint
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.parallel import sharding as sh
+from dlrover_tpu_torch.parallel.collectives import copy_to, reduce_from
+from dlrover_tpu_torch.parallel.mesh import AxisName
 from dlrover_tpu_torch.ops.flash_attention import flash_attention
 from dlrover_tpu_torch.ops.fused import (
     _mm_f32,
     add_rms_norm,
     fused_linear_cross_entropy,
     rms_norm,
+    vocab_parallel_nll,
 )
 from dlrover_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
@@ -472,22 +488,61 @@ def _proj(a, w, dt):
 
 
 def _layer_forward(cfg: LlamaConfig, attention_fn: AttentionFn, lp, x,
-                   cos, sin):
+                   cos, sin, tp=None):
+    """One layer on the rank's weights: under ``tp`` (the tensor group)
+    the local heads and MLP columns, the row-parallel products summed
+    over the group."""
     b, s, _ = x.shape
-    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     dt = cfg.dtype
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q = apply_rope(_proj(h, lp["wq"], dt).reshape(b, s, nh, hd), cos, sin)
-    k = apply_rope(_proj(h, lp["wk"], dt).reshape(b, s, nkv, hd), cos, sin)
-    v = _proj(h, lp["wv"], dt).reshape(b, s, nkv, hd)
+    h = copy_to(rms_norm(x, lp["attn_norm"], cfg.norm_eps), tp)
+    q = apply_rope(_proj(h, lp["wq"], dt).reshape(b, s, -1, hd), cos, sin)
+    k = apply_rope(_proj(h, lp["wk"], dt).reshape(b, s, -1, hd), cos, sin)
+    v = _proj(h, lp["wv"], dt).reshape(b, s, -1, hd)
     attn = attention_fn(q, k, v, causal=True)
     # the add before the MLP norm goes into its kernel; the one at the
     # layer's end crosses the per-layer checkpoint and stays an add
-    x, h = add_rms_norm(x, _proj(attn.reshape(b, s, nh * hd), lp["wo"], dt),
-                        lp["mlp_norm"], cfg.norm_eps)
+    o = reduce_from(_proj(attn.reshape(b, s, -1), lp["wo"], dt), tp)
+    x, h = add_rms_norm(x, o, lp["mlp_norm"], cfg.norm_eps)
+    h = copy_to(h, tp)
     gate = F.silu(_proj(h, lp["w_gate"], dt))
     up = _proj(h, lp["w_up"], dt)
-    return x + _proj(gate * up, lp["w_down"], dt)
+    return x + reduce_from(_proj(gate * up, lp["w_down"], dt), tp)
+
+
+def _mesh(gather):
+    """The step's mesh and rule table (None, None outside a sharded
+    step)."""
+    if gather is None:
+        return None, None
+    return gather.mesh_ctx, gather.rules
+
+
+def _vocab_shard(gather, name: str, dim: int):
+    """``(tensor group, first vocab id held)`` when the tensor axis cuts
+    leaf ``name`` along ``dim``, else ``(None, 0)``."""
+    mesh, _ = _mesh(gather)
+    if mesh is None:
+        return None, 0
+    p = gather.placements[name]
+    shard = p.shard(AxisName.TENSOR)
+    if shard is None or shard.dim != dim:
+        return None, 0
+    return mesh.group(AxisName.TENSOR), p.starts[dim]
+
+
+def _embed(gather, params: Params, tokens, dt):
+    """The token embeddings; under a vocab-cut table each rank looks up
+    the ids it holds and the rows are summed over the tensor group."""
+    table = _full(gather, params, "embed").to(dt)
+    group, v0 = _vocab_shard(gather, "embed", 0)
+    if group is None:
+        return table[tokens.long()]
+    ids = tokens.long() - v0
+    held = (ids >= 0) & (ids < table.shape[0])
+    rows = table[ids.clamp(0, table.shape[0] - 1)]
+    return reduce_from(torch.where(held[..., None], rows,
+                                   torch.zeros_like(rows)), group)
 
 
 def forward_hidden(
@@ -500,7 +555,13 @@ def forward_hidden(
     ``cfg.dtype`` (the pre-lm-head activations, so the loss can fuse the
     vocab projection).  ``cfg.remat == "full"`` recomputes each layer's
     forward in the backward (non-reentrant ``checkpoint``), as
-    ``jax.checkpoint`` does."""
+    ``jax.checkpoint`` does.  Under seq parallelism ``tokens`` is the
+    rank's chunk of the sequence (``loss_fn`` cuts it)."""
+    from dlrover_tpu_torch.accelerate.module_replace import (
+        select_attention,
+        select_layer_executor,
+    )
+
     if cfg.remat not in ("none", "full"):
         if cfg.remat == "dots":
             raise NotImplementedError(
@@ -508,35 +569,38 @@ def forward_hidden(
                 "rest) is not ported yet: ROADMAP A2, left out"
             )
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
-    if attention_fn is None:
-        attention_fn = flash_attention
     # under fsdp (the sharded train step) each leaf is this rank's slice
     # and the full weights are gathered where they are used: a layer's
     # inside ``block``, so that the checkpoint's recompute gathers them
     # again and no more than one layer's full weights live at a time
     gather = sh.active_gather()
+    mesh, rules = _mesh(gather)
+    if attention_fn is None:
+        attention_fn = select_attention(mesh, rules, flash_attention)
+    tp = mesh.group(AxisName.TENSOR) if mesh is not None else None
     dt = cfg.dtype
     s = tokens.shape[1]
-    x = _full(gather, params, "embed").to(dt)[tokens.long()]
+    x = _embed(gather, params, tokens, dt)
+    start = 0 if mesh is None else mesh.axis_index(AxisName.SEQUENCE) * s
     cos, sin = rope_frequencies(
-        cfg, torch.arange(s, device=tokens.device)
+        cfg, torch.arange(start, start + s, device=tokens.device)
     )
     # one unbind per stacked leaf: its backward stacks the per-layer
     # grads once, where a slice per layer would add a full-size zero
     # tensor per layer
     layers = {k: v.unbind(0) for k, v in params["layers"].items()}
 
-    def block(lp, x):
+    def block(lp, x, cos, sin):
         if gather is not None:
             lp = gather.layer(lp)
-        return _layer_forward(cfg, attention_fn, lp, x, cos, sin)
+        return _layer_forward(cfg, attention_fn, lp, x, cos, sin, tp)
 
-    for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in layers.items()}
+    def layer(lp, x, cos, sin):
         if cfg.remat == "full":
-            x = checkpoint(block, lp, x, use_reentrant=False)
-        else:
-            x = block(lp, x)
+            return checkpoint(block, lp, x, cos, sin, use_reentrant=False)
+        return block(lp, x, cos, sin)
+
+    x = select_layer_executor(mesh)(layer, layers, x, cos, sin)
     return rms_norm(x, _full(gather, params, "final_norm"), cfg.norm_eps)
 
 
@@ -546,12 +610,36 @@ def forward(
     cfg: LlamaConfig,
     attention_fn: Optional[AttentionFn] = None,
 ) -> torch.Tensor:
-    """tokens ``[B, S]`` -> logits ``[B, S, vocab]`` (fp32)."""
+    """tokens ``[B, S]`` -> logits ``[B, S, vocab]`` (fp32); under a
+    vocab-cut head, the rank's columns of the vocab."""
     x = forward_hidden(params, tokens, cfg, attention_fn)
     b, s, d = x.shape
-    head = _full(sh.active_gather(), params, "lm_head")
+    gather = sh.active_gather()
+    head = _full(gather, params, "lm_head")
+    group, _ = _vocab_shard(gather, "lm_head", 1)
+    x = copy_to(x, group)
     logits = _mm_f32(x.reshape(b * s, d), head.to(cfg.dtype))
     return logits.reshape(b, s, -1)
+
+
+def _seq_chunk(gather, *ts):
+    """Each of ``ts`` (``[B, S, ...]`` or None) cut to the seq rank's
+    chunk of the sequence."""
+    mesh, _ = _mesh(gather)
+    n = 1 if mesh is None else mesh.axis_size(AxisName.SEQUENCE)
+    if n == 1:
+        return ts
+    i = mesh.axis_index(AxisName.SEQUENCE)
+    out = []
+    for t in ts:
+        if t is not None:
+            if t.shape[1] % n:
+                raise ValueError(f"a sequence of {t.shape[1]} tokens does "
+                                 f"not split over seq {n}")
+            size = t.shape[1] // n
+            t = t[:, i * size:(i + 1) * size]
+        out.append(t)
+    return out
 
 
 def loss_fn(
@@ -565,24 +653,35 @@ def loss_fn(
     ``{"tokens": [B, S+1]}`` or ``{"inputs", "targets"}``, with an
     optional ``"mask"``.  ``fused_ce`` (default: on when vocab >= 8192)
     routes the lm-head through ``ops.fused.fused_linear_cross_entropy``
-    so fp32 logits never exist at ``[B, S, V]``."""
+    so fp32 logits never exist at ``[B, S, V]``.  Under seq parallelism
+    the loss is the mean over the rank's chunk of the tokens (the train
+    step averages the ranks')."""
     if "inputs" in batch:
         inputs, targets = batch["inputs"], batch["targets"]
     else:
         inputs, targets = batch["tokens"][:, :-1], batch["tokens"][:, 1:]
-    mask = batch.get("mask")
+    gather = sh.active_gather()
+    # under seq parallelism each rank's loss covers its chunk of tokens
+    inputs, targets, mask = _seq_chunk(gather, inputs, targets,
+                                       batch.get("mask"))
+    group, v0 = _vocab_shard(gather, "lm_head", 1)
     if fused_ce is None:
         fused_ce = cfg.vocab_size >= _FUSED_CE_MIN_VOCAB
     if fused_ce:
-        hidden = forward_hidden(params, inputs, cfg, attention_fn)
+        hidden = copy_to(forward_hidden(params, inputs, cfg, attention_fn),
+                         group)
         return fused_linear_cross_entropy(
-            hidden, _full(sh.active_gather(), params, "lm_head"), targets,
+            hidden, _full(gather, params, "lm_head"), targets,
             mask,
             chunk_rows=cfg.ce_chunk_rows,
+            group=group, vocab_start=v0,
         )
     logits = forward(params, inputs, cfg, attention_fn)
-    logp = torch.log_softmax(logits, dim=-1)
-    nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
+    if group is not None:
+        nll = vocab_parallel_nll(logits, targets, group, v0)
+    else:
+        logp = torch.log_softmax(logits, dim=-1)
+        nll = -logp.gather(-1, targets.long()[..., None])[..., 0]
     if mask is not None:
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)

@@ -21,11 +21,20 @@ Port of ``dlrover_tpu/ops/fused.py``:
   more than one fp32 ``[chunk_rows, V]`` logits block, in the forward or
   the backward (which recomputes each chunk's logits and accumulates
   ``dW`` in fp32).  The reference is an XLA scan, not Pallas: the chunks'
-  products go to ``torch.mm``.
+  products go to ``torch.mm``.  Under a vocab cut over the tensor group
+  (``group``, ``vocab_start``) each rank holds ``w_vocab``'s columns of
+  its part of the vocab: every chunk's row max and sum of exponentials
+  are summed over the group (``distributed_softmax`` in the reference's
+  terms), the target's logit comes from the rank that holds it, and the
+  backward reuses the forward's global ``lse``.
+- ``vocab_parallel_nll``: the same over logits the rank holds (the dense
+  branch of ``models.llama.loss_fn`` under a vocab cut).
 """
 
 import ctypes
 from typing import Optional, Tuple
+
+import torch.distributed as dist
 
 import torch
 
@@ -314,27 +323,87 @@ def _mm_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.mm(a.float(), b.float())
 
 
+def _vocab_lse(logits, t, v0, group):
+    """The rows' global ``(lse, target logit)`` of fp32 ``logits`` that
+    hold vocab ids ``[v0, v0 + V_local)``: the max, then the sum of
+    exponentials and the picked logit summed over ``group``."""
+    m = logits.amax(dim=-1)
+    dist.all_reduce(m, op=dist.ReduceOp.MAX, group=group)
+    local = t - v0
+    held = (local >= 0) & (local < logits.shape[1])
+    picked = logits.gather(1, local.clamp(0, logits.shape[1] - 1)[:, None])
+    sums = torch.stack([torch.exp(logits - m[:, None]).sum(-1),
+                        torch.where(held, picked[:, 0],
+                                    torch.zeros_like(m))])
+    dist.all_reduce(sums, op=dist.ReduceOp.SUM, group=group)
+    return m + torch.log(sums[0]), sums[1]
+
+
+def _dlogits(logits, lse, t, v0, scale):
+    """``(softmax - onehot(t)) * scale`` over the rank's vocab columns."""
+    d = torch.exp(logits - lse[:, None])
+    local = t - v0
+    held = (local >= 0) & (local < logits.shape[1])
+    # a scatter, not an index by the held rows: no copy to the host
+    d.scatter_add_(1, local.clamp(0, logits.shape[1] - 1)[:, None],
+                   -held.to(d.dtype)[:, None])
+    return d * scale[:, None]
+
+
+class _VocabParallelNLL(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, t, group, v0):
+        lse, picked = _vocab_lse(logits, t, v0, group)
+        ctx.save_for_backward(logits, lse, t)
+        ctx.v0 = v0
+        return lse - picked
+
+    @staticmethod
+    def backward(ctx, g):
+        logits, lse, t = ctx.saved_tensors
+        return _dlogits(logits, lse, t, ctx.v0, g.float()), None, None, None
+
+
+def vocab_parallel_nll(logits: torch.Tensor, targets: torch.Tensor, group,
+                       vocab_start: int) -> torch.Tensor:
+    """``-log softmax(logits)[target]`` per row, with ``logits [..., V_l]``
+    (fp32) the rank's vocab columns from ``vocab_start`` of a vocab cut
+    over ``group``; alike on every rank of the group."""
+    v = logits.shape[-1]
+    nll = _VocabParallelNLL.apply(logits.reshape(-1, v).float(),
+                                  targets.reshape(-1).long(), group,
+                                  int(vocab_start))
+    return nll.reshape(targets.shape)
+
+
 class _FusedLinearCE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, h, w, t, m, chunk):
-        # h [N, D] in the compute dtype, w [D, V] (any float dtype),
-        # t [N] int64, m [N] fp32 row weights
+    def forward(ctx, h, w, t, m, chunk, group, v0):
+        # h [N, D] in the compute dtype, w [D, V] (any float dtype; under
+        # a vocab cut the rank's columns from v0), t [N] int64, m [N]
+        # fp32 row weights
         w_dt = w.to(h.dtype)
         total = torch.zeros((), dtype=torch.float32, device=h.device)
+        lses = []
         for i in range(0, h.shape[0], chunk):
             logits = _mm_f32(h[i:i + chunk], w_dt)
-            lse = torch.logsumexp(logits, dim=-1)
-            picked = logits.gather(1, t[i:i + chunk, None])[:, 0]
+            if group is None:
+                lse = torch.logsumexp(logits, dim=-1)
+                picked = logits.gather(1, t[i:i + chunk, None])[:, 0]
+            else:
+                lse, picked = _vocab_lse(logits, t[i:i + chunk], v0, group)
+                lses.append(lse)
             total = total + torch.sum((lse - picked) * m[i:i + chunk])
             del logits
         count = torch.clamp(m.sum(), min=1.0)
-        ctx.save_for_backward(h, w, t, m, count)
-        ctx.chunk = chunk
+        lse = torch.cat(lses) if lses else None
+        ctx.save_for_backward(h, w, t, m, count, lse)
+        ctx.chunk, ctx.v0 = chunk, v0
         return total / count
 
     @staticmethod
     def backward(ctx, g):
-        h, w, t, m, count = ctx.saved_tensors
+        h, w, t, m, count, lse = ctx.saved_tensors
         w_dt = w.to(h.dtype)
         scale = (g.float() / count) * m  # d loss / d nll per row
         dh = torch.empty_like(h) if ctx.needs_input_grad[0] else None
@@ -342,17 +411,22 @@ class _FusedLinearCE(torch.autograd.Function):
         for i in range(0, h.shape[0], ctx.chunk):
             h_c = h[i:i + ctx.chunk]
             logits = _mm_f32(h_c, w_dt)
-            dlogits = torch.softmax(logits, dim=-1)
-            del logits
-            rows = torch.arange(h_c.shape[0], device=h.device)
-            dlogits[rows, t[i:i + ctx.chunk]] -= 1.0
-            dlogits *= scale[i:i + ctx.chunk, None]
+            if lse is None:
+                dlogits = torch.softmax(logits, dim=-1)
+                del logits
+                rows = torch.arange(h_c.shape[0], device=h.device)
+                dlogits[rows, t[i:i + ctx.chunk]] -= 1.0
+                dlogits *= scale[i:i + ctx.chunk, None]
+            else:
+                sl = slice(i, i + ctx.chunk)
+                dlogits = _dlogits(logits, lse[sl], t[sl], ctx.v0, scale[sl])
+                del logits
             d_dt = dlogits.to(h.dtype)
             del dlogits
             if dh is not None:
                 dh[i:i + ctx.chunk] = _mm_f32(d_dt, w_dt.t()).to(h.dtype)
             dw += _mm_f32(h_c.t(), d_dt)
-        return dh, dw.to(w.dtype), None, None, None
+        return dh, dw.to(w.dtype), None, None, None, None, None
 
 
 def fused_linear_cross_entropy(
@@ -361,6 +435,8 @@ def fused_linear_cross_entropy(
     targets: torch.Tensor,
     mask: Optional[torch.Tensor] = None,
     chunk_rows: int = 512,
+    group=None,
+    vocab_start: int = 0,
 ) -> torch.Tensor:
     """Mean next-token cross entropy of ``hidden @ w_vocab`` against
     ``targets`` without materializing the full logits tensor.
@@ -370,7 +446,11 @@ def fused_linear_cross_entropy(
     int, ``mask`` optional ``[...]`` row weights.  Rows go in chunks of
     ``chunk_rows``; the last chunk is short where the reference pads it
     with zero-weight rows, which is the same sum.  Returns
-    ``sum(nll * mask) / max(sum(mask), 1)`` as an fp32 scalar."""
+    ``sum(nll * mask) / max(sum(mask), 1)`` as an fp32 scalar.  With
+    ``group`` (the tensor group of a vocab cut), ``w_vocab`` holds the
+    rank's vocab columns from ``vocab_start``; the loss is the same on
+    every rank of the group, and ``hidden``'s gradient is the rank's
+    share (the caller sums it over the group: ``copy_to``)."""
     d = hidden.shape[-1]
     h = hidden.reshape(-1, d)
     t = targets.reshape(-1).long()
@@ -380,4 +460,5 @@ def fused_linear_cross_entropy(
     else:
         m = mask.reshape(-1).to(torch.float32)
     chunk = max(1, min(chunk_rows, n))
-    return _FusedLinearCE.apply(h, w_vocab, t, m, chunk)
+    return _FusedLinearCE.apply(h, w_vocab, t, m, chunk, group,
+                                int(vocab_start))

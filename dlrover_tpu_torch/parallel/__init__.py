@@ -1,7 +1,7 @@
 """Parallelism of the port (``dlrover_tpu/parallel``): the mesh over the
-world's ranks, the data and fsdp shardings, their collectives and the
-train step.  Tensor, sequence and pipeline parallelism are ROADMAP
-A4b."""
+world's ranks, the data, fsdp, tensor, seq and pipe shardings, their
+collectives, the pipeline and the train step.  The expert axis is
+ROADMAP A7."""
 
 from dlrover_tpu_torch.parallel.mesh import (
     AxisName,

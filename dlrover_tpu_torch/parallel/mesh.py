@@ -16,6 +16,12 @@ At world 1 there is no process group (``trainer.elastic.
 init_distributed`` makes none), so the mesh holds no ``DeviceMesh``:
 every axis has size 1 and every collective over it is a no-op.
 
+Beside the group of each axis, ``group_over(*axes)`` gives the group of
+the ranks that differ only along ``axes`` (the gradient mean over data,
+fsdp and seq, the loss mean), made for every coordinate at once when
+the mesh is built; ``stage_peers()`` gives the global ranks of the
+previous and next pipeline stage, the pipeline's point-to-point peers.
+
 The device kind follows the process's device: a CUDA mesh needs an
 NCCL world, a CPU mesh a gloo one.  There is no other pairing: a CUDA
 gradient never syncs over gloo.
@@ -27,7 +33,7 @@ waits for the multi-node launch: ROADMAP A3c.3d.
 import math
 import threading
 from dataclasses import dataclass, field
-from typing import List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -57,6 +63,13 @@ class MeshContext:
     mesh: Optional[object]
     dims: List[Tuple[str, int]] = field(default_factory=list)
     device: torch.device = torch.device("cpu")
+    # pipeline microbatch count when pipe > 1 (set by auto_accelerate;
+    # None -> 2 x pipe stages: bubble share (P-1)/(M+P-1))
+    pipeline_microbatches: Optional[int] = None
+    # this process's global rank, and the groups over several axes
+    # (``group_over``), keyed by the tuple of axes of size > 1
+    rank: int = 0
+    groups: Dict[Tuple[str, ...], object] = field(default_factory=dict)
 
     def axis_size(self, name: str) -> int:
         return dict(self.dims).get(name, 1)
@@ -71,10 +84,10 @@ class MeshContext:
 
     def axis_index(self, name: str) -> int:
         """This rank's coordinate along ``name`` (0 on an axis of
-        size 1 or one the mesh lacks)."""
-        if self.axis_size(name) <= 1:
-            return 0
-        return self.mesh.get_local_rank(name)
+        size 1 or one the mesh lacks): the ``DeviceMesh``'s own, from
+        ``rank`` alone (a mesh without a process group, as a test
+        builds one, places any rank)."""
+        return self.coords().get(name, 0)
 
     def group(self, name: str):
         """The process group of ``name`` (None on an axis of size 1)."""
@@ -82,19 +95,88 @@ class MeshContext:
             return None
         return self.mesh.get_group(name)
 
-    def data_group(self):
-        """The group over every data-flavoured axis (data x fsdp): the
-        whole world, since the other axes are 1 (``build_train_step``
-        refuses the rest); None at world 1."""
-        if self.num_devices <= 1:
-            return None
-        import torch.distributed as dist
+    def coords(self, rank: Optional[int] = None) -> Dict[str, int]:
+        """The mesh coordinates of global ``rank`` (default: this
+        process's): row-major over ``dims``, the last axis innermost."""
+        r = self.rank if rank is None else rank
+        out = {}
+        for name, size in reversed(self.dims):
+            out[name] = r % size
+            r //= size
+        return out
 
-        return dist.group.WORLD
+    def rank_at(self, coords: Dict[str, int]) -> int:
+        """The global rank at ``coords`` (the inverse of ``coords``)."""
+        r = 0
+        for name, size in self.dims:
+            r = r * size + coords.get(name, 0)
+        return r
+
+    def group_over(self, *names: str):
+        """The group of the ranks that share this rank's coordinates on
+        every axis but ``names``: the axis's own group for one axis of
+        size > 1, None when all of them have size 1."""
+        big = tuple(n for n, s in self.dims if n in names and s > 1)
+        if not big:
+            return None
+        if len(big) == 1:
+            return self.group(big[0])
+        if big not in self.groups:
+            raise KeyError(
+                f"no group over {big}: create_parallel_mesh makes the "
+                f"groups of {MULTI_AXIS_GROUPS}")
+        return self.groups[big]
+
+    def stage_peers(self) -> Tuple[Optional[int], Optional[int]]:
+        """The global ranks of the previous and the next pipeline stage
+        at this rank's other coordinates (None past either end)."""
+        n = self.axis_size(AxisName.PIPELINE)
+        me = self.coords()
+        i = me.get(AxisName.PIPELINE, 0)
+        prev = nxt = None
+        if i > 0:
+            prev = self.rank_at({**me, AxisName.PIPELINE: i - 1})
+        if i < n - 1:
+            nxt = self.rank_at({**me, AxisName.PIPELINE: i + 1})
+        return prev, nxt
 
 
 _context: Optional[MeshContext] = None
 _lock = threading.Lock()
+
+#: the groups over several axes that ``create_parallel_mesh`` makes (a
+#: set's axes of size > 1, when two or more): the gradient mean of a leaf
+#: that fsdp shards, and of any other leaf and the loss
+MULTI_AXIS_GROUPS = (
+    (AxisName.DATA, AxisName.SEQUENCE),
+    (AxisName.DATA, AxisName.FSDP, AxisName.SEQUENCE),
+)
+
+
+def _multi_axis_groups(ctx: "MeshContext") -> Dict[Tuple[str, ...], object]:
+    """Every group of ``MULTI_AXIS_GROUPS`` over the world's ranks, made
+    by all ranks in one order (``new_subgroups_by_enumeration`` is a
+    collective of the world); this rank's group of each."""
+    import itertools
+
+    import torch.distributed as dist
+
+    out = {}
+    sizes = dict(ctx.dims)
+    for names in MULTI_AXIS_GROUPS:
+        big = tuple(n for n, s in ctx.dims if n in names and s > 1)
+        if len(big) < 2 or big in out:
+            continue
+        rest = [n for n, _ in ctx.dims if n not in big]
+        lists = []
+        for fixed in itertools.product(*(range(sizes[n]) for n in rest)):
+            base = dict(zip(rest, fixed))
+            lists.append(sorted(
+                ctx.rank_at({**base, **dict(zip(big, inner))})
+                for inner in itertools.product(
+                    *(range(sizes[n]) for n in big))))
+        out[big], _ = dist.new_subgroups_by_enumeration(lists)
+    return out
 
 
 def _resolve_dims(
@@ -173,6 +255,11 @@ def create_parallel_mesh(
             dev.type, tuple(s for _, s in big),
             mesh_dim_names=tuple(n for n, _ in big))
     ctx = MeshContext(mesh=mesh, dims=list(dims), device=dev)
+    if world > 1:
+        import torch.distributed as dist
+
+        ctx.rank = dist.get_rank()
+        ctx.groups = _multi_axis_groups(ctx)
     if set_global:
         global _context
         with _lock:

@@ -4,29 +4,36 @@ Port of ``dlrover_tpu/parallel/sharding.py``.  ``LogicalAxisRules``,
 ``default_rules``, ``rules_scope``, ``active_rules`` and
 ``filter_spec_for_mesh`` are copies (a ``PartitionSpec`` here is a
 tuple of mesh-axis entries, as JAX's is).  What GSPMD does with the
-specs in the JAX version is done by hand here, over the data and fsdp
-axes only:
+specs in the JAX version is done by hand here:
 
 - ``param_sharding_with_fsdp`` returns the dim of a param that the
   ``fsdp`` axis shards (the rule table's, else the largest divisible
   dim still unsharded, as in the reference), or None.
 - ``shard_pytree`` keeps each rank's slice of every leaf as a plain
-  local tensor and records its ``Placement`` (global shape, dim, start,
-  local shape) beside it.  The model sees plain tensors: the kernels are
-  ``ctypes`` calls that take plain tensors, so a DTensor would never
-  reach them.
-- ``ParamGather`` is how the forward gets full weights back: the model
-  asks the active gather (``gather_scope``/``active_gather``) for each
-  leaf where it uses it, and for each layer's slices inside the layer
-  loop (``models/llama.py``), so no card ever holds every layer's full
-  weights at once.  The gather's gradient is a reduce-scatter onto the
-  rank's slice (``collectives.all_gather_dim``).
+  local tensor and records its ``Placement`` beside it: one ``Shard``
+  per mesh axis that cuts the leaf (``LAYERS -> pipe``; ``HEADS``,
+  ``KV_HEADS``, ``MLP``, ``VOCAB -> tensor``; ``EMBED -> fsdp`` or the
+  dim ``param_sharding_with_fsdp`` picks), with a start per dim and the
+  local shape.  The model sees plain tensors: the kernels are ``ctypes``
+  calls that take plain tensors, so a DTensor would never reach them.
+- ``ParamGather`` is how the forward gets its weights back over
+  ``fsdp``: the model asks the active gather (``gather_scope``/
+  ``active_gather``) for each leaf where it uses it, and for each
+  layer's slices inside the layer loop (``models/llama.py``), so no card
+  ever holds every layer's full weights at once.  The gather's gradient
+  is a reduce-scatter onto the rank's slice
+  (``collectives.all_gather_dim``).  The tensor and pipe slices stay
+  local: the model computes on them (column- and row-parallel
+  projections, a vocab-parallel embedding and loss, a stage's layers).
+  The gather also carries the mesh and the rule table the model reads
+  (``mesh_ctx``, ``rules``).
 - ``BatchSharding`` is ``BATCH -> (data, fsdp)``: the rows of a global
-  batch that a rank holds.
+  batch that a rank holds.  Every tensor, seq and pipe rank of one
+  (data, fsdp) coordinate holds the same rows.
 
-The tensor, seq, expert and pipe axes wait for ROADMAP A4b (A7 for
-expert): ``logical_sharding`` and ``apply_sharding_constraint`` raise
-for a spec that names one of them with size > 1.
+The expert axis waits for ROADMAP A7: ``logical_sharding`` and
+``apply_sharding_constraint`` raise for a spec that names it with
+size > 1.
 """
 
 import contextlib
@@ -53,9 +60,6 @@ LAYERS = "layers"
 #: the mesh axes that wait for a later slice (ROADMAP label): a spec or
 #: a strategy that uses one of them with size > 1 raises
 LATER_AXES = {
-    AxisName.TENSOR: "A4b",
-    AxisName.SEQUENCE: "A4b",
-    AxisName.PIPELINE: "A4b",
     AxisName.EXPERT: "A7",
 }
 
@@ -193,29 +197,31 @@ def filter_spec_for_mesh(spec, mesh):
     return PartitionSpec(*entries)
 
 
-def _check_data_axes(spec, mesh: MeshContext):
-    """Raise for a spec that shards over an axis this slice lacks."""
+def _check_later_axes(spec, mesh: MeshContext):
+    """Raise for a spec that shards over an axis this port lacks."""
     for e in spec:
         for a in e if isinstance(e, tuple) else (e,):
             if a in LATER_AXES and mesh.axis_size(a) > 1:
                 raise NotImplementedError(
                     f"sharding over the {a!r} axis is ROADMAP "
-                    f"{LATER_AXES[a]}: this port shards over data and fsdp")
+                    f"{LATER_AXES[a]}: this port shards over data, fsdp, "
+                    "tensor, seq and pipe")
 
 
 def logical_sharding(mesh: MeshContext, rules: LogicalAxisRules,
                      logical_axes):
-    """The spec of ``logical_axes`` on ``mesh``; raises for the axes
-    that wait for A4b (tensor, seq, pipe) and A7 (expert)."""
+    """The spec of ``logical_axes`` on ``mesh``; raises for the expert
+    axis (ROADMAP A7)."""
     spec = filter_spec_for_mesh(rules.spec(logical_axes), mesh)
-    _check_data_axes(spec, mesh)
+    _check_later_axes(spec, mesh)
     return spec
 
 
 def apply_sharding_constraint(x, logical_axes, rules: LogicalAxisRules):
-    """The activation constraint: under data and fsdp every rank holds
-    its own rows already, so there is nothing to do; a constraint over
-    tensor or seq raises (ROADMAP A4b)."""
+    """The activation constraint.  Each rank already holds its own
+    slice of every activation (its rows, its seq chunk, its heads), laid
+    out by the model itself, so there is nothing to move; a constraint
+    over the expert axis raises (ROADMAP A7)."""
     from dlrover_tpu_torch.parallel.mesh import get_mesh_context
 
     ctx = get_mesh_context()
@@ -258,37 +264,122 @@ def param_sharding_with_fsdp(
 
 
 @dataclass(frozen=True)
+class Shard:
+    """One mesh axis cutting a leaf: along ``dim`` into ``num`` equal
+    parts, of which this rank holds part ``index``."""
+
+    axis: str
+    dim: int
+    num: int
+    index: int
+
+
+@dataclass(frozen=True)
 class Placement:
-    """Where a rank's slice of a leaf sits in the global leaf: along
-    ``dim`` (None: the whole leaf, replicated) from ``start``."""
+    """Where a rank's slice of a leaf sits in the global leaf: the
+    ``Shard`` of each mesh axis that cuts it (none: the whole leaf,
+    replicated), with the slice's start on every dim and its shape.
+    Two axes on one dim split it in the order of ``shards`` (the first
+    outermost), as a tuple entry of a JAX spec does."""
 
     global_shape: Tuple[int, ...]
-    dim: Optional[int]
-    start: int
-    local_shape: Tuple[int, ...]
-    num_shards: int = 1
+    shards: Tuple[Shard, ...] = ()
 
     @staticmethod
-    def of(shape, dim: Optional[int], num_shards: int,
-           index: int) -> "Placement":
+    def of(shape, dim: Optional[int], num_shards: int, index: int,
+           axis: str = AxisName.FSDP) -> "Placement":
+        """One axis (fsdp by default) cutting ``dim``, or none."""
         shape = tuple(int(s) for s in shape)
         if dim is None or num_shards <= 1:
-            return Placement(shape, dim, 0, shape, max(num_shards, 1))
-        size = shape[dim] // num_shards
-        local = shape[:dim] + (size,) + shape[dim + 1:]
-        return Placement(shape, dim, index * size, local, num_shards)
+            return Placement(shape)
+        return Placement(shape, (Shard(axis, dim, num_shards, index),))
+
+    def _dim_split(self, dim: int) -> Tuple[int, int]:
+        """(parts, this rank's part) of ``dim`` over its shards."""
+        num, index = 1, 0
+        for s in self.shards:
+            if s.dim == dim:
+                num, index = num * s.num, index * s.num + s.index
+        return num, index
+
+    @property
+    def local_shape(self) -> Tuple[int, ...]:
+        return tuple(n // self._dim_split(d)[0]
+                     for d, n in enumerate(self.global_shape))
+
+    @property
+    def starts(self) -> Tuple[int, ...]:
+        """The slice's first index on every dim of the global leaf."""
+        return tuple(self._dim_split(d)[1] * (n // self._dim_split(d)[0])
+                     for d, n in enumerate(self.global_shape))
 
     @property
     def sharded(self) -> bool:
-        return self.dim is not None and self.num_shards > 1
+        return bool(self.shards)
+
+    def shard(self, axis: str) -> Optional[Shard]:
+        """The shard of mesh axis ``axis``, or None."""
+        return next((s for s in self.shards if s.axis == axis), None)
+
+    def dim_of(self, axis: str) -> Optional[int]:
+        """The dim that ``axis`` cuts, or None."""
+        s = self.shard(axis)
+        return None if s is None else s.dim
+
+    @property
+    def dim(self) -> Optional[int]:
+        """The one dim that is cut (None: replicated); a leaf cut on two
+        dims raises (read ``shards``)."""
+        dims = {s.dim for s in self.shards}
+        if len(dims) > 1:
+            raise ValueError(f"{self} is cut on dims {sorted(dims)}")
+        return next(iter(dims), None)
+
+    @property
+    def start(self) -> int:
+        """The start on ``dim`` (0 when replicated)."""
+        return 0 if self.dim is None else self.starts[self.dim]
 
     def local(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's slice of the global ``full``, as its own
-        contiguous tensor."""
+        contiguous tensor (``full`` itself when nothing cuts it)."""
         if not self.sharded:
             return full
-        size = self.local_shape[self.dim]
-        return full.narrow(self.dim, self.start, size).clone()
+        out = full
+        for d, (start, size) in enumerate(zip(self.starts,
+                                              self.local_shape)):
+            if size != full.shape[d]:
+                out = out.narrow(d, start, size)
+        return out.clone()
+
+
+def placement_for(mesh: MeshContext, rules: LogicalAxisRules, logical_axes,
+                  shape, use_fsdp: bool) -> Placement:
+    """The placement of a param of ``shape`` with ``logical_axes`` on
+    this rank of ``mesh``: the rule table's axes (tensor, pipe, ...), and
+    with ``use_fsdp`` the fsdp axis on the dim
+    ``param_sharding_with_fsdp`` picks."""
+    shape = tuple(int(s) for s in shape)
+    spec = logical_sharding(mesh, rules, logical_axes)
+    fsdp_dim = (param_sharding_with_fsdp(mesh, rules, logical_axes, shape)
+                if use_fsdp else None)
+    shards = []
+    for d, e in enumerate(spec):
+        for a in e if isinstance(e, tuple) else (e,):
+            if a is None or a == AxisName.FSDP or mesh.axis_size(a) <= 1:
+                continue
+            n = mesh.axis_size(a)
+            if shape[d] % n:
+                raise ValueError(
+                    f"dim {d} of {shape} does not split over {a} {n}")
+            shards.append(Shard(a, d, n, mesh.axis_index(a)))
+    if fsdp_dim is not None:
+        # where the rule table names fsdp on a dim beside another axis
+        # (a tuple entry), keep the table's order
+        shards.append(Shard(AxisName.FSDP, fsdp_dim,
+                            mesh.axis_size(AxisName.FSDP),
+                            mesh.axis_index(AxisName.FSDP)))
+    return Placement(shape, tuple(shards))
 
 
 def tree_map(fn, *trees):
@@ -332,19 +423,26 @@ class BatchSharding:
 
 
 class ParamGather:
-    """The full weights of a sharded model, one use at a time.
+    """The weights of a sharded model gathered over fsdp, one use at a
+    time.
 
     ``placements`` mirrors the params (a ``Placement`` per leaf);
     ``group`` is the fsdp group (None at fsdp 1, where every gather
     returns its input).  ``leaf(path, t)`` gathers a whole leaf
     (embedding, head, final norm) around its own use; ``layer(lp)``
-    gathers one layer's slices of the stacked ``layers`` leaves.
-    ``gathered`` lists ``(path, elements)`` of every gather of the
-    step, recomputes included."""
+    gathers one layer's slices of the stacked ``layers`` leaves.  What
+    the tensor and pipe axes cut stays cut.  ``gathered`` lists
+    ``(path, elements)`` of every gather of the step, recomputes
+    included.  ``mesh_ctx`` and ``rules`` are the step's mesh and rule
+    table, which the model reads for its tensor, seq and pipe axes."""
 
-    def __init__(self, placements: Dict, group=None):
+    def __init__(self, placements: Dict, group=None,
+                 mesh_ctx: Optional[MeshContext] = None,
+                 rules: Optional[LogicalAxisRules] = None):
         self.placements = placements
         self.group = group
+        self.mesh_ctx = mesh_ctx
+        self.rules = rules
         self.gathered: List[Tuple[str, int]] = []
 
     def _gather(self, path: str, t: torch.Tensor, dim: Optional[int]):
@@ -358,18 +456,18 @@ class ParamGather:
         p = self.placements
         for key in path.split("/"):
             p = p[key]
-        return self._gather(path, t, p.dim if p.sharded else None)
+        return self._gather(path, t, p.dim_of(AxisName.FSDP))
 
     def layer(self, lp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         out = {}
         for k, v in lp.items():
-            p = self.placements["layers"][k]
-            if p.sharded and p.dim == 0:
+            dim = self.placements["layers"][k].dim_of(AxisName.FSDP)
+            if dim == 0:
                 raise ValueError(
-                    f"layers/{k} is sharded along its layer dim: a layer's "
-                    "weights would live on one rank only")
+                    f"layers/{k} is sharded over fsdp along its layer dim: "
+                    "a layer's weights would live on one rank only")
             out[k] = self._gather(f"layers/{k}", v,
-                                  p.dim - 1 if p.sharded else None)
+                                  None if dim is None else dim - 1)
         return out
 
 

@@ -1,5 +1,6 @@
 """The train step ``auto_accelerate`` hands back, on one card or over a
-mesh of ``data`` and ``fsdp`` axes, one process per card.
+mesh of ``data``, ``fsdp``, ``tensor``, ``seq`` and ``pipe`` axes, one
+process per card.
 
 Port of ``dlrover_tpu/parallel/train_step.py:31-242``.  The state is a
 dict ``{"step": int, "params": nested dict of leaf tensors,
@@ -17,32 +18,35 @@ Over a mesh (``mesh_ctx``, ``param_axes`` and ``rules``, as the JAX
 
 - each rank gets the rows of the global batch that ``batch_sharding``
   gives it (``BATCH -> (data, fsdp)``), cut on the host by
-  ``data.prefetch.device_prefetch``;
-- under ``fsdp > 1`` each leaf is kept as the rank's slice along the dim
-  ``param_sharding_with_fsdp`` picks (``placements``), and the loss
-  runs under a ``ParamGather``: the model gathers each layer's slices
-  inside its layer loop (again in a ``remat="full"`` recompute) and the
-  embedding, final norm and head around their own use, so no card holds
-  every layer's full weights at once.  The gather's gradient is a
-  reduce-scatter onto the slice;
-- the grads are mean-reduced over the data-flavoured axes
-  (``collectives.grad_sync``, one all-reduce per leaf), ``grad_norm`` is
-  the norm of the whole gradient (the squared norms of the slices summed
-  over ``fsdp``), and the optimizer updates each rank's slice
-  elementwise;
-- the loss is each rank's mean over its rows, averaged over the ranks:
-  the global batch's mean when every row carries the same number of
-  tokens (no mask), as the JAX step's is;
-- ``QuantizedMoments`` under ``fsdp > 1`` raises (ROADMAP A6): its
+  ``data.prefetch.device_prefetch``: every tensor, seq and pipe rank of
+  one (data, fsdp) coordinate gets the same rows;
+- each leaf is kept as the rank's slice (``placements``: the tensor and
+  pipe axes by the rule table, fsdp on the dim
+  ``param_sharding_with_fsdp`` picks), and the loss runs under a
+  ``ParamGather`` that carries the mesh: the model gathers each layer's
+  fsdp slices inside its layer loop (again in a ``remat="full"``
+  recompute) and the embedding, final norm and head around their own
+  use, and computes on the tensor and pipe slices as they are
+  (``models/llama.py``).  The gather's gradient is a reduce-scatter onto
+  the slice;
+- the grads are mean-reduced over the axes that hold other rows or
+  tokens (data, fsdp, seq; ``collectives.grad_sync``, one all-reduce per
+  leaf), ``grad_norm`` is the norm of the whole gradient (each leaf's
+  squared norm summed over the axes that cut it), and the optimizer
+  updates each rank's slice elementwise;
+- the loss is each rank's mean over its rows and tokens, averaged over
+  data, fsdp and seq: the global batch's mean when every row carries the
+  same number of tokens (no mask), as the JAX step's is;
+- ``QuantizedMoments`` over a cut leaf raises (ROADMAP A6): its
   1,024-element blocks run over the flattened global leaf, and a slice
-  of ``[L, D, F]`` along dim 1 is not a run of that order.
+  of ``[L, D, F]`` along an inner dim is not a run of that order.
 
 Collectives over an axis of one rank are no-ops, so at ``{data 1,
 fsdp 1}`` the sharded step computes what the unsharded one does, bit
-for bit, with the gather hook and the placements in place.  Tensor,
-seq and pipe axes above 1 raise (ROADMAP A4b), expert (A7).  Buffer
-donation and AOT compilation (``aot_compile``) have no counterpart:
-PyTorch updates the state in place and compiles nothing ahead.
+for bit, with the gather hook and the placements in place.  The expert
+axis above 1 raises (ROADMAP A7).  Buffer donation and AOT compilation
+(``aot_compile``) have no counterpart: PyTorch updates the state in
+place and compiles nothing ahead.
 """
 
 from dataclasses import dataclass
@@ -58,10 +62,9 @@ from dlrover_tpu_torch.parallel.sharding import (
     BatchSharding,
     LogicalAxisRules,
     ParamGather,
-    Placement,
     gather_scope,
     logical_sharding,
-    param_sharding_with_fsdp,
+    placement_for,
     rules_scope,
     shard_pytree,
     tree_map,
@@ -112,24 +115,17 @@ def _check_axes(mesh_ctx: MeshContext):
         if mesh_ctx.axis_size(name) > 1:
             raise NotImplementedError(
                 f"a mesh with {name}={mesh_ctx.axis_size(name)}: this port "
-                f"shards over data and fsdp; {name} is ROADMAP {label}")
+                f"shards over data, fsdp, tensor, seq and pipe; {name} is "
+                f"ROADMAP {label}")
 
 
 def _placements(mesh_ctx, rules, param_axes, shapes) -> Dict:
-    fsdp = mesh_ctx.axis_size(AxisName.FSDP)
-    index = mesh_ctx.axis_index(AxisName.FSDP)
     uses_fsdp = rules.uses_axis(AxisName.FSDP)
-
-    def one(axes, shape):
-        if uses_fsdp:
-            dim = param_sharding_with_fsdp(mesh_ctx, rules, axes, shape)
-        else:
-            logical_sharding(mesh_ctx, rules, axes)
-            dim = None
-        return Placement.of(shape, dim, fsdp, index)
-
     # in the params' own order: the step zips placements with leaves
-    return tree_map(lambda shape, axes: one(axes, shape), shapes, param_axes)
+    return tree_map(
+        lambda shape, axes: placement_for(mesh_ctx, rules, axes, shape,
+                                          uses_fsdp),
+        shapes, param_axes)
 
 
 def build_train_step(
@@ -147,7 +143,8 @@ def build_train_step(
         raise ValueError(f"num_micro_steps must be >= 1, got "
                          f"{num_micro_steps}")
     dev = resolve_device(device)
-    placements, sharded, group, sharded_paths = None, None, None, []
+    placements, sharded, sharded_paths = None, None, []
+    place_leaves = None
     batch_sharding = BatchSharding(1, 0, dev)
     if mesh_ctx is not None:
         if param_axes is None or rules is None:
@@ -158,28 +155,30 @@ def build_train_step(
         shapes = tree_map(lambda t: tuple(t.shape),
                           init_params_fn(None, torch.device("meta")))
         placements = _placements(mesh_ctx, rules, param_axes, shapes)
-        sharded = [p.sharded for p in param_leaves(placements)]
-        sharded_paths = [k for k, p in _paths(placements) if p.sharded]
+        place_leaves = param_leaves(placements)
+        # the leaves fsdp cuts: the model must gather them
+        sharded = [p.shard(AxisName.FSDP) is not None for p in place_leaves]
+        sharded_paths = [k for k, p in _paths(placements)
+                         if p.shard(AxisName.FSDP) is not None]
         fsdp = mesh_ctx.axis_size(AxisName.FSDP)
-        group = mesh_ctx.group(AxisName.FSDP)
         batch_sharding = BatchSharding(
             mesh_ctx.axis_size(AxisName.DATA) * fsdp,
             mesh_ctx.axis_index(AxisName.DATA) * fsdp
             + mesh_ctx.axis_index(AxisName.FSDP),
             dev)
-        if any(sharded):
+        if any(p.sharded for p in place_leaves):
             from dlrover_tpu_torch.optimizers.low_bit import (
                 QuantizedMoments,
             )
 
             meta = [torch.empty(p.local_shape, device="meta")
-                    for p in param_leaves(placements)]
+                    for p in place_leaves]
             if isinstance(optimizer_fn(meta), QuantizedMoments):
                 raise NotImplementedError(
-                    "QuantizedMoments under fsdp > 1: its 1,024-element "
-                    "blocks run over the flattened global leaf, which a "
-                    "slice along an inner dim does not hold in order: "
-                    "ROADMAP A6")
+                    "QuantizedMoments over a sharded leaf (fsdp, tensor or "
+                    "pipe > 1): its 1,024-element blocks run over the "
+                    "flattened global leaf, which a slice does not hold "
+                    "in order: ROADMAP A6")
     fns = TrainStepFns(train_step=None, init_state=None, eval_step=None,
                        device=dev, batch_sharding=batch_sharding,
                        placements=placements, mesh_ctx=mesh_ctx)
@@ -204,7 +203,8 @@ def build_train_step(
         ``ParamGather``."""
         if placements is None:
             return loss_fn(params, batch)
-        gather = ParamGather(placements, group)
+        gather = ParamGather(placements, mesh_ctx.group(AxisName.FSDP),
+                             mesh_ctx, rules)
         fns.last_gather = gather
         with rules_scope(rules), gather_scope(gather):
             loss = loss_fn(params, batch)
@@ -253,6 +253,7 @@ def build_train_step(
                 torch._foreach_norm([g.float() for g in grads])))
         else:
             from dlrover_tpu_torch.parallel.collectives import (
+                BATCH_AXES,
                 global_norm,
                 grad_sync,
                 mean_all_reduce_,
@@ -260,8 +261,8 @@ def build_train_step(
 
             grads = list(grads)
             grad_sync(grads, mesh_ctx, sharded)
-            grad_norm = global_norm(grads, mesh_ctx, sharded)
-            mean_all_reduce_([loss], mesh_ctx.data_group())
+            grad_norm = global_norm(grads, mesh_ctx, place_leaves)
+            mean_all_reduce_([loss], mesh_ctx.group_over(*BATCH_AXES))
         for p, g in zip(leaves, grads):
             p.grad = g.to(p.dtype)
         del grads
@@ -283,10 +284,11 @@ def build_train_step(
         loss = run_loss(state["params"], batch).float()
         if placements is not None:
             from dlrover_tpu_torch.parallel.collectives import (
+                BATCH_AXES,
                 mean_all_reduce_,
             )
 
-            mean_all_reduce_([loss], mesh_ctx.data_group())
+            mean_all_reduce_([loss], mesh_ctx.group_over(*BATCH_AXES))
         return {"loss": loss}
 
     fns.train_step = train_step

@@ -172,23 +172,16 @@ def axis0_layouts(local_tree, rank: int, world: int,
     return out
 
 
-def derive_layouts(state, placements=None) -> Optional[Dict[str, Dict]]:
-    """Layouts of this rank's state from the placements the train step
-    recorded (``TrainStepFns.placements``: a ``parallel.sharding.
-    Placement`` per param, the params' structure).  A param and each of
-    its optimizer moments (``['params']<path>``, ``['opt_state'].<name>
-    <path>``) carry the param's global shape, its slice's start and its
-    local shape; every other leaf (the steps) is whole.  With no
-    placements (a one-card step) every leaf is whole.  The reference
-    derives the same from live ``jax.Array`` shardings."""
-    if placements is None:
-        return replicated_layouts(state)
+def placements_by_key(state, placements) -> Dict[str, object]:
+    """{key of a leaf of ``state``: the ``Placement`` of its param} for
+    the params (``['params']<path>``) and each of their optimizer
+    moments (``['opt_state'].<name><path>``); every other leaf (the
+    steps) maps to None."""
     from dlrover_tpu_torch.models.convert import _dict_paths
 
     by_path = dict(_dict_paths(placements))
     out = {}
-    for key, leaf in _keyed_leaves(state):
-        shape = _leaf_shape(leaf)
+    for key, _ in _keyed_leaves(state):
         place = None
         if key.startswith("['params']"):
             place = by_path.get(key[len("['params']"):])
@@ -196,6 +189,26 @@ def derive_layouts(state, placements=None) -> Optional[Dict[str, Dict]]:
             rest = key[len("['opt_state']."):]
             path = rest[rest.find("["):] if "[" in rest else ""
             place = by_path.get(path)
+        out[key] = place
+    return out
+
+
+def derive_layouts(state, placements=None) -> Optional[Dict[str, Dict]]:
+    """Layouts of this rank's state from the placements the train step
+    recorded (``TrainStepFns.placements``: a ``parallel.sharding.
+    Placement`` per param, the params' structure).  A param and each of
+    its optimizer moments carry the param's global shape, its slice's
+    start on every dim (each of fsdp, tensor and pipe may cut one) and
+    its local shape; every other leaf (the steps) is whole.  With no
+    placements (a one-card step) every leaf is whole.  The reference
+    derives the same from live ``jax.Array`` shardings."""
+    if placements is None:
+        return replicated_layouts(state)
+    places = placements_by_key(state, placements)
+    out = {}
+    for key, leaf in _keyed_leaves(state):
+        shape = _leaf_shape(leaf)
+        place = places[key]
         if place is None or not place.sharded:
             out[key] = LeafLayout(
                 global_shape=shape, start=tuple(0 for _ in shape),
@@ -205,10 +218,9 @@ def derive_layouts(state, placements=None) -> Optional[Dict[str, Dict]]:
             raise ValueError(
                 f"{key}: local shape {shape}, placement says "
                 f"{tuple(place.local_shape)}")
-        start = [0] * len(shape)
-        start[place.dim] = place.start
         out[key] = LeafLayout(global_shape=tuple(place.global_shape),
-                              start=tuple(start), shape=shape).as_dict()
+                              start=tuple(place.starts),
+                              shape=shape).as_dict()
     return out
 
 

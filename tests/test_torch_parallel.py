@@ -24,8 +24,9 @@ CPU.
 - A checkpoint written at ``{fsdp 2}`` with the layouts
   ``derive_layouts`` reads from the placements restores at world 1 and
   at ``{fsdp 4}`` bit for bit.
-- ``QuantizedMoments`` at fsdp 2, the tensor/seq/pipe/expert axes and
-  the hybrid mesh raise, naming their ROADMAP labels.
+- ``QuantizedMoments`` at fsdp 2, the expert axis and the hybrid mesh
+  raise, naming their ROADMAP labels; the tensor, seq and pipe axes
+  build a step (``tests/test_torch_model_parallel.py`` runs them).
 """
 
 import os
@@ -480,15 +481,33 @@ def _layouts(keyed, placements_by_path):
 
 
 def test_axes_of_later_slices_raise():
-    ctx = tmesh.MeshContext(mesh=None, dims=[("data", 2), ("tensor", 2)])
-    rules = tsharding.default_rules(tensor_parallel=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        tsharding.logical_sharding(ctx, rules, ("embed", "heads"))
-    with pytest.raises(NotImplementedError, match="ROADMAP A4b"):
-        build_train_step(None, None, _torch_init(_inputs()[1]),
-                         device="cpu", mesh_ctx=ctx,
-                         param_axes=tl.param_logical_axes(_tcfg()),
-                         rules=rules)
+    """tensor, seq and pipe build a step (the rule table's axes cut the
+    leaves), expert raises naming A7, the hybrid mesh A3c.3d."""
+    npp = _inputs()[1]
+    cfg = _tcfg()
+    for dims, flags, cuts in (
+            ([("data", 2), ("tensor", 2)], {"tensor_parallel": True},
+             {"layers/wq": ("tensor", 2), "embed": ("tensor", 0)}),
+            ([("seq", 2)], {"sequence_parallel": True}, {}),
+            ([("pipe", 2)], {"pipeline": True},
+             {"layers/wq": ("pipe", 0), "layers/attn_norm": ("pipe", 0)})):
+        ctx = tmesh.MeshContext(mesh=None, dims=dims, rank=1)
+        rules = tsharding.default_rules(fsdp=False, **flags)
+        spec = tsharding.logical_sharding(ctx, rules, ("layers", "embed",
+                                                       "heads"))
+        assert len(spec) == 3
+        fns = build_train_step(lambda p, b: tl.loss_fn(p, b, cfg),
+                               lambda ps: AGD(ps), _torch_init(npp),
+                               device="cpu", mesh_ctx=ctx,
+                               param_axes=tl.param_logical_axes(cfg),
+                               rules=rules)
+        places = _flat(fns.placements)
+        for path, (axis, dim) in cuts.items():
+            assert places[path].dim_of(axis) == dim, (dims, path)
+        assert all(p.sharded == any(p.dim_of(a) is not None
+                                    for a, _ in dims)
+                   for p in places.values())
+        assert fns.batch_sharding.num_shards == dict(dims).get("data", 1)
     ctx = tmesh.MeshContext(mesh=None, dims=[("expert", 2)])
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         build_train_step(None, None, _torch_init(_inputs()[1]),
