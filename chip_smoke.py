@@ -13,6 +13,8 @@ card::
     python3 chip_smoke.py --ckpt-only   # build + the checkpoint leg
     python3 chip_smoke.py --skip-ckpt --ckpt-layers 2
     python3 chip_smoke.py --elastic-only  # build + the elastic leg
+    python3 chip_smoke.py --skip-serve --skip-int8 --skip-ckpt \
+        --skip-elastic   # kernels, training, search and remat phases
 
 Phases (any failed check raises, so the script exits nonzero):
 
@@ -103,6 +105,26 @@ Phases (any failed check raises, so the script exits nonzero):
    ``auto_accelerate`` and again with the full rule table (tensor, seq
    and pipe rules over axes of size 1): losses and grad norms equal the
    unsharded leg's bit for bit, and B1-B4 launch.
+5c. search phase (``--skip-search`` leaves it out), at the training
+   leg's shape on one card: ``auto_accelerate(dry_run=True,
+   tune_space={"num_micro_steps": [1, 2, 4]}, tune_budget=3)``, the
+   race of a world of one, the Bayesian tuning and the calibrated
+   planner: each build's step times and launches, the agreed timings,
+   the winner, the planner's coefficients and the allocated memory
+   before the first build and after the last (within 1 GiB), then the
+   winner's window over 4 steps after a warm-up step (within 10 % of its
+   race time); B1-B4 must launch in every build.
+5d. remat phase (``--skip-remat``): ``remat="none"``, ``"dots"`` and
+   ``"full"`` at the same shape, 4 steps each from the leg's init and
+   batch: windows and peak allocated memory over the steps; the runs'
+   losses agree with the leg's to 1e-3 relative at every step; over one
+   forward and backward, what dots' forward keeps above the state lies
+   between full's and none's (the peaks, set by the grads, are printed),
+   and the backward's projection products (``aten.mm``
+   counted by a dispatch mode outside the checkpoint) are as many under
+   dots as under none and 6 a layer more under full, while a mode inside
+   dots' checkpoint sees 7 a layer kept and 6 handed back from the
+   cache.
 5b. int8 leg: Llama-2-7B at ``--int8-layers`` layers (default 32, full
    depth) trained the same way with ``QuantizedMoments(lr=3e-4,
    weight_decay=0.1)``: launches per step (B9 once per leaf) and at init
@@ -171,7 +193,9 @@ Phases (any failed check raises, so the script exits nonzero):
    the card's clock.  The training rows of the kernels line carry run
    1's restarted worker's counts as ``elastic_launches``.
 8. an ``{"input_plane": ...}`` line (the h2d readings, the stall check,
-   the ``{data 1, fsdp 1}`` comparison), a ``{"kernels": [...]}`` line,
+   the ``{data 1, fsdp 1}`` comparison), a ``{"search": ..., "remat":
+   ...}`` line, a ``{"kernels": [...]}`` line (the training rows carry
+   the search and remat phases' launches beside the leg's),
    the ``nvidia-smi`` line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -208,6 +232,11 @@ SEED = 0  # weights and prompts
 #: the input plane's readings of this run (h2d, the stall check, the
 #: sharded step at {data 1, fsdp 1}), printed as one line at the end
 INPUT_PLANE = {}
+#: the training leg's remat "full" run (losses, window, peak), which the
+#: remat phase sets beside "none" and "dots"
+TRAIN_FULL = {}
+#: the search and remat phases' readings, printed as one line at the end
+SEARCH_REMAT = {}
 
 
 def log(*parts):
@@ -2495,6 +2524,9 @@ def train_path(args):
     require(per_step == expect, f"launches per step {per_step} != {expect}")
     require(d_loss <= STEP0_TOL["loss"] and d_norm <= STEP0_TOL["grad_norm"],
             "step 0 differs from the plain attention")
+    TRAIN_FULL.update(
+        losses=losses, window_ms=1e3 * step_s, peak_bytes=peak,
+        step_ms=[1e3 * r["step_time_s"] for r in hist])
     INPUT_PLANE["train_h2d"] = h2d_reading("[train]", trainer)
     INPUT_PLANE["stall"] = stall_check(result, trainer.state, tokens,
                                        step_s)
@@ -2616,6 +2648,336 @@ def train_path(args):
             f"{row['launches']} build={report.get(name, '-')}")
         rows.append(row)
     return rows
+
+
+# ---------------------------------------------------- search and remat
+
+
+#: the search phase's Bayesian tuning of the race's winner
+SEARCH_TUNE = {"num_micro_steps": [1, 2, 4]}
+SEARCH_BUDGET = 3
+#: the card's allocated memory after the race against before it
+SEARCH_MEM_SLACK = 1 << 30
+#: the winner's window over SEARCH_STEPS steps against its race time
+SEARCH_WINDOW_TOL = 0.10
+SEARCH_STEPS = 4
+REMAT_STEPS = 4
+#: the three policies' losses at every step, relative
+REMAT_LOSS_RTOL = 1e-3
+#: the projections a Llama layer saves under "dots": wq, wk, wv, wo,
+#: w_gate, w_up, w_down; "full"'s early-stopping recompute runs all but
+#: w_down's, whose output no backward reads
+PROJECTIONS = 7
+
+
+def _seeded_tokens(cfg, batch, seq):
+    return np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+
+
+def search_phase(args):
+    """``auto_accelerate(dry_run=True)`` on one card at the training
+    leg's shape (Llama-2-7B width, ``--train-layers`` layers, AGD, 4 x
+    2048): the race of the candidates of a world of one, Bayesian tuning
+    of ``num_micro_steps`` over ``SEARCH_TUNE`` (``SEARCH_BUDGET``
+    builds), the calibrated planner; then the winner trains
+    ``SEARCH_STEPS`` steps after one warm-up step.  Checks: every timed
+    candidate has a time, B1-B4 launched in every build, the allocated
+    memory after the race is within ``SEARCH_MEM_SLACK`` of before, and
+    the winner's window within ``SEARCH_WINDOW_TOL`` of its race time."""
+    from dlrover_tpu_torch.accelerate import auto_accelerate, dry_runner
+    from dlrover_tpu_torch.accelerate.strategy import FEATURE_NAMES
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.optimizers import AGD
+
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=args.train_layers)
+    batch, seq = 4, 2048
+    tokens = _seeded_tokens(cfg, batch, seq)
+
+    def sample_batch(bs):
+        return {"tokens": torch.from_numpy(
+            bs.local({"tokens": tokens})["tokens"]).cuda()}
+
+    builds = []
+    run_steps = dry_runner._run_steps
+
+    def counted(live, warmup, steps):
+        before = dict(_build.launches)
+        out = run_steps(live, warmup, steps)
+        builds.append({"step_ms": [round(1e3 * t, 3) for t in out],
+                       "launches": {k: _build.launches[k] - before[k]
+                                    for k in TRAIN_KERNELS}})
+        return out
+
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        args.bf16_reduced_default)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    used_before = torch.cuda.mem_get_info()
+    _build.reset_launches()
+    dry_runner._run_steps = counted
+    t0 = time.perf_counter()
+    try:
+        result = auto_accelerate(
+            loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+            optimizer=lambda ps: AGD(ps, lr=3e-4),
+            init_params_fn=lambda gen, dev: llama.init_params(
+                cfg, gen, dev, dtype=torch.float32),
+            param_axes=llama.param_logical_axes(cfg), dry_run=True,
+            sample_batch_fn=sample_batch, global_batch=batch, seq_len=seq,
+            tune_space=SEARCH_TUNE, tune_budget=SEARCH_BUDGET,
+            device="cuda", check_mesh=lambda m: llama.check_mesh(cfg, m))
+    finally:
+        dry_runner._run_steps = run_steps
+    search_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    used_after = torch.cuda.mem_get_info()
+    winner = result.strategy
+    race = {k: v for k, v in result.timings.items() if k != "bayes_tune"}
+    tuned = result.timings.get("bayes_tune", {})
+    key = repr(sorted({k: getattr(winner, k) for k in SEARCH_TUNE}.items()))
+    race_ms = 1e3 * (tuned[key] if tuned else race[winner.describe()][-1])
+    weights = [float(w) for w in result.planner.weights]
+    log(f"[search] {cfg.n_layers} layers, global {batch} x {seq}, world 1: "
+        f"race (agreed seconds per round) {race}; bayes_tune {tuned}; "
+        f"winner {winner} ({race_ms:.3f} ms a step in the race); planner "
+        f"coefficients {dict(zip(FEATURE_NAMES, weights))}; {search_s:.1f} "
+        f"s of search")
+    for i, b in enumerate(builds):
+        log(f"[search] build {i}: step ms {b['step_ms']} (the first "
+            f"untimed) launches {b['launches']}")
+    log(f"[search] memory_allocated before the first build "
+        f"{mem_before / 2**30:.3f} GiB, after the last "
+        f"{mem_after / 2**30:.3f} GiB; the card's used memory "
+        f"{(used_before[1] - used_before[0]) / 2**30:.3f} -> "
+        f"{(used_after[1] - used_after[0]) / 2**30:.3f} GiB")
+
+    fns = result.fns
+    state = fns.init_state(0)
+    b = sample_batch(fns.batch_sharding)
+    state, _ = fns.train_step(state, b)  # the warm-up the race ran
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ends, losses = [], []
+    for _ in range(SEARCH_STEPS):
+        state, m = fns.train_step(state, b)
+        ends.append(m["done"])
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_ms = [start.elapsed_time(ends[0])] + [
+        a.elapsed_time(e) for a, e in zip(ends, ends[1:])]
+    window = sum(step_ms) / len(step_ms)
+    counts = {k: _build.launches[k] for k in TRAIN_KERNELS}
+    losses = [float(x) for x in losses]
+    log(f"[search] winner {winner.describe()} micro "
+        f"{winner.num_micro_steps}: {SEARCH_STEPS} steps after a warm-up "
+        f"step, step ms {[round(t, 3) for t in step_ms]} window "
+        f"{window:.3f} ms against {race_ms:.3f} in the race "
+        f"(tol {SEARCH_WINDOW_TOL}); losses {losses}; launches of the phase "
+        f"{counts}")
+    del state, fns, result, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    timed = [t for v in race.values() for t in v] + list(tuned.values())
+    require(all(t is not None and t == t for t in timed),
+            f"a raced candidate has no time: {race} {tuned}")
+    require(builds and all(all(b["launches"].values()) for b in builds),
+            "a build of the race did not launch B1-B4")
+    require(abs(mem_after - mem_before) <= SEARCH_MEM_SLACK,
+            "the race left memory allocated")
+    require(abs(window - race_ms) <= SEARCH_WINDOW_TOL * race_ms,
+            "the winner's window differs from its race time")
+    require(all(np.isfinite(losses)) and all(counts.values()),
+            "the winner's steps")
+    SEARCH_REMAT["search"] = {
+        "race_s": race, "bayes_tune_s": tuned, "winner": winner.describe(),
+        "num_micro_steps": winner.num_micro_steps, "race_ms": race_ms,
+        "window_ms": window, "planner": weights, "search_s": search_s,
+        "memory_allocated": [mem_before, mem_after],
+        "card_used": [used_before[1] - used_before[0],
+                      used_after[1] - used_after[0]],
+        "builds": builds, "launches": counts}
+    return counts
+
+
+def _backward_products(llama, params, batch, cfg):
+    """One forward and backward of the loss: ``(aten.mm calls of the
+    backward, bytes the forward left allocated above the state, peak
+    bytes above the state, {"saved": n, "replayed": n})``.  The
+    backward's products are counted by a dispatch mode entered outside
+    the checkpoint (it does not see what the selective checkpoint hands
+    back from its cache).  Inside dots' checkpoint, a second mode
+    wrapped around ``llama._dots_contexts`` for this call alone counts
+    the products its forward keeps and those its recompute takes back
+    from the cache, so that the outer count cannot pass by not looking.
+    What the forward leaves is what the policy keeps for the backward;
+    the peak also holds the fp32 grads, alike under every policy."""
+    import collections
+    import contextlib
+
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from dlrover_tpu_torch.parallel.train_step import param_leaves
+
+    counts = collections.Counter()
+
+    class Products(TorchDispatchMode):
+        def __init__(self, key):
+            super().__init__()
+            self.key = key
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func is torch.ops.aten.mm.default:
+                counts[self.key] += 1
+            return func(*args, **(kwargs or {}))
+
+    @contextlib.contextmanager
+    def within(outer, inner):
+        with outer, inner:
+            yield
+
+    contexts = llama._dots_contexts
+
+    def counted_contexts():
+        forward, recompute = contexts()
+        return (within(forward, Products("saved")),
+                within(recompute, Products("replayed")))
+
+    leaves = param_leaves(params)
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    llama._dots_contexts = counted_contexts
+    try:
+        loss = llama.loss_fn(params, batch, cfg)
+        torch.cuda.synchronize()
+        kept = torch.cuda.memory_allocated() - base
+        with Products("backward"):
+            grads = torch.autograd.grad(loss, leaves)
+    finally:
+        llama._dots_contexts = contexts
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del grads, loss
+    inside = {k: counts[k] for k in ("saved", "replayed") if counts[k]}
+    return counts["backward"], kept, peak, inside
+
+
+def remat_phase(args):
+    """``remat="none"``, ``"dots"`` and ``"full"`` at the training leg's
+    shape, 4 steps each from its init (seed 0) and batch: each run's
+    window (steps 2-4 on the card's clock) and peak allocated memory over
+    the steps, and of one forward and backward the memory the forward
+    leaves above the state, the peak above the state (both peaks the
+    grads set alike for dots and full) and the projection products.
+    Checks: the runs' losses agree with the leg's (``TRAIN_FULL``) to
+    ``REMAT_LOSS_RTOL`` at every step, what dots' forward keeps lies
+    strictly between full's and none's and dots' step peak between
+    theirs (non-strict: the peak is the grads' and the optimizer's,
+    which dots and full share), dots' backward
+    runs as many products as none's (none recomputed), full's 6 more a
+    layer, and inside dots' checkpoint 7 a layer were kept and 6 handed
+    back from the cache."""
+    import dataclasses
+
+    from dlrover_tpu_torch.accelerate import auto_accelerate
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.optimizers import AGD
+
+    full_cfg = llama.LlamaConfig.llama2_7b(n_layers=args.train_layers)
+    L = full_cfg.n_layers
+    batch, seq = 4, 2048
+    tokens = torch.from_numpy(_seeded_tokens(full_cfg, batch, seq)).cuda()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        args.bf16_reduced_default)
+    runs, products, counts = {}, {}, {}
+    for remat in ("none", "dots", "full"):
+        cfg = dataclasses.replace(full_cfg, remat=remat)
+        result = auto_accelerate(
+            loss_fn=lambda p, b, c=cfg: llama.loss_fn(p, b, c),
+            optimizer=lambda ps: AGD(ps, lr=3e-4),
+            init_params_fn=lambda gen, dev: llama.init_params(
+                cfg, gen, dev, dtype=torch.float32),
+            device="cuda")
+        state = result.fns.init_state(0)
+        b = {"tokens": tokens}
+        gc.collect()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        ends, losses = [], []
+        for _ in range(REMAT_STEPS):
+            state, m = result.fns.train_step(state, b)
+            ends.append(m["done"])
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        step_ms = [start.elapsed_time(ends[0])] + [
+            a.elapsed_time(e) for a, e in zip(ends, ends[1:])]
+        runs[remat] = {
+            "losses": [float(x) for x in losses],
+            "step_ms": step_ms,
+            "window_ms": sum(step_ms[1:]) / (len(step_ms) - 1),
+            "peak_bytes": torch.cuda.max_memory_allocated()}
+        counts[remat] = {k: _build.launches[k] for k in TRAIN_KERNELS}
+        mm, kept, peak, inside = _backward_products(
+            llama, state["params"], b, cfg)
+        products[remat] = {"backward_mm": mm, "forward_kept_bytes": kept,
+                           "fwd_bwd_peak_bytes": peak, "inside": inside}
+        del state, result
+        gc.collect()
+        torch.cuda.empty_cache()
+    leg = TRAIN_FULL["losses"][:REMAT_STEPS]
+    for remat, r in runs.items():
+        log(f"[remat] {remat}: losses {r['losses']} step ms "
+            f"{[round(t, 3) for t in r['step_ms']]} window "
+            f"{r['window_ms']:.3f} ms max_memory_allocated over the steps "
+            f"{r['peak_bytes'] / 2**30:.3f} GiB; one forward and backward: "
+            f"{products[remat]['backward_mm']} products in the backward, "
+            f"{products[remat]['forward_kept_bytes'] / 2**30:.3f} GiB kept "
+            f"by the forward, peak "
+            f"{products[remat]['fwd_bwd_peak_bytes'] / 2**30:.3f} GiB "
+            f"above the state, inside the checkpoint "
+            f"{products[remat]['inside']}; launches {counts[remat]}")
+    log(f"[remat] the training leg (full, through the Trainer): losses "
+        f"{leg} window {TRAIN_FULL['window_ms']:.3f} ms "
+        f"max_memory_allocated {TRAIN_FULL['peak_bytes'] / 2**30:.3f} GiB")
+    worst = max(abs(r["losses"][i] / leg[i] - 1)
+                for r in runs.values() for i in range(REMAT_STEPS))
+    log(f"[remat] worst relative loss difference to the leg over "
+        f"{REMAT_STEPS} steps {worst:.3g} (tol {REMAT_LOSS_RTOL})")
+    require(worst <= REMAT_LOSS_RTOL, "the remat policies' losses differ")
+    kept = {k: v["forward_kept_bytes"] for k, v in products.items()}
+    require(kept["full"] < kept["dots"] < kept["none"],
+            f"what dots' forward keeps does not lie between full's and "
+            f"none's: {kept}")
+    # a step's peak comes after the backward (the fp32 grads and the
+    # optimizer), alike under dots and full: dots' may equal full's but
+    # must not pass none's
+    peaks = {k: v["peak_bytes"] for k, v in runs.items()}
+    require(peaks["none"] >= peaks["dots"] >= peaks["full"],
+            f"dots' step peak does not lie between full's and none's: "
+            f"{peaks}")
+    mm = {k: v["backward_mm"] for k, v in products.items()}
+    require(mm["dots"] == mm["none"] > 0
+            and mm["full"] - mm["none"] == (PROJECTIONS - 1) * L,
+            f"the backward's products {mm}")
+    require(products["dots"]["inside"] == {
+        "saved": PROJECTIONS * L, "replayed": (PROJECTIONS - 1) * L},
+        f"inside the dots checkpoint {products['dots']['inside']}")
+    require(all(all(c.values()) for c in counts.values()),
+            "a remat run did not launch B1-B4")
+    SEARCH_REMAT["remat"] = {
+        k: {**runs[k], **products[k]} for k in runs}
+    return counts
 
 
 # ---------------------------------------------------------- int8 Adam
@@ -4082,6 +4444,10 @@ def main() -> int:
     ap.add_argument("--train-layers", type=int, default=8)
     ap.add_argument("--train-steps", type=int, default=6,
                     help="steps of the AGD and the int8 legs")
+    ap.add_argument("--skip-search", action="store_true",
+                    help="leave out the strategy search phase")
+    ap.add_argument("--skip-remat", action="store_true",
+                    help="leave out the remat none/dots phase")
     ap.add_argument("--skip-int8", action="store_true",
                     help="leave out the int8-moment training leg")
     ap.add_argument("--int8-layers", type=int, default=32)
@@ -4162,6 +4528,16 @@ def main() -> int:
         rows += main_path(args)
     if not (args.kernels_only or args.skip_train):
         rows += train_path(args)
+        phases = {}
+        if not args.skip_search:
+            phases["search_launches"] = search_phase(args)
+        if not args.skip_remat:
+            for remat, counts in remat_phase(args).items():
+                phases[f"remat_{remat}_launches"] = counts
+        for row in rows:
+            key = ELASTIC_ROWS.get(row["name"])
+            if key is not None:
+                row.update({k: v[key] for k, v in phases.items()})
     if not (args.kernels_only or args.skip_int8):
         rows += int8_path(args)
     if not (args.kernels_only or args.skip_ckpt):
@@ -4175,6 +4551,8 @@ def main() -> int:
 
     if INPUT_PLANE:
         log(json.dumps({"input_plane": INPUT_PLANE}))
+    if SEARCH_REMAT:
+        log(json.dumps(SEARCH_REMAT))
     if rows:
         log(json.dumps({"kernels": rows}))
     log(smi_line())

@@ -57,7 +57,11 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.parallel import sharding as sh
@@ -93,8 +97,8 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-5
     dtype: torch.dtype = torch.bfloat16
-    # training: activation recompute per layer ("none" | "full"; "dots"
-    # is the JAX package's dots-saveable policy, not ported yet)
+    # training: activation recompute per layer, "none" | "full" | "dots"
+    # (the projections' outputs saved, the rest of the layer recomputed)
     remat: str = "full"
     # fused-CE row chunk (peak logits memory = chunk x vocab fp32)
     ce_chunk_rows: int = 512
@@ -510,6 +514,41 @@ def _layer_forward(cfg: LlamaConfig, attention_fn: AttentionFn, lp, x,
     return x + reduce_from(_proj(gate * up, lp["w_down"], dt), tp)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """JAX's ``checkpoint_dots_with_no_batch_dims``: save the products
+    that have no batch dim, recompute everything else.  In a layer those
+    are the seven projections, each a ``[tokens, in] x [in, out]``
+    ``aten.mm`` (``torch.matmul`` folds the 3-D activation onto 2-D);
+    the plain attention's products are batched (``aten.bmm``), and the
+    norms, RoPE, ``silu``, the weight casts, the fsdp gathers, the
+    tensor all-reduces and the flash kernels are recomputed."""
+    if op is torch.ops.aten.mm.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _dots_contexts():
+    """The selective checkpoint's forward and recompute contexts under
+    ``_dots_policy`` (``checkpoint``'s ``context_fn``)."""
+    return create_selective_checkpoint_contexts(_dots_policy)
+
+
+def check_mesh(cfg: LlamaConfig, mesh_ctx) -> None:
+    """ValueError where the model cannot run over ``mesh_ctx``: a tensor
+    axis that does not split the heads and the kv heads into whole heads
+    a rank (the column-parallel attention keeps a head on one rank).
+    ``auto_accelerate(check_mesh=...)`` runs it when it builds a
+    candidate's mesh, so that a dry run agrees such a candidate away on
+    every rank; the forward runs it too."""
+    if mesh_ctx is None:
+        return
+    n = mesh_ctx.axis_size(AxisName.TENSOR)
+    if cfg.n_heads % n or cfg.n_kv_heads % n:
+        raise ValueError(
+            f"tensor {n} does not split {cfg.n_heads} heads and "
+            f"{cfg.n_kv_heads} kv heads into whole heads a rank")
+
+
 def _mesh(gather):
     """The step's mesh and rule table (None, None outside a sharded
     step)."""
@@ -555,19 +594,17 @@ def forward_hidden(
     ``cfg.dtype`` (the pre-lm-head activations, so the loss can fuse the
     vocab projection).  ``cfg.remat == "full"`` recomputes each layer's
     forward in the backward (non-reentrant ``checkpoint``), as
-    ``jax.checkpoint`` does.  Under seq parallelism ``tokens`` is the
-    rank's chunk of the sequence (``loss_fn`` cuts it)."""
+    ``jax.checkpoint`` does; ``"dots"`` recomputes it around the saved
+    projection outputs (a selective checkpoint, ``_dots_policy``), as
+    ``jax.checkpoint`` with ``checkpoint_dots_with_no_batch_dims`` does.
+    Under seq parallelism ``tokens`` is the rank's chunk of the sequence
+    (``loss_fn`` cuts it)."""
     from dlrover_tpu_torch.accelerate.module_replace import (
         select_attention,
         select_layer_executor,
     )
 
-    if cfg.remat not in ("none", "full"):
-        if cfg.remat == "dots":
-            raise NotImplementedError(
-                'remat="dots" (save the matmul outputs, recompute the '
-                "rest) is not ported yet: ROADMAP A2, left out"
-            )
+    if cfg.remat not in ("none", "full", "dots"):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     # under fsdp (the sharded train step) each leaf is this rank's slice
     # and the full weights are gathered where they are used: a layer's
@@ -577,6 +614,8 @@ def forward_hidden(
     mesh, rules = _mesh(gather)
     if attention_fn is None:
         attention_fn = select_attention(mesh, rules, flash_attention)
+    # before the step's first collective: every rank stops here
+    check_mesh(cfg, mesh)
     tp = mesh.group(AxisName.TENSOR) if mesh is not None else None
     dt = cfg.dtype
     s = tokens.shape[1]
@@ -598,6 +637,9 @@ def forward_hidden(
     def layer(lp, x, cos, sin):
         if cfg.remat == "full":
             return checkpoint(block, lp, x, cos, sin, use_reentrant=False)
+        if cfg.remat == "dots":
+            return checkpoint(block, lp, x, cos, sin, use_reentrant=False,
+                              context_fn=_dots_contexts)
         return block(lp, x, cos, sin)
 
     x = select_layer_executor(mesh)(layer, layers, x, cos, sin)

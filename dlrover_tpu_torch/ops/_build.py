@@ -19,8 +19,10 @@ directory is ``build/dlrover_tpu_torch/`` at the root of the checkout
 (listed in ``.gitignore``), or ``$DLROVER_TPU_TORCH_BUILD_DIR``.
 
 Every C entry returns ``cudaGetLastError()`` after its launch; the
-wrapper raises on a nonzero code (:func:`check`).  Importing this module
-needs neither ``nvcc`` nor a card.
+wrapper raises on a nonzero code (:func:`check`).  A failed build and a
+failed launch raise :class:`KernelError`, which the dry runner never
+takes for a candidate that cannot run (``accelerate/dry_runner.py``).
+Importing this module needs neither ``nvcc`` nor a card.
 """
 
 import ctypes
@@ -45,6 +47,12 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ARCH_FLAGS + (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
 )
+
+
+class KernelError(RuntimeError):
+    """A kernel failed to build (``nvcc``) or to launch (a CUDA error
+    code from its C entry)."""
+
 
 #: Launch counts per kernel: each wrapper adds one where it launches
 #: its kernel, and nowhere else.  Plain-version calls never count.
@@ -111,7 +119,7 @@ def find_nvcc() -> str:
 
     if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
         return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError(
+    raise KernelError(
         "nvcc not found (set CUDA_HOME): the port's kernels are built "
         "from ops/csrc at first CUDA use"
     )
@@ -182,7 +190,7 @@ def build(names: Iterable[str] = SOURCES, verbose: bool = False) -> float:
             os.replace(tmp, target)
             compiled.append(name)
         if failed:
-            raise RuntimeError(
+            raise KernelError(
                 "nvcc failed for "
                 + ", ".join(failed)
                 + ":\n"
@@ -209,7 +217,7 @@ def check(code: int, lib: ctypes.CDLL, what: str):
         lib.dl_error_string.restype = ctypes.c_char_p
         lib.dl_error_string.argtypes = [ctypes.c_int]
         msg = lib.dl_error_string(code).decode(errors="replace")
-        raise RuntimeError(f"{what}: CUDA error {code}: {msg}")
+        raise KernelError(f"{what}: CUDA error {code}: {msg}")
 
 
 def stream_of(t: torch.Tensor) -> ctypes.c_void_p:

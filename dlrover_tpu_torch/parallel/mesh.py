@@ -283,10 +283,38 @@ def axis_size(name: str) -> int:
     return _context.axis_size(name) if _context else 1
 
 
-def destroy_parallel_mesh():
+def destroy_parallel_mesh(ctx: Optional[MeshContext] = None):
+    """Forget the global mesh context.  With ``ctx``, also destroy the
+    process groups ``create_parallel_mesh`` made for it (each axis's
+    and those of ``group_over``), never the world's default group, which
+    a mesh of one axis over the whole world reuses, nor the elastic
+    context's host group: what a dry run calls between candidates, so
+    that a race does not pile up communicators.  Every rank of the world
+    destroys in the same order, as it created."""
     global _context
     with _lock:
-        _context = None
+        if ctx is None or _context is ctx:
+            _context = None
+    if ctx is None or ctx.mesh is None:
+        return
+    import torch.distributed as dist
+
+    from dlrover_tpu_torch.trainer.elastic.context import get_context
+
+    keep = {id(dist.distributed_c10d._get_default_group())}
+    elastic = get_context()
+    if elastic is not None and elastic.host_group is not None:
+        keep.add(id(elastic.host_group))
+    groups = [ctx.mesh.get_group(n) for n in ctx.mesh.mesh_dim_names]
+    groups += [ctx.groups[k] for k in sorted(ctx.groups)]
+    done = set()
+    for g in groups:
+        if id(g) in keep or id(g) in done:
+            continue
+        done.add(id(g))
+        dist.destroy_process_group(g)
+    ctx.mesh = None
+    ctx.groups = {}
 
 
 def data_parallel_size() -> int:

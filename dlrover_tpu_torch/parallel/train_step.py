@@ -100,6 +100,10 @@ class TrainStepFns:
     mesh_ctx: Optional[MeshContext] = None
     #: the ParamGather of the last train or eval step (None unsharded)
     last_gather: Optional[ParamGather] = None
+    #: (batch) -> None, or ValueError where this rank's rows cannot go
+    #: through the step: rows that do not split into the micro steps or
+    #: (pipe > 1) a micro step's rows into the pipeline's microbatches
+    check_batch: Callable = None
 
 
 def _paths(tree, prefix=""):
@@ -221,6 +225,18 @@ def build_train_step(
         grads = torch.autograd.grad(loss, leaves)
         return loss.detach().float(), grads
 
+    def check_batch(batch):
+        rows = next(iter(batch.values())).shape[0]
+        pipe = 1
+        if mesh_ctx is not None and mesh_ctx.axis_size(AxisName.PIPELINE) > 1:
+            pipe = (mesh_ctx.pipeline_microbatches
+                    or 2 * mesh_ctx.axis_size(AxisName.PIPELINE))
+        if rows % (num_micro_steps * pipe):
+            raise ValueError(
+                f"a batch of {rows} rows does not split into "
+                f"{num_micro_steps} micro steps of {pipe} pipeline "
+                "microbatches")
+
     def train_step(state, batch):
         params = state["params"]
         leaves = param_leaves(params)
@@ -294,4 +310,5 @@ def build_train_step(
     fns.train_step = train_step
     fns.init_state = init_state
     fns.eval_step = eval_step
+    fns.check_batch = check_batch
     return fns

@@ -457,10 +457,6 @@ def test_build_train_step_alone_and_its_errors():
 
 def test_left_out_options_raise_not_implemented():
     _, tcfg, _, npp = _pair()
-    cfg = tl.LlamaConfig.tiny(dtype=torch.float32, remat="dots")
-    tp = _torch_params(npp)
-    with pytest.raises(NotImplementedError, match="ROADMAP A2"):
-        tl.loss_fn(tp, {"tokens": torch.zeros(1, 5, dtype=torch.long)}, cfg)
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         tl.LlamaConfig.tiny(tie_word_embeddings=True)
     result = _tiny_result(npp, tcfg)
@@ -478,12 +474,12 @@ def test_left_out_options_raise_not_implemented():
         auto_accelerate(**kw, devices=["cpu", "cpu"])
     with pytest.raises(ValueError, match="param_axes"):
         auto_accelerate(**kw, load_strategy=Strategy(data=2), device="cpu")
-    # tensor, seq and pipe pass the axis check: at world 1 only the
-    # world's size refuses them; expert waits for A7
+    # tensor, seq and pipe pass the axis check, and a strategy sized for
+    # another world is re-solved for this one; expert waits for A7
     for strategy in (Strategy(tensor=2), Strategy(seq=2), Strategy(pipe=2)):
-        with pytest.raises(ValueError, match="covers 2 devices"):
-            auto_accelerate(**kw, param_axes={}, load_strategy=strategy,
-                            device="cpu")
+        result = auto_accelerate(**kw, param_axes=tl.param_logical_axes(tcfg),
+                                 load_strategy=strategy, device="cpu")
+        assert result.strategy.n_devices == 1
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         auto_accelerate(**kw, load_strategy=Strategy(expert=2), device="cpu")
 
