@@ -113,7 +113,11 @@ Phases (any failed check raises, so the script exits nonzero):
    the winner, the planner's coefficients and the allocated memory
    before the first build and after the last (within 1 GiB), then the
    winner's window over 4 steps after a warm-up step (within 10 % of its
-   race time); B1-B4 must launch in every build.
+   race time); B1-B4 must launch in every build.  Then the strategy
+   service's durable history: each raced configuration's agreed seconds
+   recorded through a ``StrategyService`` on a Brain db
+   (``DLROVER_TPU_BRAIN_DB`` under ``build/``) must read back, equal, in
+   a fresh service, whose ranking is then calibrated (no card time).
 5d. remat phase (``--skip-remat``): ``remat="none"``, ``"dots"`` and
    ``"full"`` at the same shape, 4 steps each from the leg's init and
    batch: windows and peak allocated memory over the steps; the runs'
@@ -166,7 +170,22 @@ Phases (any failed check raises, so the script exits nonzero):
    segment and trains steps 4-6.  Run 1 launches with ``--prefork
    --network_check`` and the restart overlap on (the default); the
    agents' preemption watchers (on by default) poll a stand-in metadata
-   server on localhost.  Its steps 4-6 (losses, grad norms) and every
+   server on localhost.  Run 1's master is the smoke's own
+   (``python -m dlrover_tpu_torch.master.main --brain_db ...
+   --status_port 0``, the launcher given ``--master_addr``), with a
+   fault plan that SIGKILLs it in the worker restart's rendezvous join; a
+   supervisor thread starts it again on the same port and db without the
+   plan and polls each incarnation's ``/status`` and ``/metrics`` every
+   second.  Required: one ``fault_injected`` instant of the master at
+   ``mid_rendezvous``; incarnation 2 logs that it resumed job epoch 1
+   from the journal; the db holds incarnation 1's last round and
+   incarnation 2's completion of it with the first round's world, and
+   the agent's re-sent join completed on incarnation 2 with that world
+   (in that round, or the next where incarnation 2 had already completed
+   it from the journal); incarnation 2's last ``/status`` has node
+   0's step-time EWMA within the ``step`` spans of steps 4-6 and no hang
+   or straggler; both incarnations' ``/metrics`` hold the RPC latency
+   histogram; no process of either is left.  Its steps 4-6 (losses, grad norms) and every
    state leaf (digests) must equal the checkpoint leg's run A at this
    depth and 6 steps (uninterrupted, in this process) bit for bit; both
    incarnations must have been forked by the agent's zygote, with torch
@@ -189,8 +208,10 @@ Phases (any failed check raises, so the script exits nonzero):
    to disk, the node check, rendezvous, spawn -> entry, ``import
    torch``, the CUDA context, the kernels' libraries, imports,
    ``auto_accelerate``, ``init_state``, the restore, the first step; the
-   prefetch's window) and the restarted worker's step times on
-   the card's clock.  The training rows of the kernels line carry run
+   prefetch's window), the restarted worker's step times on
+   the card's clock, and the master's outage (SIGKILL -> incarnation 2
+   replayed and serving -> the restart's rendezvous complete; the db's
+   bytes and journal rows).  The training rows of the kernels line carry run
    1's restarted worker's counts as ``elastic_launches``.
 8. an ``{"input_plane": ...}`` line (the h2d readings, the stall check,
    the ``{data 1, fsdp 1}`` comparison), a ``{"search": ..., "remat":
@@ -211,6 +232,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # the int8 leg holds ~63 GiB of state and needs 5.4 GiB in one piece in
@@ -2222,7 +2244,20 @@ def stall_check(result, state, tokens, step_s):
                                             "DLROVER_TPU_INPUT_PIPELINE")}
     os.environ["DLROVER_TPU_EVENTS_FILE"] = path
     events.set_default_event_logger(None)
-    windows, stalls, seen = {}, {}, 0
+    windows, stalls, spans_ms, seen = {}, {}, {}, 0
+    # the collector's pauses of 5 ms or more, (generation, wall, ms):
+    # they land in whatever span of the main thread is open
+    pauses, gc_start = [], {}
+
+    def on_gc(phase, info):
+        if phase == "start":
+            gc_start["t"] = time.time()
+        elif time.time() - gc_start["t"] >= 0.005:
+            pauses.append((info["generation"], gc_start["t"],
+                           round(1e3 * (time.time() - gc_start["t"]), 1)))
+
+    gc.callbacks.append(on_gc)
+    gc_pauses = {}
     try:
         for name, delay, pipelined in (("instant", 0.0, True),
                                        ("slow_pipelined", sleep, True),
@@ -2240,6 +2275,7 @@ def stall_check(result, state, tokens, step_s):
                 max_steps=state["step"] + STALL_STEPS, log_interval=0),
                 data_iter)
             t.state = state
+            run_start, pauses[:] = time.time(), []
             t.train()
             hist = t.history
             windows[name] = sum(r["step_time_s"] for r in hist[1:]) / (
@@ -2247,9 +2283,16 @@ def stall_check(result, state, tokens, step_s):
             evs = [e for e in events.read_events(path)
                    if e["name"] == "data_stall"]
             stalls[name] = [e["labels"].get("stage") for e in evs[seen:]]
+            spans_ms[name] = [(e["labels"].get("stage"),
+                               round(1e3 * e["dur"], 1),
+                               round(e["wall"] - run_start, 3))
+                              for e in evs[seen:]]
+            gc_pauses[name] = [(g, round(w - run_start, 3), ms)
+                               for g, w, ms in pauses]
             seen = len(evs)
             del t
     finally:
+        gc.callbacks.remove(on_gc)
         for k, v in saved.items():
             if v is None:
                 os.environ.pop(k, None)
@@ -2270,6 +2313,9 @@ def stall_check(result, state, tokens, step_s):
         f"(limits {STALL_SERIAL_ADDED}); data_stall spans per run "
         f"{ {k: len(v) for k, v in stalls.items()} }, stages "
         f"{sorted({s for v in stalls.values() for s in v})}")
+    log(f"[stall] data_stall spans (stage, ms, s into the run) per run "
+        f"{spans_ms}; the collector's pauses >= 5 ms (generation, s into "
+        f"the run, ms) {gc_pauses}")
     require(ratio <= STALL_PIPELINED_MAX,
             "the pipelined feed did not hide the slow iterator")
     require(STALL_SERIAL_ADDED[0] <= added / sleep <= STALL_SERIAL_ADDED[1],
@@ -2675,6 +2721,59 @@ def _seeded_tokens(cfg, batch, seq):
         0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
 
 
+def search_history(timings, profile, raced, batch, seq, db):
+    """The strategy service's durable history at the search phase's
+    workload: each raced configuration's agreed seconds (the race's and
+    the tuning's) go through a ``StrategyService`` on a Brain db
+    (``DLROVER_TPU_BRAIN_DB``); a fresh service on the same db reads
+    them back.  Returns ``(recorded, read back, calibrated)``."""
+    import ast
+
+    from dlrover_tpu_torch.accelerate import engine_service as svc
+    from dlrover_tpu_torch.master import datastore
+
+    race = {k: v for k, v in timings.items() if k != "bayes_tune"}
+    tuned = timings.get("bayes_tune", {})
+    measured = [(next(s for s in raced if s.describe() == desc), times[-1])
+                for desc, times in race.items() if times[-1] is not None]
+    for key, secs in tuned.items():
+        knobs = dict(ast.literal_eval(key))
+        if secs is not None:
+            measured.append((next(s for s in raced if all(
+                getattr(s, k) == v for k, v in knobs.items())), secs))
+    workload = dict(num_params=profile.num_params,
+                    param_bytes=profile.param_bytes,
+                    optimizer_bytes=profile.optimizer_bytes,
+                    activation_bytes_per_sample=(
+                        profile.activation_bytes_per_sample),
+                    num_layers=profile.num_layers, batch_per_replica=batch,
+                    seq_len=seq)
+    # as the db holds them (JSON: a tuple field reads back as a list)
+    recorded = json.loads(json.dumps(
+        [(svc._strategy_to_dict(s), t) for s, t in measured]))
+    os.environ["DLROVER_TPU_BRAIN_DB"] = db
+    try:
+        writer = svc.StrategyService()
+        for kw, secs in recorded:
+            writer.record(svc.StrategyMeasurement(
+                strategy=kw, step_time_s=secs, **workload))
+        datastore._default_store.close()
+        datastore._default_store = None
+        reader = svc.StrategyService()
+        back = json.loads(json.dumps(
+            [(svc._strategy_to_dict(s), secs) for s, secs in
+             reader._load_persisted(svc._workload_key(
+                 svc.StrategyMeasurement(**workload)))]))
+        calibrated = reader.generate(svc.StrategyRequest(
+            n_devices=1, **workload)).calibrated
+    finally:
+        if datastore._default_store is not None:
+            datastore._default_store.close()
+        datastore._default_store = None
+        os.environ.pop("DLROVER_TPU_BRAIN_DB", None)
+    return recorded, back, calibrated
+
+
 def search_phase(args):
     """``auto_accelerate(dry_run=True)`` on one card at the training
     leg's shape (Llama-2-7B width, ``--train-layers`` layers, AGD, 4 x
@@ -2699,8 +2798,15 @@ def search_phase(args):
         return {"tokens": torch.from_numpy(
             bs.local({"tokens": tokens})["tokens"]).cuda()}
 
-    builds = []
+    from dlrover_tpu_torch.accelerate import api as accelerate_api
+
+    builds, raced = [], []
     run_steps = dry_runner._run_steps
+    build_call = accelerate_api._CandidateBuilder.__call__
+
+    def recorded_build(builder, strategy):
+        raced.append(strategy)
+        return build_call(builder, strategy)
 
     def counted(live, warmup, steps):
         before = dict(_build.launches)
@@ -2719,6 +2825,7 @@ def search_phase(args):
     used_before = torch.cuda.mem_get_info()
     _build.reset_launches()
     dry_runner._run_steps = counted
+    accelerate_api._CandidateBuilder.__call__ = recorded_build
     t0 = time.perf_counter()
     try:
         result = auto_accelerate(
@@ -2732,6 +2839,7 @@ def search_phase(args):
             device="cuda", check_mesh=lambda m: llama.check_mesh(cfg, m))
     finally:
         dry_runner._run_steps = run_steps
+        accelerate_api._CandidateBuilder.__call__ = build_call
     search_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     mem_after = torch.cuda.memory_allocated()
@@ -2780,6 +2888,7 @@ def search_phase(args):
         f"{window:.3f} ms against {race_ms:.3f} in the race "
         f"(tol {SEARCH_WINDOW_TOL}); losses {losses}; launches of the phase "
         f"{counts}")
+    profile = result.profile
     del state, fns, result, b
     gc.collect()
     torch.cuda.empty_cache()
@@ -2794,6 +2903,25 @@ def search_phase(args):
             "the winner's window differs from its race time")
     require(all(np.isfinite(losses)) and all(counts.values()),
             "the winner's steps")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    db_dir = os.path.join(repo, "build", f"search_smoke_{os.getpid()}")
+    os.makedirs(db_dir, exist_ok=True)
+    try:
+        recorded, back, calibrated = search_history(
+            race | {"bayes_tune": tuned}, profile, raced, batch, seq,
+            os.path.join(db_dir, "brain.db"))
+    finally:
+        import shutil
+
+        shutil.rmtree(db_dir, ignore_errors=True)
+    log(f"[search] durable history (DLROVER_TPU_BRAIN_DB): recorded "
+        f"{[(kw['num_micro_steps'], round(s, 6)) for kw, s in recorded]} "
+        f"(num_micro_steps, agreed s); a fresh StrategyService read back "
+        f"{[(kw['num_micro_steps'], round(s, 6)) for kw, s in back]}, "
+        f"calibrated ranking {calibrated}")
+    require(recorded and back == recorded and calibrated,
+            "the strategy service's durable history does not read back "
+            "the raced timings")
     SEARCH_REMAT["search"] = {
         "race_s": race, "bayes_tune_s": tuned, "winner": winner.describe(),
         "num_micro_steps": winner.num_micro_steps, "race_ms": race_ms,
@@ -4017,14 +4145,16 @@ def elastic_model_args(L):
 
 
 def elastic_run(name, root, model_args, env, fault: bool, flags=(),
-                timeout: float = 900.0):
+                timeout: float = 900.0, master=None):
     """One ``python -m dlrover_tpu_torch.run`` of the example with
     ``model_args`` (and the launcher's ``flags``) whose worker SIGKILLs
     itself after step ``ELASTIC_CRASH_STEP``; with ``fault`` the last
     byte of ``ELASTIC_FAULT_LEAF`` is flipped in the agent's slot before
-    the restart.  Returns the two incarnations' reports, the events, the
-    launcher's output and the wall seconds; the output is also kept in a
-    log file of the checkout's output directory."""
+    the restart; with a ``master`` (``SupervisedMaster``) the launcher
+    joins it instead of starting its own, and it is stopped after the
+    launcher's exit.  Returns the two incarnations' reports, the events,
+    the launcher's output and the wall seconds; the output is also kept
+    in a log file of the checkout's output directory."""
     import shutil
 
     from dlrover_tpu_torch.observability.events import read_events
@@ -4036,6 +4166,7 @@ def elastic_run(name, root, model_args, env, fault: bool, flags=(),
     cmd = [sys.executable, "-m", "dlrover_tpu_torch.run", "--nnodes=1",
            "--nproc_per_node=1", "--max-restarts=1", "--monitor_interval=0.5",
            f"--events_file={events}", *flags,
+           *([f"--master_addr={master.addr}"] if master else []),
            "-m", "dlrover_tpu_torch.examples.llama_pretrain", *model_args,
            "--steps", str(ELASTIC_STEPS), "--ckpt_dir", ckpt,
            "--save_memory_interval", "1",
@@ -4076,6 +4207,8 @@ def elastic_run(name, root, model_args, env, fault: bool, flags=(),
             left = _session_left(proc.pid)
             if left:
                 os.killpg(proc.pid, 9)
+            if master is not None:
+                master.stop()
     wall = time.time() - t0
     with open(log_path) as f:
         output = f.read()
@@ -4281,6 +4414,255 @@ def node_check_reading(output: str, kind: str, spawn: str):
     return ok, passed + verdicts
 
 
+#: the master's ``mid_rendezvous`` hook runs once per join of the
+#: training rendezvous (the node check's rendezvous manager has none).  A
+#: CPU launch with run 1's flags (one node of one worker, ``--prefork
+#: --network_check``, the worker killed once) joins it twice: the first
+#: round, then the worker restart's.  The plan lets the first pass.
+MASTER_KILL_AFTER_JOINS = 1
+#: run 1's master never compacts its journal, so that the db still holds
+#: both incarnations' rendezvous rows when the run is read back
+MASTER_SNAPSHOT_INTERVAL_S = 3600
+MASTER_JOB = "elastic-smoke"
+
+
+class SupervisedMaster:
+    """Run 1's master, ``python -m dlrover_tpu_torch.master.main`` with a
+    durable db and ``--status_port 0``, started by the smoke, the first
+    incarnation with the fault plan that SIGKILLs it in the worker
+    restart's rendezvous.  A supervisor thread sees it die by SIGKILL
+    and starts it again on the same port and db without the plan, and
+    polls the live incarnation's ``/status`` and ``/metrics`` every
+    second.  Each incarnation runs in its own session, with its output
+    in a file of the checkout's output directory."""
+
+    def __init__(self, run_dir, env, out_dir):
+        from dlrover_tpu_torch.common.env import get_free_port
+
+        self.port = get_free_port()
+        self.addr = f"127.0.0.1:{self.port}"
+        self.db = os.path.join(run_dir, "brain.db")
+        self.events = os.path.join(run_dir, "master_events.jsonl")
+        self.plan = {"faults": [{
+            "kind": "kill", "target": "master", "phase": "mid_rendezvous",
+            "after": MASTER_KILL_AFTER_JOINS}]}
+        self._env = dict(env)
+        self._out_dir = out_dir
+        self.procs, self.logs, self.spawned_at = [], [], []
+        #: (incarnation, exit code, wall clock the supervisor saw it)
+        self.deaths = []
+        #: incarnation -> newest /status, /metrics and the poll count
+        self.status, self.metrics, self.polls = {}, {}, {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._supervise,
+                                        daemon=True)
+
+    def _spawn(self):
+        n = len(self.procs) + 1
+        env = dict(self._env, DLROVER_TPU_FAULT_ROLE="master",
+                   DLROVER_TPU_EVENTS_FILE=self.events,
+                   DLROVER_TPU_CONTROL_SNAPSHOT_INTERVAL_S=str(
+                       MASTER_SNAPSHOT_INTERVAL_S))
+        env.pop("DLROVER_TPU_FAULT_PLAN", None)
+        if n == 1:
+            env["DLROVER_TPU_FAULT_PLAN"] = json.dumps(self.plan)
+        log_path = os.path.join(self._out_dir,
+                                f"elastic_master_inc{n}.log")
+        repo = os.path.dirname(os.path.abspath(__file__))
+        with open(log_path, "w") as f:
+            self.procs.append(subprocess.Popen(
+                [sys.executable, "-m", "dlrover_tpu_torch.master.main",
+                 "--port", str(self.port), "--brain_db", self.db,
+                 "--status_port", "0", "--job_name", MASTER_JOB],
+                cwd=repo, env=env, stdout=f, stderr=subprocess.STDOUT,
+                start_new_session=True))
+        self.logs.append(log_path)
+        self.spawned_at.append(time.time())
+
+    def log_text(self, n: int) -> str:
+        with open(self.logs[n - 1]) as f:
+            return f.read()
+
+    def _poll(self, n: int):
+        """One read of incarnation ``n``'s ``/status`` and ``/metrics``
+        (skipped until it printed its status port)."""
+        import urllib.request
+
+        m = re.search(r"DLROVER_TPU_STATUS_PORT=(\d+)", self.log_text(n))
+        if m is None:
+            return
+        base = f"http://127.0.0.1:{m.group(1)}"
+        try:
+            status = json.loads(urllib.request.urlopen(
+                base + "/status", timeout=2).read().decode())
+            metrics = urllib.request.urlopen(
+                base + "/metrics", timeout=2).read().decode()
+        except OSError:
+            return  # it is down or not yet up
+        self.status[n], self.metrics[n] = status, metrics
+        self.polls[n] = self.polls.get(n, 0) + 1
+
+    def _supervise(self):
+        next_poll = 0.0
+        while not self._stop.is_set():
+            n = len(self.procs)
+            rc = self.procs[-1].poll()
+            if rc is not None:
+                self.deaths.append((n, rc, time.time()))
+                if rc != -9 or n > 1:
+                    return  # only the plan's SIGKILL is recovered from
+                self._spawn()
+                continue
+            if time.time() >= next_poll:
+                next_poll = time.time() + 1.0
+                self._poll(n)
+            time.sleep(0.05)
+
+    def start(self):
+        self._spawn()
+        self._thread.start()
+
+    def stop(self):
+        """Stop supervising, read the live incarnation once more, then
+        end it."""
+        self._stop.set()
+        self._thread.join(timeout=10)
+        proc = self.procs[-1]
+        if proc.poll() is None:
+            self._poll(len(self.procs))
+            proc.terminate()
+            try:
+                proc.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+
+    def left(self):
+        """Processes of any incarnation's session still alive."""
+        return [p for proc in self.procs for p in _session_left(proc.pid)]
+
+
+def master_failover_reading(r, master):
+    """(checks, lines) of run 1's master outage: the plan's SIGKILL in
+    the restart's rendezvous, incarnation 2's replay of the same job
+    epoch, the rendezvous round journaled by incarnation 1 completed by
+    incarnation 2 with the same world (both read from the db), the
+    observatory's last snapshot of incarnation 2, and the times."""
+    import ast
+    import datetime
+    import sqlite3
+
+    from dlrover_tpu_torch.observability.events import read_events
+
+    checks, lines = {}, []
+    kills = [e for e in read_events(master.events)
+             if e["name"] == "fault_injected"]
+    checks["one fault_injected instant of the master at mid_rendezvous"] = (
+        [(k["labels"].get("target"), k["labels"].get("phase"))
+         for k in kills] == [("master", "mid_rendezvous")])
+    checks["incarnation 1 died by SIGKILL, incarnation 2 lived on"] = (
+        [(n, rc) for n, rc, _ in master.deaths] == [(1, -9)]
+        and len(master.procs) == 2)
+    # logged once the replay is done, as the gRPC server opens
+    resumed = re.search(r"\[([\d-]+ [\d:,]+)\] .*master incarnation 2 "
+                        r"resumed job epoch (\d+) \((\{.*\})\)",
+                        master.log_text(2))
+    stats = ast.literal_eval(resumed.group(3)) if resumed else {}
+    with sqlite3.connect(master.db) as conn:
+        meta = conn.execute(
+            "SELECT job_epoch, incarnation FROM control_meta WHERE job = ?",
+            (MASTER_JOB,)).fetchone()
+        rows = conn.execute(
+            "SELECT seq, args, created_at FROM control_journal WHERE job = ? "
+            "AND component = 'rdzv/elastic-training' ORDER BY seq",
+            (MASTER_JOB,)).fetchall()
+        journal_rows = conn.execute(
+            "SELECT COUNT(*) FROM control_journal WHERE job = ?",
+            (MASTER_JOB,)).fetchone()[0]
+    checks["incarnation 2 resumed job epoch 1 from the journal"] = (
+        resumed is not None and resumed.group(2) == "1"
+        and meta == (1, 2) and stats.get("replayed", 0) > 0)
+    respawn = master.spawned_at[1]
+    before = [json.loads(a) for _, a, at in rows if at < respawn]
+    after = [json.loads(a) for _, a, at in rows if at >= respawn]
+    done = [s for s in after if s["rdzv_nodes"]]
+    last = before[-1] if before else {}
+    first_world = next((s for s in before if s["rdzv_nodes"]), {})
+    joined = re.findall(r"joined elastic-training rendezvous round (\d+)",
+                        r["output"])
+    world = first_world.get("rdzv_nodes")
+    checks["incarnation 2 completed the round incarnation 1 journaled, "
+           "with the first round's world"] = bool(
+        last and done and done[0]["round"] == last["round"] + 1
+        and done[0]["rdzv_nodes"] == world)
+    # the agent's join was in flight when the master died, so it sends
+    # it again: where its row was in the lost tail the join opens the
+    # journaled round; where the row landed, incarnation 2 completed that
+    # round from the journal and the join opens the next one
+    agent_round = int(joined[-1]) if joined else -1
+    checks["the agent's restart rendezvous completed on incarnation 2 "
+           "with the same world"] = bool(
+        last and agent_round in (last["round"], last["round"] + 1)
+        and any(s["round"] == agent_round + 1 and s["rdzv_nodes"] == world
+                for s in done))
+    lines.append(
+        f"rendezvous rows in the db: incarnation 1 {len(before)} (last: "
+        f"round {last.get('round')}, waiting {last.get('waiting')}, world "
+        f"{last.get('latest')}), incarnation 2 {len(after)} (completions: "
+        f"{[(s['round'], s['rdzv_nodes']) for s in done]}); the agent "
+        f"joined round {agent_round}; the first round's world {world}")
+    lines.append(
+        f"incarnation 2: {resumed.group(0) if resumed else 'no resume line'}"
+        f"; control_meta {meta}")
+
+    # the observatory of incarnation 2, read last
+    spans = [e["dur"] for e in r["events"] if e["name"] == "step"
+             and e["ph"] == "X" and e.get("inc") == 1
+             and e["labels"].get("step") in (4, 5, 6)]
+    health = master.status.get(2, {}).get("health", {})
+    node0 = next((n for n in health.get("nodes", []) if n["node"] == 0), {})
+    ewma = node0.get("step_time_s")
+    problems = [c.get("problem") for c in
+                master.status.get(2, {}).get("conclusions", [])]
+    checks["incarnation 2's /status: node 0's step EWMA within the step "
+           "spans of steps 4-6, no hang or straggler"] = bool(
+        spans and ewma is not None
+        and min(spans) - 1e-6 <= ewma <= max(spans) + 1e-6
+        and not health.get("hangs") and not health.get("stragglers")
+        and not {"hang", "straggler"} & set(problems))
+    checks["/metrics of both incarnations holds the RPC latency "
+           "histogram"] = all(
+        "dlrover_tpu_master_rpc_latency_seconds_bucket"
+        in master.metrics.get(n, "") for n in (1, 2))
+    lines.append(
+        f"/status polls {master.polls}; incarnation 2's last: node 0 "
+        f"{ {k: node0.get(k) for k in ('status', 'step', 'steps_seen', 'step_time_s', 'inc')} }, "
+        f"step spans of steps 4-6 {[round(s, 6) for s in spans]} s, "
+        f"hangs {health.get('hangs')}, stragglers {health.get('stragglers')}"
+        f", conclusions {problems}")
+
+    # the outage's legs on the host clock
+    t_kill = kills[0]["wall"] if kills else float("nan")
+    t_dead = master.deaths[0][2] if master.deaths else float("nan")
+    t_resumed = (datetime.datetime.strptime(
+        resumed.group(1), "%Y-%m-%d %H:%M:%S,%f").timestamp()
+        if resumed else float("nan"))
+    rdzv_begin = min(_span_walls(r["events"], "rendezvous", "B", 1))
+    t_rdzv = min(e["wall"] for e in r["events"] if e["name"] == "rendezvous"
+                 and e["ph"] == "E" and e["wall"] >= rdzv_begin)
+    legs = {"master SIGKILL -> seen dead": t_dead - t_kill,
+            "master SIGKILL -> incarnation 2 replayed and serving":
+                t_resumed - t_kill,
+            "incarnation 2 serving -> the restart's rendezvous complete":
+                t_rdzv - t_resumed,
+            "db bytes": sum(os.path.getsize(master.db + suffix)
+                            for suffix in ("", "-wal", "-shm")
+                            if os.path.exists(master.db + suffix)),
+            "journal rows": journal_rows,
+            "replay": stats}
+    return checks, lines, legs
+
+
 def elastic_path(args):
     """The elastic leg (the module's docstring, phase 7); returns the
     restarted worker's launch counts."""
@@ -4337,11 +4719,19 @@ def elastic_path(args):
     env["DLROVER_TPU_METADATA_BASE"] = metadata.base
     env["DLROVER_TPU_PREEMPTION_POLL"] = "1"
     os.environ[multi_process.SOCKET_DIR_ENV] = sock  # flip_last_byte's
+    out_dir = os.path.join(repo, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    os.makedirs(os.path.join(root, "master"))
+    master = SupervisedMaster(os.path.join(root, "master"), env, out_dir)
     try:
         # run 1: the workers forked from the agent's zygote, the node
-        # check before each rendezvous, the restore overlapped
+        # check before each rendezvous, the restore overlapped, and the
+        # job's master started here, SIGKILLed in the restart's
+        # rendezvous and started again on its db
+        master.start()
         r = elastic_run("crash", root, elastic_model_args(L), env,
-                        fault=False, flags=("--prefork", "--network_check"))
+                        fault=False, flags=("--prefork", "--network_check"),
+                        master=master)
         polls = len(metadata.requests)
         inc0, inc1 = r["inc0"], r["inc1"]
         hist = [(h["step"], h["loss"], h["grad_norm"])
@@ -4394,6 +4784,21 @@ def elastic_path(args):
         log(f"[elastic] {card} | restarted worker's steps 4-6 on the card's "
             f"clock: {steps} ms (step 4 includes the first step's set-up)")
         log(f"[elastic] crash run wall {r['wall']:.3f} s")
+        fo_checks, fo_lines, fo_legs = master_failover_reading(r, master)
+        fo_checks["no process of either master incarnation left"] = (
+            not master.left())
+        for line in fo_lines:
+            log(f"[elastic] crash: master: {line}")
+        for name, ok in fo_checks.items():
+            log(f"[elastic] crash: master: {name}: {ok}")
+        log(f"[elastic] {card} | crash: master outage (host clock): "
+            + "; ".join(f"{k} {v:.3f} s" for k, v in fo_legs.items()
+                        if isinstance(v, float))
+            + f"; db {fo_legs['db bytes']} B with its WAL, "
+            f"{fo_legs['journal rows']} journal rows; replay "
+            f"{fo_legs['replay']}")
+        require(all(fo_checks.values()), "the master's failover: "
+                + ", ".join(k for k, ok in fo_checks.items() if not ok))
 
         # run 2: plain spawns and the serial restore, with a byte flipped
         # in the agent's slot: the planted fault of the leaf comparison,
@@ -4416,16 +4821,24 @@ def elastic_path(args):
                 "the zygote or overlap check passes a plain, serial run")
         log(f"[elastic] fault run wall {f['wall']:.3f} s")
         legs = print_restart_legs(card, {
-            "run 1 (zygote, overlap)": r, "run 2 (plain, serial)": f})
+            "run 1 (zygote, overlap, master killed)": r,
+            "run 2 (plain, serial)": f})
+        totals = [round(v["total"], 3) for v in legs.values()]
+        log(f"[elastic] {card} | worker exit -> first step: run 1 (master "
+            f"killed and replayed in its rendezvous) {totals[0]} s, run 2 "
+            f"{totals[1]} s (for the record: the runs differ in more than "
+            "the master)")
     finally:
+        master.stop()
         metadata.close()
         shutil.rmtree(root, ignore_errors=True)
         shutil.rmtree(sock, ignore_errors=True)
         os.environ.pop(multi_process.SOCKET_DIR_ENV, None)
     log("[elastic] the worker killed after step 3 was forked again from "
         "the agent's zygote, restored step 3 through the prefetch and "
-        "ended equal bit for bit to the uninterrupted run")
-    return {"launches": inc1["launches"], "legs": legs}
+        "ended equal bit for bit to the uninterrupted run, across a master "
+        "SIGKILLed in its rendezvous and replayed from sqlite")
+    return {"launches": inc1["launches"], "legs": legs, "master": fo_legs}
 
 
 def main() -> int:

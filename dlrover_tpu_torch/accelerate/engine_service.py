@@ -1,11 +1,10 @@
 """Strategy-generation service: acceleration decisions as an RPC.
 
 Copy of ``dlrover_tpu/accelerate/engine_service.py`` over the port's
-``common/comm.py`` and ``common/messages.py``.  The history of
-measurements is kept in memory, as the reference keeps it without a
-datastore: the durable history (``master/datastore.py``, which
-``DLROVER_TPU_BRAIN_DB`` turns on) is ROADMAP A3c.3a, and with that
-variable set the service raises.
+``common/comm.py`` and ``common/messages.py``, with the durable
+history of measurements in the port's ``master/datastore.py`` when
+``DLROVER_TPU_BRAIN_DB`` is set (the same table and workload
+signatures, so either package's service reads the other's history).
 
 Reference parity: ``atorch/atorch/auto/engine/acceleration_engine.py:13``
 — the reference spawns a gRPC service (``engine/servicer.py`` +
@@ -158,17 +157,20 @@ class StrategyService:
     # service memory AND keeps the fit tracking current hardware)
     MAX_MEASUREMENTS_PER_WORKLOAD = 64
 
-    def __init__(self):
-        """The history lives in memory; ``DLROVER_TPU_BRAIN_DB`` (the
-        reference's durable ``BrainDatastore``, which keeps the fleet
-        calibration across master restarts) raises here (ROADMAP
-        A3c.3a)."""
+    def __init__(self, datastore=None, job: str = ""):
+        """``datastore``: a
+        :class:`~dlrover_tpu_torch.master.datastore.BrainDatastore` making
+        the fleet calibration durable across master restarts
+        (reference: the Go Brain's MySQL recorders,
+        ``dbbase/recorder.go:280``).  None = in-memory only; defaults
+        to the process datastore when ``DLROVER_TPU_BRAIN_DB`` is
+        set.  ``job`` tags this master's measurements so a SHARED db
+        file serves as a multi-job Brain: measurements are keyed by
+        workload signature, so job B's planner adopts job A's
+        calibration on first touch (defaults to
+        ``DLROVER_TPU_JOB_NAME``)."""
         import threading
 
-        if os.getenv("DLROVER_TPU_BRAIN_DB", ""):
-            raise NotImplementedError(
-                "the strategy service's durable history "
-                "(DLROVER_TPU_BRAIN_DB) is not ported yet: ROADMAP A3c.3a")
         # one lock over both maps: the gRPC pool serves record() and
         # generate() concurrently, and a stale planner stored after a
         # concurrent record() would silently drop that measurement
@@ -176,6 +178,37 @@ class StrategyService:
         self._measurements: Dict[Tuple, List] = {}
         # fitted planner per workload, invalidated by record()
         self._planners: Dict[Tuple, object] = {}
+        if datastore is None:
+            from dlrover_tpu_torch.master.datastore import (
+                get_default_datastore,
+            )
+
+            datastore = get_default_datastore()
+        self._datastore = datastore
+        self._job = job or os.getenv("DLROVER_TPU_JOB_NAME", "")
+
+    def _load_persisted(self, key: Tuple) -> List:
+        """History for ``key`` from the datastore (restart recovery);
+        [] when no store, nothing recorded, or the store is broken —
+        durability is best-effort, never load-bearing for the RPCs."""
+        if self._datastore is None:
+            return []
+        from dlrover_tpu_torch.master.datastore import workload_signature
+
+        out = []
+        try:
+            rows = self._datastore.load_measurements(
+                workload_signature(key),
+                limit=self.MAX_MEASUREMENTS_PER_WORKLOAD,
+            )
+        except Exception as e:  # noqa: BLE001 - degrade to in-memory
+            logger.warning("measurement history load failed: %s", e)
+            return []
+        for kw, step_time in rows:
+            strategy = _strategy_from_dict(kw)
+            if strategy is not None:
+                out.append((strategy, step_time))
+        return out
 
     def record(self, m: StrategyMeasurement) -> None:
         if m.step_time_s <= 0:
@@ -185,10 +218,28 @@ class StrategyService:
             return
         key = _workload_key(m)
         with self._lock:
-            hist = self._measurements.setdefault(key, [])
+            hist = self._measurements.get(key)
+            if hist is None:
+                # first touch since (re)start: adopt persisted history
+                # so the refit sees the whole fleet record
+                hist = self._measurements[key] = self._load_persisted(
+                    key
+                )
             hist.append((strategy, m.step_time_s))
             del hist[: -self.MAX_MEASUREMENTS_PER_WORKLOAD]
             self._planners.pop(key, None)  # refit on next request
+        if self._datastore is not None:
+            from dlrover_tpu_torch.master.datastore import (
+                workload_signature,
+            )
+
+            try:
+                self._datastore.record_measurement(
+                    workload_signature(key), dict(m.strategy),
+                    m.step_time_s, job=self._job,
+                )
+            except Exception as e:  # noqa: BLE001 - best-effort
+                logger.warning("measurement persist failed: %s", e)
 
     def generate(self, req: StrategyRequest) -> StrategyResponse:
         profile = ModelProfile(
@@ -215,6 +266,12 @@ class StrategyService:
         calibrated = False
         with self._lock:
             measured = self._measurements.get(key)
+            if measured is None:
+                # a restarted master serves calibrated rankings from
+                # the durable history before any new reports arrive
+                measured = self._measurements[key] = (
+                    self._load_persisted(key)
+                )
             if measured:
                 planner = self._planners.get(key)
                 if planner is None:

@@ -5,14 +5,16 @@ configures either package.  Process identity, the control plane's
 long-poll and batching, the master's pool size and reconnect deadline,
 the events file's rotation, the checkpoint close timeout, the drain
 grace, the restart overlap and the previous world, the serving readers
-(``kv_incremental_enabled`` .. ``decode_steps``) and ``get_free_port``.
+(``kv_incremental_enabled`` .. ``decode_steps``), the master's durable
+state and observatory (the datastore's write-behind switch, the timeline
+retention, the snapshot cadence, the observatory and self-telemetry
+switches) and ``get_free_port``.
 
 One difference: the switches of the master's subsystems that the port
-does not have yet (the observatory, the live profiler and deep capture,
-the Brain, the master's self-telemetry: ROADMAP A3c.3) default to off
-here.  Turned on, the master raises ``NotImplementedError`` naming A3c.3
-rather than running without them.  Each other reader comes with the
-slice that calls it.
+does not have yet (the live profiler and deep capture, ROADMAP A7; the
+Brain, ROADMAP A3c.3c) default to off here.  Turned on, the master
+raises ``NotImplementedError`` naming them rather than running without
+them.  Each other reader comes with the slice that calls it.
 """
 
 import os
@@ -87,17 +89,34 @@ def control_batch_enabled() -> bool:
     )
 
 
+DATASTORE_SYNC_ENV = "DLROVER_TPU_DATASTORE_SYNC"
+
+
+def datastore_sync_enabled() -> bool:
+    """``DLROVER_TPU_DATASTORE_SYNC=1`` keeps every Brain datastore
+    write a synchronous INSERT+commit; default is the write-behind
+    flusher."""
+    return os.getenv(DATASTORE_SYNC_ENV, "").lower() in (
+        "1", "true", "on",
+    )
+
+
 OBSERVATORY_ENV = "DLROVER_TPU_OBSERVATORY"
 EVENTS_MAX_MB_ENV = "DLROVER_TPU_EVENTS_MAX_MB"
+TIMELINE_MAX_AGE_ENV = "DLROVER_TPU_TIMELINE_MAX_AGE_S"
+TIMELINE_MAX_ROWS_ENV = "DLROVER_TPU_TIMELINE_MAX_ROWS"
 
 
 def observatory_enabled() -> bool:
-    """Switch of the master-side observatory (health derivations,
-    diagnosis operators, ``JobStatusRequest``, the timeline growth
-    bounds).  Not ported yet: on, the master raises
-    ``NotImplementedError`` naming ROADMAP A3c.3.  Default in the port:
-    off; the JAX package's default is on."""
-    return os.getenv(OBSERVATORY_ENV, "0").lower() not in (
+    """Kill-switch for the master-side observatory: the streaming
+    health-derivation engine (``observability/health.py``), the
+    derived-signal diagnosis operators (straggler / data-stall / hang
+    watchdog), the ``JobStatusRequest`` RPC, the ``--status_port``
+    HTTP endpoints, and the timeline growth bounds.
+    ``DLROVER_TPU_OBSERVATORY=0`` leaves the diagnosis chain on its
+    own data store, hang detection on the ``SpeedMonitor`` alone, and
+    the timeline unbounded.  Default: enabled."""
+    return os.getenv(OBSERVATORY_ENV, "1").lower() not in (
         "0", "false", "off",
     )
 
@@ -116,6 +135,18 @@ def events_max_bytes() -> int:
     file (0 = never rotate).  Generous default: a week-long job at
     control-plane event rates stays far below it."""
     return int(env_float(EVENTS_MAX_MB_ENV, 256.0) * 1024 * 1024)
+
+
+def timeline_max_age_s() -> float:
+    """Brain ``timeline_events`` retention age (rows older than this
+    are swept; 0 = age-unbounded)."""
+    return env_float(TIMELINE_MAX_AGE_ENV, 7 * 24 * 3600.0)
+
+
+def timeline_max_rows() -> int:
+    """Brain ``timeline_events`` per-job row cap (newest rows win;
+    0 = row-unbounded)."""
+    return int(env_float(TIMELINE_MAX_ROWS_ENV, 500_000))
 
 
 CKPT_CLOSE_TIMEOUT_ENV = "DLROVER_TPU_CKPT_CLOSE_TIMEOUT_S"
@@ -224,7 +255,7 @@ PROFILE_ENV = "DLROVER_TPU_PROFILE"
 def profile_enabled() -> bool:
     """Switch of the live attribution profiler and the master's deep
     capture coordinator.  Not ported yet: on, the master raises
-    ``NotImplementedError`` naming ROADMAP A3c.3.  Default in the port:
+    ``NotImplementedError`` naming ROADMAP A7.  Default in the port:
     off; the JAX package's default is on."""
     return os.getenv(PROFILE_ENV, "0").lower() not in (
         "0", "false", "off",
@@ -237,8 +268,8 @@ BRAIN_ENV = "DLROVER_TPU_BRAIN"
 def brain_enabled() -> bool:
     """Switch of the Brain (the observatory-fed optimizer, auto-scaler
     and planned-action executor).  Not ported yet: on, the master
-    raises ``NotImplementedError`` naming ROADMAP A3c.3.  Default in the
-    port: off; the JAX package's default is on."""
+    raises ``NotImplementedError`` naming ROADMAP A3c.3c.  Default in
+    the port: off; the JAX package's default is on."""
     return os.getenv(BRAIN_ENV, "0").lower() not in (
         "0", "false", "off",
     )
@@ -249,11 +280,18 @@ MASTER_WORKERS_ENV = "DLROVER_TPU_MASTER_WORKERS"
 
 
 def self_obs_enabled() -> bool:
-    """Switch of the master's control-plane self-telemetry.  Not
-    ported yet: on, the master raises ``NotImplementedError`` naming
-    ROADMAP A3c.3.  Default in the port: off; the JAX package's default
-    is on."""
-    return os.getenv(SELF_OBS_ENV, "0").lower() not in (
+    """Kill-switch for the master's control-plane self-telemetry: the
+    per-RPC-kind latency / request-size / response-size histograms,
+    the in-flight / parked-long-poll / thread-pool-occupancy gauges,
+    the per-job state row counts, the datastore write-behind health
+    gauges (queue depth, flush-latency histogram, journal lag), the
+    snapshot age/duration gauges, the ``master`` section of
+    ``/status`` + ``JobStatusResponse``, and the ``MasterHealth``
+    overload deriver.  ``DLROVER_TPU_SELF_OBS=0`` leaves no
+    ``dlrover_tpu_master_*`` / ``dlrover_tpu_datastore_*`` /
+    ``dlrover_tpu_journal_*`` / ``dlrover_tpu_snapshot_*`` series.
+    Default: enabled."""
+    return os.getenv(SELF_OBS_ENV, "1").lower() not in (
         "0", "false", "off",
     )
 
@@ -272,16 +310,18 @@ def master_workers() -> int:
 
 MASTER_FAILOVER_ENV = "DLROVER_TPU_MASTER_FAILOVER"
 RECONNECT_DEADLINE_ENV = "DLROVER_TPU_MASTER_RECONNECT_DEADLINE_S"
+SNAPSHOT_INTERVAL_ENV = "DLROVER_TPU_CONTROL_SNAPSHOT_INTERVAL_S"
 
 
 def master_failover_enabled() -> bool:
-    """Switch of the client side of master failover: transparent
-    ``MasterChannel`` reconnection and ``(job_epoch,
+    """Kill-switch for the master-failover subsystem: durable
+    control-plane journaling/replay (with a Brain db), transparent
+    ``MasterChannel`` reconnection, and ``(job_epoch,
     master_incarnation)`` fencing.  ``DLROVER_TPU_MASTER_FAILOVER=0``
-    gives the fail-fast client: a dead master raises
-    ``ConnectionError`` after ``max_retry`` attempts and no epochs ride
-    the envelope.  The master's journal and replay are ROADMAP A3c.3.
-    Default: enabled."""
+    gives the fail-fast behavior: a dead master raises
+    ``ConnectionError`` after ``max_retry`` attempts, no epochs ride
+    the envelope, and the master journals nothing.  Default:
+    enabled."""
     return os.getenv(MASTER_FAILOVER_ENV, "1").lower() not in (
         "0", "false", "off",
     )
@@ -294,6 +334,15 @@ def master_reconnect_deadline_s() -> float:
         return float(os.getenv(RECONNECT_DEADLINE_ENV, "120"))
     except ValueError:
         return 120.0
+
+
+def control_snapshot_interval_s() -> float:
+    """Cadence of the master's compacted control-plane snapshot
+    (journal entries at or below the snapshot seq are pruned)."""
+    try:
+        return float(os.getenv(SNAPSHOT_INTERVAL_ENV, "20"))
+    except ValueError:
+        return 20.0
 
 
 def get_free_port(host: str = "127.0.0.1") -> int:

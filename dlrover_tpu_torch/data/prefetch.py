@@ -7,9 +7,13 @@ names (``atorch/atorch/data/preloader.py``) in place of
 ``jax.device_put``: each batch is cut to the rank's rows
 (``sharding.local``, ``BATCH -> (data, fsdp)``) on the host, put in
 pinned host memory, and copied to the card with ``copy_(...,
-non_blocking=True)`` on a dedicated copy stream; an event recorded
+non_blocking=True)`` on the device's copy stream; an event recorded
 after the copy is what the compute stream waits on when the batch is
-handed out.  ``size`` transfers are in flight.  The pinned buffers of a
+handed out.  The copy stream is one per device for the process
+(``copy_stream``): the caching allocator keeps its blocks per stream, so
+a prefetcher on a fresh stream would allocate (and, near the card's
+limit, free and synchronise) on its first batch, where one made after it
+reuses what the last one freed.  ``size`` transfers are in flight.  The pinned buffers of a
 batch are kept until the batch after it is handed out, by which time
 the step that read it is queued behind the copy's event; its card
 tensors are recorded on the compute stream, so the allocator does not
@@ -56,6 +60,20 @@ from dlrover_tpu_torch.observability.metrics import record_input_io
 _METER_WINDOW_S = 1.0
 #: batches whose copy ``DevicePrefetch.h2d`` keeps
 _H2D_KEEP = 1024
+#: the copy stream of each device, made on first use
+_COPY_STREAMS = {}
+_COPY_STREAMS_LOCK = threading.Lock()
+
+
+def copy_stream(device: torch.device) -> torch.cuda.Stream:
+    """The device's copy stream, shared by every prefetcher of the
+    process."""
+    with _COPY_STREAMS_LOCK:
+        stream = _COPY_STREAMS.get(device)
+        if stream is None:
+            stream = _COPY_STREAMS[device] = torch.cuda.Stream(
+                device=device)
+        return stream
 
 
 def batch_nbytes(batch) -> int:
@@ -217,7 +235,7 @@ class DevicePrefetch:
         self.h2d = collections.deque(maxlen=_H2D_KEEP)
         self._stream = None
         if device.type == "cuda":
-            self._stream = torch.cuda.Stream(device=device)
+            self._stream = copy_stream(device)
         if pipelined:
             # host_prefetch already accounts the host_fetch stalls (the
             # queue wait); fetching from it again through _fetch would

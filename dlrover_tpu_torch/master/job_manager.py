@@ -1,7 +1,6 @@
 """Node lifecycle supervision inside the master.
 
-Copy of ``dlrover_tpu/master/job_manager.py``.  The Brain datastore's
-node-event audit trail is left out (ROADMAP A3c.3).
+Copy of ``dlrover_tpu/master/job_manager.py``.
 
 Reference parity: ``dlrover/python/master/node/dist_job_manager.py`` and
 ``local_job_manager.py`` — the job manager owns the node table, consumes
@@ -10,6 +9,7 @@ k8s), decides relaunches, and feeds the speed monitor / rendezvous
 managers through event callbacks.
 """
 
+import os
 import threading
 import time
 from abc import ABCMeta, abstractmethod
@@ -306,8 +306,20 @@ class JobManager(metaclass=ABCMeta):
             "training failure on %s-%s (restart %s, level %s): %s",
             node_type, node_id, restart_count, level, error_data,
         )
-        # the durable audit trail (the Brain datastore's node-event
-        # recorder) comes with the datastore: ROADMAP A3c.3
+        # durable audit trail (Brain datastore node-event recorder)
+        from dlrover_tpu_torch.master.datastore import get_default_datastore
+
+        store = get_default_datastore()
+        if store is not None:
+            try:
+                store.record_node_event(
+                    os.getenv("DLROVER_TPU_JOB_NAME", "default"),
+                    f"{node_type}-{node_id}",
+                    level,
+                    error_data[:512],
+                )
+            except Exception as e:  # noqa: BLE001
+                logger.warning("node-event persist failed: %s", e)
         # classify the failure and record the recommended recovery
         # rung (error monitor — ref monitor/error_monitor.py)
         action = None

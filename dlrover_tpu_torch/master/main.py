@@ -3,8 +3,9 @@
 
 Copy of ``dlrover_tpu/master/main.py``.  The port has the local master
 only: ``--platform k8s`` and ``ray`` raise ``NotImplementedError`` (the
-distributed master is ROADMAP A3c.3), as do ``--brain_db`` and
-``--status_port`` (``master/master.py``).
+distributed master is ROADMAP A3c.3d).  ``--brain_db`` opens the durable
+datastore (journal, replay, fencing) and ``--status_port`` the
+``/metrics`` and ``/status`` server, as in the reference.
 
 Reference parity: ``dlrover/python/master/main.py:43-70`` +
 ``master/args.py``.
@@ -68,12 +69,18 @@ def run(args) -> int:
     port = args.port or get_free_port()
     if args.platform != "local":
         raise NotImplementedError(
-            f"the {args.platform} master is not ported yet: ROADMAP A3c.3")
+            f"the {args.platform} master is not ported yet: ROADMAP A3c.3d")
     master = LocalJobMaster(port, args.node_num)
     master.prepare()
     logger.info("job %s master listening on %s", args.job_name,
                 master.addr)
     print(f"DLROVER_TPU_MASTER_ADDR={master.addr}", flush=True)
+    if master.status_server is not None:
+        # the BOUND port (a requested 0 resolves here)
+        print(
+            f"DLROVER_TPU_STATUS_PORT={master.status_server.port}",
+            flush=True,
+        )
     return master.run()
 
 

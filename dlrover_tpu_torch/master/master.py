@@ -1,18 +1,20 @@
 """The local job master (spawned by ``python -m dlrover_tpu_torch.run``).
 
 Copy of ``dlrover_tpu/master/master.py`` (``JobMaster`` :39,
-``LocalJobMaster`` :380, ``run_local_master`` :496) without the
-subsystems that ROADMAP A3c.3 brings: the observatory
-(``observability/health.py``), the diagnosis chain, the Brain
-(``auto_scaler``, ``brain``, ``resource_optimizer``), the master's
-self-telemetry, the deep-capture coordinator, the failover journal with
-the sqlite datastore it needs (``DLROVER_TPU_BRAIN_DB``), the status
-server, and the distributed master (k8s / ray scalers).  Their switches
-default to off in the port (``common/env.py``); one turned on makes
-``JobMaster`` raise ``NotImplementedError`` naming A3c.3 rather than run
-without it.  The client's reconnect and its ``(job_epoch,
-master_incarnation)`` fields (``common/comm.py``) stay: with no journal
-the master is incarnation 0 and fences nothing.
+``LocalJobMaster`` :380, ``run_local_master`` :496): the durable master
+(the Brain datastore that ``DLROVER_TPU_BRAIN_DB`` opens, the failover
+journal and its replay, fencing by ``(job_epoch, incarnation)``) and the
+observatory (``HealthEngine``, ``MasterSelfTelemetry`` and
+``MasterHealth``, the diagnosis chain, the ``--status_port`` server),
+each behind the reference's switch and default.  Not ported yet: the
+Brain (``DLROVER_TPU_BRAIN``: ``auto_scaler``, ``brain``,
+``resource_optimizer``, ROADMAP A3c.3c), the live profiler's deep-capture
+coordinator (``DLROVER_TPU_PROFILE``, ROADMAP A7) and the distributed
+master (k8s / ray scalers, ROADMAP A3c.3d).  Those two switches default
+to off in the port (``common/env.py``); one turned on makes
+``JobMaster`` raise ``NotImplementedError`` naming its item rather than
+run without it.  The journal's Brain and capture components stay None,
+as the reference's are with those switches off.
 
 Reference parity: ``dlrover/python/master/local_master.py``.
 """
@@ -48,25 +50,15 @@ _ctx = Context.singleton_instance()
 
 
 def later_subsystems_on():
-    """The master subsystems ROADMAP A3c.3 brings whose switch is on (the
-    port's defaults leave every one off)."""
-    import os
-
+    """The master subsystems not ported yet whose switch is on (the
+    port's defaults leave both off)."""
     from dlrover_tpu_torch.common import env
 
     switches = (
-        ("the observatory (DLROVER_TPU_OBSERVATORY)",
-         env.observatory_enabled()),
-        ("the live profiler and deep capture (DLROVER_TPU_PROFILE)",
-         env.profile_enabled()),
-        ("the Brain (DLROVER_TPU_BRAIN)", env.brain_enabled()),
-        ("the master's self-telemetry (DLROVER_TPU_SELF_OBS)",
-         env.self_obs_enabled()),
-        ("the failover journal and its datastore (DLROVER_TPU_BRAIN_DB)",
-         env.master_failover_enabled()
-         and bool(os.getenv("DLROVER_TPU_BRAIN_DB", ""))),
-        ("the status server (DLROVER_TPU_STATUS_PORT)",
-         bool(os.getenv("DLROVER_TPU_STATUS_PORT", ""))),
+        ("the live profiler and deep capture (DLROVER_TPU_PROFILE) is "
+         "not ported yet: ROADMAP A7", env.profile_enabled()),
+        ("the Brain (DLROVER_TPU_BRAIN) is not ported yet: ROADMAP A3c.3c",
+         env.brain_enabled()),
     )
     return [name for name, on in switches if on]
 
@@ -77,28 +69,44 @@ class JobMaster:
     def __init__(self, port: int, node_num: int = 1, job_manager=None):
         import os
 
+        from dlrover_tpu_torch.common.env import (
+            master_workers,
+            observatory_enabled,
+            self_obs_enabled,
+        )
+        from dlrover_tpu_torch.master.datastore import get_default_datastore
         from dlrover_tpu_torch.observability.events import TimelineAggregator
         from dlrover_tpu_torch.observability.metrics import get_registry
 
         for name in later_subsystems_on():
-            raise NotImplementedError(
-                f"{name} is not ported yet: ROADMAP A3c.3")
+            raise NotImplementedError(name)
         self._job_name = os.getenv("DLROVER_TPU_JOB_NAME", "default")
         self.speed_monitor = SpeedMonitor()
-        # the observatory, the Brain, the self-telemetry, the capture
-        # coordinator and the diagnosis chain are A3c.3: the servicer
-        # takes None for each, as the reference does with them off
+        # the observatory: streaming per-node health derivations over
+        # the incoming timeline batches + agent reports.  None under
+        # the DLROVER_TPU_OBSERVATORY=0 kill-switch — every consumer
+        # (diagnosis operators, JobStatusRequest, status server,
+        # gauges) degrades to the pre-observatory behavior exactly.
         self.health_engine = None
-        self.capture_coordinator = None
-        self.master_telemetry = None
-        self.master_health = None
-        self.diagnosis_manager = None
-        self.brain = None
-        self.status_server = None
-        # unified job-event timeline: per-node streams merge here and
-        # the goodput ledger is served live (no datastore: A3c.3)
+        if observatory_enabled():
+            from dlrover_tpu_torch.observability.health import HealthEngine
+
+            self.health_engine = HealthEngine(
+                job=self._job_name, registry=get_registry()
+            )
+        # unified job-event timeline: per-node streams merge here, the
+        # goodput ledger is served live (get-RPC + exporter gauges) and
+        # durably (sqlite datastore when configured); the health
+        # engine taps every accepted batch
         self.timeline_aggregator = TimelineAggregator(
-            job=self._job_name, registry=get_registry())
+            job=self._job_name,
+            registry=get_registry(),
+            datastore=get_default_datastore(),
+            health=self.health_engine,
+        )
+        # the deep-capture arm is ROADMAP A7: None, as the reference's
+        # is under DLROVER_TPU_PROFILE=0
+        self.capture_coordinator = None
         self.task_manager = TaskManager(speed_monitor=self.speed_monitor)
         self.rdzv_managers = {
             RendezvousName.ELASTIC_TRAINING:
@@ -107,16 +115,63 @@ class JobMaster:
         }
         self.kv_store = KVStoreService()
         self.job_manager = job_manager
+        # control-plane SELF-telemetry: the master watching itself
+        # (per-RPC-kind latency histograms, pool occupancy, state
+        # growth, journal lag) + the MasterHealth overload deriver.
+        # None under DLROVER_TPU_SELF_OBS=0 — the pre-self-obs metric
+        # surface exactly (pinned by tests).
+        self.master_telemetry = None
+        self.master_health = None
+        if self_obs_enabled():
+            from dlrover_tpu_torch.observability.health import MasterHealth
+            from dlrover_tpu_torch.observability.self_telemetry import (
+                MasterSelfTelemetry,
+            )
+
+            self.master_telemetry = MasterSelfTelemetry(
+                registry=get_registry(),
+                pool_size=master_workers(),
+            )
+            self.master_telemetry.attach(
+                kv_store=self.kv_store,
+                rdzv_managers=self.rdzv_managers,
+                task_manager=self.task_manager,
+                timeline_aggregator=self.timeline_aggregator,
+                datastore=get_default_datastore(),
+            )
+            self.master_health = MasterHealth(self.master_telemetry)
+        from dlrover_tpu_torch.master.diagnosis import DiagnosisManager
+
+        # with the observatory on, the chain sits on top of the
+        # streaming derivations (straggler / data-stall / hang watchdog
+        # operators) and records conclusions to the timeline + Brain;
+        # off, it is exactly the old manager
+        self.diagnosis_manager = DiagnosisManager(
+            speed_monitor=self.speed_monitor,
+            health_engine=self.health_engine,
+            datastore=get_default_datastore(),
+            job=self._job_name,
+            capture=self.capture_coordinator,
+            master_health=self.master_health,
+        )
+        # the Brain is ROADMAP A3c.3c: None, as the reference's is
+        # under DLROVER_TPU_BRAIN=0
+        self.brain = None
+        #: plain-HTTP /metrics + /status (off unless --status_port)
+        self.status_server = None
         self.speed_monitor.set_target_worker_num(node_num)
         self._node_num = node_num
         self._port = port
         self._server = None
         self._exit_reason: Optional[str] = None
         self._stopped = threading.Event()
-        #: fencing identity: epoch 0 / incarnation 0 = no durability
-        #: (the failover journal is A3c.3), fencing inert
+        #: fencing identity (durable when a Brain db is configured;
+        #: epoch 0 / incarnation 0 = no durability, fencing inert)
         self.job_epoch = 0
         self.incarnation = 0
+        #: durable control-plane journal (None = failover disabled or
+        #: no Brain db — today's memory-only behavior exactly)
+        self.control_journal = None
 
         self.job_manager.add_node_event_callback(
             TaskRescheduleCallback(self.task_manager)
@@ -133,29 +188,161 @@ class JobMaster:
     def addr(self) -> str:
         return f"127.0.0.1:{self._port}"
 
+    def _setup_failover(self):
+        """Durable control-plane state: registers this incarnation,
+        replays snapshot+journal into the components, then attaches
+        the journal hooks — all BEFORE the gRPC server opens, so the
+        first reconnecting agent sees the resumed state."""
+        from dlrover_tpu_torch.common.env import master_failover_enabled
+        from dlrover_tpu_torch.master.datastore import get_default_datastore
+
+        if not master_failover_enabled():
+            return
+        store = get_default_datastore()
+        if store is None:
+            return
+        from dlrover_tpu_torch.master.failover import ControlPlaneJournal
+        from dlrover_tpu_torch.observability.events import get_event_logger
+
+        self.job_epoch, self.incarnation = store.bump_incarnation(
+            self._job_name
+        )
+        self.control_journal = ControlPlaneJournal(
+            store,
+            self._job_name,
+            kv_store=self.kv_store,
+            rdzv_managers=self.rdzv_managers,
+            task_manager=self.task_manager,
+            job_manager=self.job_manager,
+            brain=self.brain,
+            capture=self.capture_coordinator,
+        )
+        stats = self.control_journal.recover()
+        self.control_journal.attach()
+        self.control_journal.start()
+        if self.incarnation > 1:
+            get_event_logger().instant(
+                "master_restart",
+                incarnation=self.incarnation,
+                job_epoch=self.job_epoch,
+                **stats,
+            )
+            logger.info(
+                "master incarnation %s resumed job epoch %s (%s)",
+                self.incarnation, self.job_epoch, stats,
+            )
+
     def prepare(self):
+        self._setup_failover()
+        if (
+            self.master_telemetry is not None
+            and self.control_journal is not None
+        ):
+            # the journal only exists once failover setup ran; its
+            # snapshot age/duration joins the self-telemetry sweep
+            self.master_telemetry.attach(
+                journal=self.control_journal
+            )
         servicer = MasterServicer(
             task_manager=self.task_manager,
             job_manager=self.job_manager,
             speed_monitor=self.speed_monitor,
             rdzv_managers=self.rdzv_managers,
             kv_store=self.kv_store,
+            diagnosis_manager=self.diagnosis_manager,
             timeline_aggregator=self.timeline_aggregator,
+            health_engine=self.health_engine,
+            brain=self.brain,
+            capture_coordinator=self.capture_coordinator,
             job_epoch=self.job_epoch,
             incarnation=self.incarnation,
+            telemetry=self.master_telemetry,
         )
         self._servicer = servicer
         self._server = create_master_service(self._port, servicer)
         self._server.start()
         self.task_manager.start()
         self.job_manager.start()
+        self.diagnosis_manager.start()
+        self._start_status_server(servicer)
         logger.info("master serving on port %s", self._port)
+
+    def _start_status_server(self, servicer):
+        """Plain-HTTP ``/metrics`` (Prometheus text) + ``/status``
+        (the JobStatusRequest snapshot as JSON).  Off by default:
+        needs ``--status_port`` (``DLROVER_TPU_STATUS_PORT``) AND the
+        observatory on."""
+        import os
+
+        raw = os.getenv("DLROVER_TPU_STATUS_PORT", "")
+        if not raw:
+            return
+        try:
+            port = int(raw)
+        except ValueError:
+            logger.warning(
+                "ignoring malformed DLROVER_TPU_STATUS_PORT=%r", raw
+            )
+            return
+        if port < 0:
+            return
+        if self.health_engine is None:
+            logger.info(
+                "status port requested but observatory is off "
+                "(DLROVER_TPU_OBSERVATORY=0); not serving"
+            )
+            return
+        from dlrover_tpu_torch.common import messages as msg
+        from dlrover_tpu_torch.observability.metrics import get_registry
+        from dlrover_tpu_torch.observability.status_server import (
+            StatusServer,
+        )
+
+        def _snapshot():
+            res = servicer._job_status(msg.JobStatusRequest())
+            return res.status if res.available else {}
+
+        self.status_server = StatusServer(
+            port,
+            registry=get_registry(),
+            snapshot_fn=_snapshot,
+            health_engine=self.health_engine,
+            telemetry=self.master_telemetry,
+        )
+        try:
+            self.status_server.start()
+        except OSError as e:
+            logger.warning(
+                "status server failed to bind :%d: %s", port, e
+            )
+            self.status_server = None
+
+    def process_diagnosis(self):
+        """Feed inference-chain conclusions to the job manager (run
+        from the supervision loops)."""
+        conclusions = self.diagnosis_manager.take_conclusions()
+        if conclusions:
+            self.job_manager.apply_diagnosis_conclusions(conclusions)
 
     def stop(self, reason: str = ""):
         self._exit_reason = reason or self._exit_reason
         self._stopped.set()
+        if self.control_journal is not None:
+            # a job-terminal stop (request_stop always passes a
+            # JobExitReason) RETIRES the durable state — a later run
+            # under the same Brain db + job name must not inherit this
+            # job's exhausted datasets / stale KV keys; a bare stop()
+            # (master-only shutdown) snapshots so the next incarnation
+            # resumes
+            self.control_journal.stop(
+                retire=bool(self._exit_reason)
+            )
         self.task_manager.stop()
         self.job_manager.stop()
+        self.diagnosis_manager.stop()
+        if self.status_server is not None:
+            self.status_server.stop()
+            self.status_server = None
         if self._server:
             self._server.stop(grace=0.5)
 
@@ -181,6 +368,7 @@ class LocalJobMaster(JobMaster):
                 logger.info("all dataset tasks finished")
                 self.request_stop(True, JobExitReason.SUCCEEDED)
                 break
+            self.process_diagnosis()
             time.sleep(1)
         return 0
 

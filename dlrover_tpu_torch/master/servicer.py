@@ -1,10 +1,8 @@
 """The master RPC servicer: dispatch tables for ``get`` and ``report``.
 
-Copy of ``dlrover_tpu/master/servicer.py``.  The Brain query answers
-``available=False`` and diagnosis reports are accepted and dropped: the
-datastore and the diagnosis chain are ROADMAP A3c.3; the observatory,
-Brain, capture and self-telemetry hooks take None, as the reference's do
-with those switched off.
+Copy of ``dlrover_tpu/master/servicer.py``.  The Brain and deep-capture
+hooks take None (ROADMAP A3c.3c and A7), as the reference's do with
+those switched off.
 
 Reference parity: ``dlrover/python/master/servicer.py:72,99,650``; the
 full dispatch surface is the parity checklist in SURVEY.md Appendix A.
@@ -353,8 +351,44 @@ class MasterServicer:
     def _brain_query(
         self, request: msg.BrainQueryRequest
     ) -> msg.BrainQueryResponse:
-        """The Brain datastore is ROADMAP A3c.3: nothing to query."""
-        return msg.BrainQueryResponse(available=False)
+        from dlrover_tpu_torch.master.datastore import get_default_datastore
+
+        store = get_default_datastore()
+        if store is None:
+            return msg.BrainQueryResponse(available=False)
+        if request.kind == "speed":
+            payload = {
+                "speed": store.speed_history(request.job)
+            }
+        elif request.kind == "node_events":
+            payload = {
+                "events": store.node_events(
+                    request.job, limit=request.limit
+                )
+            }
+        elif request.kind == "workloads":
+            payload = {"workloads": store.measured_workloads()}
+        elif request.kind == "profiles":
+            payload = {
+                "profiles": store.profiles(
+                    request.job, limit=request.limit
+                )
+            }
+        elif request.kind == "measurements":
+            # cross-job calibration: ANY job's strategy service can
+            # pull this fleet's history for a workload signature
+            # (ref: the Go Brain serving all jobs' metrics,
+            # dlrover/go/brain/pkg/datastore/dbbase/recorder.go:280)
+            payload = {
+                "measurements": store.load_measurements(
+                    request.workload, limit=request.limit
+                )
+            }
+        else:
+            return msg.BrainQueryResponse(available=False)
+        return msg.BrainQueryResponse(
+            payload=payload, available=True
+        )
 
     def _get_task(self, node_id: int, request: msg.TaskRequest) -> msg.Task:
         if not self._start_training_time:
@@ -687,7 +721,16 @@ class MasterServicer:
         if isinstance(request, msg.ModelInfo):
             return True
         if isinstance(request, msg.DiagnosisReportData):
-            # the diagnosis chain that consumes these is ROADMAP A3c.3
+            if self._diagnosis_manager:
+                from dlrover_tpu_torch.master.diagnosis import DiagnosisData
+
+                self._diagnosis_manager.collect_data(
+                    DiagnosisData(
+                        data_type=request.data_cls,
+                        content=request.data_content,
+                        node_rank=request.node_rank,
+                    )
+                )
             return True
         if isinstance(request, msg.ProfileReport):
             if self._capture is not None:

@@ -2,8 +2,8 @@
 
 Copy of ``dlrover_tpu/observability/events.py``: the same records on the
 same ``DLROVER_TPU_EVENTS_FILE``, so one timeline reader merges both
-packages' spans.  The master's ``TimelineAggregator`` runs here with no
-Brain datastore and no health engine (ROADMAP A3c.3).
+packages' spans.  The master's ``TimelineAggregator`` writes into the
+Brain datastore and feeds the health engine, as the reference's does.
 
 The reference's headline metric is goodput (69% -> 95% under faults),
 but a single ratio cannot say WHERE the lost wall clock went —

@@ -1,31 +1,117 @@
 """Process-local metrics registry.
 
-The part of ``dlrover_tpu/observability/metrics.py`` that the flash
-checkpoint calls: counters and gauges (``MetricsRegistry`` :123,
-``get_registry`` :330), ``record_ckpt_io`` (:347) and
-``record_reshard_io`` (:536), and what the control plane calls:
-``record_dropped_reports`` (:588) and ``record_control_rpc`` (:613),
-under the reference's metric names.
-Left out (ROADMAP A7): histograms, series retirement, the Prometheus
-text rendering and the exporter file it feeds (``native_build``): the
-registry keeps its values in memory, read back with ``get``.
+The part of ``dlrover_tpu/observability/metrics.py`` that the port
+calls: counters, gauges and log-bucketed histograms
+(``MetricsRegistry`` :123, ``Histogram`` :42, ``LATENCY_BOUNDS`` and
+``SIZE_BOUNDS`` :36-40, ``get_registry`` :330), the Prometheus text
+rendering the master's ``/metrics`` serves (``render_text`` :282),
+``record_ckpt_io`` (:347), ``record_reshard_io`` (:536),
+``record_datastore_flush`` (:563), ``record_dropped_reports`` (:588)
+and ``record_control_rpc`` (:613), under the reference's metric names.
+Left out (ROADMAP A7): series retirement and the exporter file that the
+native daemon serves (``native_build``): the registry keeps its values
+in memory, read back with ``get``, ``histogram`` and ``render_text``.
 """
 
 import re
 import threading
 import time
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Tuple
 
 from dlrover_tpu_torch.common.log import default_logger as logger
 
 
+def log_bounds(base: float, growth: float, count: int) -> Tuple[float, ...]:
+    """Geometric (log-spaced) histogram bucket upper bounds:
+    ``base * growth**i`` for ``i in range(count)``.  Log buckets give
+    constant RELATIVE resolution — the right shape for latencies and
+    sizes, whose interesting range spans decades."""
+    return tuple(base * growth ** i for i in range(count))
+
+
+#: default latency buckets: 100 µs .. ~210 s, ×2 per bucket (22
+#: buckets + the implicit +Inf)
+LATENCY_BOUNDS = log_bounds(1e-4, 2.0, 22)
+#: default size buckets: 64 B .. ~1 GB, ×4 per bucket (13 buckets +
+#: +Inf) — request/response payloads and flush batches.
+SIZE_BOUNDS = log_bounds(64.0, 4.0, 13)
+
+
+class Histogram:
+    """One log-bucketed histogram series: cumulative bucket counts +
+    sum + count, rendered in the classic Prometheus text format
+    (``<name>_bucket{le=...}`` / ``<name>_sum`` / ``<name>_count``).
+    NOT thread-safe on its own — the owning registry's lock guards
+    every observe/render."""
+
+    __slots__ = ("bounds", "counts", "sum", "count")
+
+    def __init__(self, bounds: Tuple[float, ...] = LATENCY_BOUNDS):
+        self.bounds = tuple(sorted(bounds))
+        # one count per finite bound + the +Inf overflow bucket;
+        # non-cumulative internally, accumulated at render time
+        self.counts = [0] * (len(self.bounds) + 1)
+        self.sum = 0.0
+        self.count = 0
+
+    def observe(self, value: float):
+        value = float(value)
+        self.sum += value
+        self.count += 1
+        for i, bound in enumerate(self.bounds):
+            if value <= bound:
+                self.counts[i] += 1
+                return
+        self.counts[-1] += 1
+
+    def quantile(self, q: float) -> float:
+        """Upper-bound estimate of the ``q`` quantile (0..1) from the
+        bucket counts: the smallest bucket bound whose cumulative
+        count reaches ``q * count``.  Observations past the last
+        finite bound report that bound."""
+        if self.count <= 0:
+            return 0.0
+        target = q * self.count
+        cum = 0
+        for i, bound in enumerate(self.bounds):
+            cum += self.counts[i]
+            if cum >= target:
+                return bound
+        return self.bounds[-1] if self.bounds else 0.0
+
+    @staticmethod
+    def _fmt_le(bound: float) -> str:
+        return f"{bound:.9g}"
+
+    def render_lines(self, name: str, inner_labels: str) -> List[str]:
+        """The exposition lines for this series.  ``inner_labels`` is
+        the pre-rendered ``k="v"`` list (may be empty); ``le`` is
+        appended last."""
+        lines = []
+        cum = 0
+        for i, bound in enumerate(self.bounds):
+            cum += self.counts[i]
+            le = f'le="{self._fmt_le(bound)}"'
+            inner = f"{inner_labels},{le}" if inner_labels else le
+            lines.append(f"{name}_bucket{{{inner}}} {cum}")
+        le = 'le="+Inf"'
+        inner = f"{inner_labels},{le}" if inner_labels else le
+        lines.append(f"{name}_bucket{{{inner}}} {self.count}")
+        suffix = f"{{{inner_labels}}}" if inner_labels else ""
+        lines.append(f"{name}_sum{suffix} {self.sum:.9g}")
+        lines.append(f"{name}_count{suffix} {self.count}")
+        return lines
+
+
 class MetricsRegistry:
-    """Counters and gauges keyed by name and labels."""
+    """Counters, gauges and histograms keyed by name and labels."""
 
     _NAME_RE = re.compile(r"[^a-zA-Z0-9_:]")
 
     def __init__(self, rank: Optional[int] = None):
         self._metrics: Dict[str, float] = {}
+        #: (name, rendered-inner-labels) -> Histogram
+        self._histograms: Dict[Tuple[str, str], Histogram] = {}
         self._lock = threading.Lock()
         self._rank = rank
 
@@ -34,17 +120,22 @@ class MetricsRegistry:
         return (str(value).replace("\\", "\\\\").replace('"', '\\"')
                 .replace("\n", "\\n"))
 
-    def _key(self, name: str, labels: Optional[Dict] = None) -> str:
-        name = self._NAME_RE.sub("_", name)
+    def _inner_labels(self, labels: Optional[Dict] = None) -> str:
+        """The rendered ``k="v"`` label list (no braces; "" when no
+        labels survive the merge)."""
         merged = dict(labels or {})
         if self._rank is not None:
             merged.setdefault("rank", self._rank)
         if not merged:
-            return name
-        inner = ",".join(
+            return ""
+        return ",".join(
             f'{self._NAME_RE.sub("_", str(k))}="{self._escape_label(v)}"'
             for k, v in sorted(merged.items()))
-        return f"{name}{{{inner}}}"
+
+    def _key(self, name: str, labels: Optional[Dict] = None) -> str:
+        name = self._NAME_RE.sub("_", name)
+        inner = self._inner_labels(labels)
+        return f"{name}{{{inner}}}" if inner else name
 
     def set_gauge(self, name: str, value: float, labels=None):
         with self._lock:
@@ -58,6 +149,42 @@ class MetricsRegistry:
     def get(self, name: str, labels=None, default: float = 0.0) -> float:
         with self._lock:
             return self._metrics.get(self._key(name, labels), default)
+
+    def observe_histogram(self, name: str, value: float, labels=None,
+                          bounds: Optional[Tuple[float, ...]] = None):
+        """Record one observation into a log-bucketed histogram series
+        (created on first observe; ``bounds`` only applies then — a
+        series' bucket layout is immutable)."""
+        name = self._NAME_RE.sub("_", name)
+        with self._lock:
+            key = (name, self._inner_labels(labels))
+            hist = self._histograms.get(key)
+            if hist is None:
+                hist = self._histograms[key] = Histogram(
+                    bounds if bounds is not None else LATENCY_BOUNDS)
+            hist.observe(value)
+
+    def histogram(self, name: str, labels=None) -> Optional[Histogram]:
+        """The live ``Histogram`` for a series (None before its first
+        observe).  The returned object is shared; treat it as
+        read-only."""
+        with self._lock:
+            return self._histograms.get(
+                (self._NAME_RE.sub("_", name), self._inner_labels(labels)))
+
+    def render_text(self) -> str:
+        """The current metrics as Prometheus exposition text (the
+        master's plain-HTTP ``/metrics``), with no timestamps: served
+        samples carry the scrape time."""
+        with self._lock:
+            lines = [f"{k} {v:.9g}"
+                     for k, v in sorted(self._metrics.items())]
+            for (name, inner) in sorted(self._histograms):
+                lines.extend(
+                    self._histograms[(name, inner)].render_lines(
+                        name, inner))
+        return "\n".join(lines) + "\n"
+
 
 _default_registry: Optional[MetricsRegistry] = None
 _default_registry_lock = threading.Lock()
@@ -125,6 +252,27 @@ def record_reshard_io(from_world: int, to_world: int, nbytes: int,
         reg.inc_counter("dlrover_tpu_reshard_total")
     except Exception as e:  # noqa: BLE001
         logger.warning("reshard metric export failed: %s", e)
+
+
+def record_datastore_flush(rows: int, seconds: float):
+    """One write-behind flush batch landed: its commit latency feeds
+    the ``dlrover_tpu_datastore_flush_seconds`` histogram and the
+    batch size the ``dlrover_tpu_datastore_flush_rows`` histogram.
+    Gated by ``DLROVER_TPU_SELF_OBS=0``.  Never raises — telemetry must
+    not break a flush."""
+    from dlrover_tpu_torch.common.env import self_obs_enabled
+
+    try:
+        if not self_obs_enabled():
+            return
+        reg = get_registry()
+        reg.observe_histogram(
+            "dlrover_tpu_datastore_flush_seconds", seconds)
+        reg.observe_histogram(
+            "dlrover_tpu_datastore_flush_rows", float(rows),
+            bounds=SIZE_BOUNDS)
+    except Exception as e:  # noqa: BLE001
+        logger.warning("datastore flush metric export failed: %s", e)
 
 
 def record_dropped_reports(n: int = 1):

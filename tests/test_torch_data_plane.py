@@ -355,3 +355,23 @@ def test_slow_iterator_leaves_data_stall_spans(monkeypatch, tmp_path,
     assert stalls, tevents.read_events(path)
     assert {e["labels"]["stage"] for e in stalls} == {"host_fetch"}
     assert all(e["dur"] >= 0.05 for e in stalls)
+
+
+def test_every_prefetcher_of_a_device_copies_on_one_stream(monkeypatch):
+    """The copy stream is made once per device: a prefetcher made after
+    another reuses the blocks the caching allocator keeps for it."""
+    from dlrover_tpu_torch.data import prefetch
+
+    made = []
+
+    def fake_stream(device):
+        made.append(device)
+        return object()
+
+    monkeypatch.setattr(prefetch, "_COPY_STREAMS", {})
+    monkeypatch.setattr(torch.cuda, "Stream", fake_stream)
+    cards = [torch.device("cuda", i) for i in (0, 1)]
+    first = [prefetch.copy_stream(d) for d in cards]
+    again = [prefetch.copy_stream(d) for d in cards]
+    assert again == first and first[0] is not first[1]
+    assert made == cards

@@ -27,11 +27,11 @@
   (``--network_check``) and the restart overlap on: every incarnation
   was forked with torch imported and CUDA untouched, the restarted
   workers restored through the prefetch, and the run ends bit for bit.
-- What ROADMAP A3c still has to bring (A3c.3: the master's optional
-  subsystems, the deep capture, the distributed master) raises
-  ``NotImplementedError`` naming it, and the port's defaults keep each
-  of those switches off; the agent's switches take the reference's
-  defaults.
+- What ROADMAP A3c still has to bring (the Brain, the deep capture,
+  the distributed master) raises ``NotImplementedError`` naming it, and
+  the port's defaults keep those switches off; the durable master and
+  the observatory (A3c.3a/b) are built behind the reference's switches
+  and defaults; the agent's switches take the reference's defaults.
 """
 
 import functools
@@ -539,16 +539,19 @@ def test_leaf_digests_see_one_flipped_byte():
         "['params']['layers']['wq']"]
 
 
-# --------------------------------------------- A3c: off, and raising
+# ------------------------------- A3c: the reference's defaults, and raising
 
 
 def test_a3c_switches_default_off(monkeypatch):
+    """The reference's defaults: the observatory and the self-telemetry
+    on, the live profiler and the Brain off; with no Brain db the master
+    is incarnation 0 and fences nothing."""
     for name in (env.OBSERVATORY_ENV, env.PROFILE_ENV, env.BRAIN_ENV,
                  env.SELF_OBS_ENV, "DLROVER_TPU_BRAIN_DB",
                  "DLROVER_TPU_STATUS_PORT"):
         monkeypatch.delenv(name, raising=False)
-    assert not (env.observatory_enabled() or env.profile_enabled()
-                or env.brain_enabled() or env.self_obs_enabled())
+    assert env.observatory_enabled() and env.self_obs_enabled()
+    assert not (env.profile_enabled() or env.brain_enabled())
     # the client's reconnect and epochs stay on
     assert env.master_failover_enabled()
     # the agent's switches take the reference's defaults: the watcher
@@ -557,20 +560,80 @@ def test_a3c_switches_default_off(monkeypatch):
     assert not (config.prefork or config.network_check)
     assert config.watch_preemption and config.restart_overlap
     m = LocalJobMaster(get_free_port())
-    assert m.health_engine is None and m.brain is None
+    assert m.health_engine is not None and m.master_telemetry is not None
+    assert m.brain is None and m.capture_coordinator is None
     assert m.job_epoch == 0 and m.incarnation == 0
 
 
 @pytest.mark.parametrize("name,value", [
-    ("DLROVER_TPU_OBSERVATORY", "1"), ("DLROVER_TPU_PROFILE", "1"),
-    ("DLROVER_TPU_BRAIN", "1"), ("DLROVER_TPU_SELF_OBS", "1"),
-    ("DLROVER_TPU_BRAIN_DB", "/x/brain.db"),
-    ("DLROVER_TPU_STATUS_PORT", "0"),
+    ("DLROVER_TPU_PROFILE", "1"), ("DLROVER_TPU_BRAIN", "1"),
 ])
 def test_a3c_master_subsystems_raise(monkeypatch, name, value):
     monkeypatch.setenv(name, value)
-    with pytest.raises(NotImplementedError, match="ROADMAP A3c"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A"):
         LocalJobMaster(get_free_port())
+
+
+@pytest.fixture
+def fresh_datastore(monkeypatch):
+    """No process datastore before the case, and none left after it."""
+    from dlrover_tpu_torch.master import datastore
+
+    monkeypatch.setattr(datastore, "_default_store", None)
+    yield
+    if datastore._default_store is not None:
+        datastore._default_store.close()
+    datastore._default_store = None
+
+
+@pytest.mark.parametrize("name", [
+    "DLROVER_TPU_OBSERVATORY", "DLROVER_TPU_SELF_OBS",
+    "DLROVER_TPU_BRAIN_DB", "DLROVER_TPU_STATUS_PORT",
+])
+def test_a3c3ab_switch_builds_its_subsystem(monkeypatch, tmp_path,
+                                           fresh_datastore, name):
+    """Each switch that raised before A3c.3a/b builds what the reference
+    builds behind it."""
+    from dlrover_tpu_torch.master.datastore import BrainDatastore
+    from dlrover_tpu_torch.master.diagnosis import DiagnosisManager
+    from dlrover_tpu_torch.master.failover import ControlPlaneJournal
+    from dlrover_tpu_torch.observability.health import (
+        HealthEngine,
+        MasterHealth,
+    )
+    from dlrover_tpu_torch.observability.self_telemetry import (
+        MasterSelfTelemetry,
+    )
+    from dlrover_tpu_torch.observability.status_server import StatusServer
+
+    for other in ("DLROVER_TPU_BRAIN_DB", "DLROVER_TPU_STATUS_PORT"):
+        monkeypatch.delenv(other, raising=False)
+    value = {"DLROVER_TPU_BRAIN_DB": str(tmp_path / "brain.db"),
+             "DLROVER_TPU_STATUS_PORT": "0"}.get(name, "1")
+    monkeypatch.setenv(name, value)
+    m = LocalJobMaster(get_free_port())
+    m.prepare()
+    try:
+        if name == "DLROVER_TPU_OBSERVATORY":
+            assert isinstance(m.health_engine, HealthEngine)
+            assert m.timeline_aggregator._health is m.health_engine
+            assert isinstance(m.diagnosis_manager, DiagnosisManager)
+            assert m.diagnosis_manager._health is m.health_engine
+        elif name == "DLROVER_TPU_SELF_OBS":
+            assert isinstance(m.master_telemetry, MasterSelfTelemetry)
+            assert isinstance(m.master_health, MasterHealth)
+            assert m._servicer._telemetry is m.master_telemetry
+        elif name == "DLROVER_TPU_BRAIN_DB":
+            assert isinstance(m.control_journal, ControlPlaneJournal)
+            assert isinstance(m.timeline_aggregator._datastore,
+                              BrainDatastore)
+            assert (m.job_epoch, m.incarnation) == (1, 1)
+            assert (m._servicer.job_epoch, m._servicer.incarnation) == (1, 1)
+        else:
+            assert isinstance(m.status_server, StatusServer)
+            assert m.status_server.port > 0
+    finally:
+        m.stop()
 
 
 def test_a3c_agent_and_launcher_options_raise(client, tmp_path):

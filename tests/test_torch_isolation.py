@@ -85,7 +85,13 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "trainer.elastic.sampler", "trainer.sharding",
               "parallel.mesh", "parallel.sharding", "parallel.collectives",
               "accelerate.analyser", "accelerate.strategy",
-              "accelerate.solver"):
+              "accelerate.solver",
+              # the durable, observed master
+              "master.datastore", "master.failover", "master.stats",
+              "master.diagnosis", "observability.health",
+              "observability.self_telemetry",
+              "observability.status_server", "observability.attribution",
+              "agent.diagnosis_collector"):
         assert f"dlrover_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

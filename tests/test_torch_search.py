@@ -445,10 +445,31 @@ def test_strategy_service_respects_global_batch():
         assert 4 % (kw["data"] * kw["fsdp"]) == 0
 
 
-def test_strategy_service_durable_history_raises(monkeypatch):
-    monkeypatch.setenv("DLROVER_TPU_BRAIN_DB", "/tmp/none.db")
-    with pytest.raises(NotImplementedError, match="A3c.3a"):
-        tservice.StrategyService()
+def test_strategy_service_durable_history_raises(monkeypatch, tmp_path):
+    """With ``DLROVER_TPU_BRAIN_DB`` set the service no longer raises: a
+    fresh service reads the measurements its predecessor recorded and
+    ranks as it did."""
+    from dlrover_tpu_torch.master import datastore
+
+    monkeypatch.setenv("DLROVER_TPU_BRAIN_DB", str(tmp_path / "brain.db"))
+    monkeypatch.setattr(datastore, "_default_store", None)
+    req = dict(num_params=1_000_000, param_bytes=4_000_000,
+               optimizer_bytes=8_000_000, num_layers=4, n_devices=8)
+    try:
+        first = tservice.StrategyService()
+        cands = first.generate(tservice.StrategyRequest(**req)).candidates
+        meas = {k: v for k, v in req.items() if k != "n_devices"}
+        for i, kw in enumerate(cands[:3]):
+            first.record(tservice.StrategyMeasurement(
+                strategy=kw, step_time_s=3.0 - i, **meas))
+        want = first.generate(tservice.StrategyRequest(**req))
+        again = tservice.StrategyService().generate(
+            tservice.StrategyRequest(**req))
+        assert again.calibrated and want.calibrated
+        assert again.candidates == want.candidates
+    finally:
+        datastore._default_store.close()
+        datastore._default_store = None
 
 
 # ------------------------------------------------------- the dry runner
