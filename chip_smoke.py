@@ -13,6 +13,7 @@ card::
     python3 chip_smoke.py --ckpt-only   # build + the checkpoint leg
     python3 chip_smoke.py --skip-ckpt --ckpt-layers 2
     python3 chip_smoke.py --elastic-only  # build + the elastic leg
+    python3 chip_smoke.py --replay-only   # build + the replay phase
     python3 chip_smoke.py --skip-serve --skip-int8 --skip-ckpt \
         --skip-elastic   # kernels, training, search and remat phases
 
@@ -159,6 +160,24 @@ Phases (any failed check raises, so the script exits nonzero):
    run's step times, the preallocation and persist GB/s, and a
    ``dd``-style write of the AGD state's bytes to the same disk.  Every
    segment is unlinked and every file removed in a ``finally``.
+6b. replay phase (``--replay-only`` alone, ``--skip-replay`` leaves it
+   out), at Llama-2-7B widths and the checkpoint leg's smaller depth (2
+   layers), AGD, the
+   seeded 4 x 2048 token stream: a ``Trainer`` saves step 2 (shm and
+   disk, an in-process saver playing the agent), a second restores it
+   from shm and, with ``replay_dir`` and a state digest every step,
+   records steps 3-4.  ``trainer.replay.replay`` re-runs 3-4 with the
+   train step the ``Trainer`` ran from the restored state (kept on the
+   card) and must replay both steps with every recorded state digest
+   equal and launch B1, its backward and B2-B4 (counts zeroed just
+   before).  Two planted faults must each be caught: one token changed
+   in step 3's batch file (``corrupt_batches == [3]``, nothing run) and
+   one element of the start state one ulp up (``diverged_at == 3``).
+   Printed with the card's name and power limit: each run's seconds,
+   the seconds of each state digest (``pytree_digest``: the state to the
+   host through two pinned buffers, sha256), this host's sha256 rate,
+   and the phase's seconds.  The training rows of the kernels line carry
+   the clean replay's counts as ``replay_launches``.
 7. elastic leg (``--elastic-only`` alone): ``python -m
    dlrover_tpu_torch.run`` (a local master, the agent, one worker) runs
    ``dlrover_tpu_torch.examples.llama_pretrain`` at Llama-2-7B widths
@@ -185,7 +204,10 @@ Phases (any failed check raises, so the script exits nonzero):
    it from the journal); incarnation 2's last ``/status`` has node
    0's step-time EWMA within the ``step`` spans of steps 4-6 and no hang
    or straggler; both incarnations' ``/metrics`` hold the RPC latency
-   histogram; no process of either is left.  Its steps 4-6 (losses, grad norms) and every
+   histogram; both incarnations' ``/status`` hold the Brain's block
+   (on by default, as in the reference) and the master's timeline holds
+   no ``scale_decision`` (at world 1 with no launch capacity the Brain
+   may not drain); no process of either is left.  Its steps 4-6 (losses, grad norms) and every
    state leaf (digests) must equal the checkpoint leg's run A at this
    depth and 6 steps (uninterrupted, in this process) bit for bit; both
    incarnations must have been forked by the agent's zygote, with torch
@@ -3600,7 +3622,9 @@ def int8_path(args):
 # 4 layers at most, so that the elastic leg after it (two launcher runs
 # at 8 layers) fits in the script's time limit with room for a slower
 # machine: with this leg at 8 layers the whole script took 941.3 s of
-# its 1,200 s on an H100 80GB HBM3 at 700 W (673.5 s at 4)
+# its 1,200 s on an H100 80GB HBM3 at 700 W (673.5 s at 4), and 984.3 s
+# at 4 once the search, remat and master-kill phases came.  The replay
+# phase runs at the smaller depth
 CKPT_DEPTHS = (4, 2)
 CKPT_STEPS = 4  # run A; B stops after 2, C and D resume to 4
 
@@ -4028,6 +4052,212 @@ def ckpt_path(args):
         shutil.rmtree(sock, ignore_errors=True)
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
             False)
+    return out
+
+
+# --------------------------------------------------------- replay phase
+
+REPLAY_SAVED = 2  # N: the step the recording Trainer resumes from
+REPLAY_WINDOW = 2  # k: steps N+1..N+k recorded, each with a state digest
+REPLAY_KERNELS = ("rms_norm", "rms_norm_bwd", "flash_fwd", "flash_bwd_dkv",
+                  "flash_bwd_dq")
+
+
+def _replay_batches(start: int):
+    """The seeded stream of 4 x 2049 int32 batches, past its first
+    ``start`` draws (a batch a step, as the example's)."""
+    rng = np.random.default_rng(SEED)
+    for _ in range(start):
+        rng.integers(0, 32000, (4, 2049), dtype=np.int32)
+    while True:
+        yield {"tokens": rng.integers(0, 32000, (4, 2049), dtype=np.int32)}
+
+
+def replay_phase(args):
+    """The replay phase (the module's docstring, phase 6b); returns its
+    readings."""
+    import shutil
+    import tempfile
+
+    from dlrover_tpu_torch.accelerate import auto_accelerate
+    from dlrover_tpu_torch.agent.ckpt_saver import AsyncCheckpointSaver
+    from dlrover_tpu_torch.common import multi_process
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.models.convert import HostScalar, train_state_leaves
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.optimizers import AGD
+    from dlrover_tpu_torch.trainer import Trainer, TrainingArgs
+    from dlrover_tpu_torch.trainer import replay as replay_mod
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    L = CKPT_DEPTHS[-1]
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=L)
+    N, k = REPLAY_SAVED, REPLAY_WINDOW
+    log(f"[replay] {card} | Llama-2-7B widths at {L} layers (the checkpoint "
+        f"leg's smaller depth), AGD, 4 x 2048 tokens a step: a Trainer "
+        f"saves step {N}, a second resumes from it with replay_dir and "
+        f"records steps {N + 1}-{N + k} with a state digest after each")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    root = os.path.join(repo, "build", f"replay_smoke_{os.getpid()}")
+    os.makedirs(root)
+    sock = tempfile.mkdtemp(prefix="dtr", dir="/tmp")
+    os.environ[multi_process.SOCKET_DIR_ENV] = sock
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        args.bf16_reduced_default)
+    digests = []  # (seconds, state?) of each pytree_digest of the phase
+    digest = replay_mod.pytree_digest
+
+    def timed_digest(tree):
+        t = time.perf_counter()
+        out = digest(tree)
+        digests.append((time.perf_counter() - t, "params" in tree))
+        return out
+
+    replay_mod.pytree_digest = timed_digest
+    factory = AsyncCheckpointSaver.start_async_saving_ckpt(
+        install_signal_handlers=False)
+    out = {}
+    try:
+        result = auto_accelerate(
+            loss_fn=lambda p, b: llama.loss_fn(p, b, cfg),
+            optimizer=lambda ps: AGD(ps, lr=3e-4),
+            init_params_fn=lambda gen, dev: llama.init_params(
+                cfg, gen, dev, dtype=torch.float32),
+            device="cuda")
+        ckpt = os.path.join(root, "ckpt")
+        rdir = os.path.join(root, "replay")
+        trainers = []
+
+        def data_iter():
+            return _replay_batches(trainers[-1].progress.global_step)
+
+        t1 = Trainer(result, TrainingArgs(
+            max_steps=N, log_interval=0, checkpoint_dir=ckpt,
+            save_memory_interval=N, save_storage_interval=N), data_iter)
+        trainers.append(t1)
+        t_run = time.perf_counter()
+        t1.train()
+        log(f"[replay] saving run: steps 1-{N} and the persist of step "
+            f"{N} in {time.perf_counter() - t_run:.3f} s")
+        del t1, trainers[:]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t2 = Trainer(result, TrainingArgs(
+            max_steps=N + k, log_interval=0, checkpoint_dir=ckpt,
+            save_memory_interval=1000, save_storage_interval=1000,
+            replay_dir=rdir, replay_digest_interval=1), data_iter)
+        trainers.append(t2)
+        start = t2.restore()
+        restore = t2.checkpoint_engine.io_log[:1]
+        require(start == N and restore and restore[0][0] == "restore_shm",
+                f"the recording Trainer restored {restore}, not step {N} "
+                "from shm")
+        leaves = train_state_leaves(t2.state)
+        # the restored state at N, kept on the card for each replay
+        saved = [v.detach().clone() if torch.is_tensor(v) else v.get()
+                 for _, v in leaves]
+
+        def reset(nudge=False):
+            with torch.no_grad():
+                for (_, v), w in zip(leaves, saved):
+                    if isinstance(v, HostScalar):
+                        v.set(w)
+                    else:
+                        v.copy_(w)
+                if nudge:
+                    # one element one ulp up: the faulted start state
+                    w = t2.state["params"]["layers"]["wq"].view(-1)[:1]
+                    w.copy_(torch.nextafter(w, torch.full_like(w, 1e30)))
+
+        t_rec = time.perf_counter()
+        t2.train()
+        rec_s = time.perf_counter() - t_rec
+        rank_dir = os.path.join(rdir, "rank00000")
+        journal = replay_mod._load_journal(rank_dir)
+        recorded = {s: e for s, e in journal.items()
+                    if "state_digest" in e}
+        log(f"[replay] recording run: steps {N + 1}-{N + k} in "
+            f"{rec_s:.3f} s (its final persist included); journal steps "
+            f"{sorted(journal)}, state digests at {sorted(recorded)}")
+        require(sorted(recorded) == list(range(N + 1, N + k + 1)),
+                f"the journal holds state digests at {sorted(recorded)}")
+        train_step = result.fns.train_step
+
+        # planted fault 1: one token changed in the batch file of N+1
+        path = replay_mod._batch_path(rank_dir, N + 1)
+        shutil.copy(path, path + ".orig")
+        with np.load(path) as data:
+            batch = {key: data[key].copy() for key in data.files}
+        batch["tokens"][0, 0] = (batch["tokens"][0, 0] + 1) % 32000
+        np.savez(path, **batch)
+        reset()
+        bad = replay_mod.replay(rank_dir, train_step, t2.state, N + 1, N + k)
+        os.replace(path + ".orig", path)
+        log(f"[replay] planted fault, one token of step {N + 1}'s batch "
+            f"file changed: corrupt_batches {bad.corrupt_batches}, "
+            f"replayed {bad.replayed_steps}")
+        require(bad.corrupt_batches == [N + 1] and not bad.replayed_steps,
+                "the replay does not see a changed token")
+
+        reset()
+        _build.reset_launches()
+        t_rep = time.perf_counter()
+        rep = replay_mod.replay(rank_dir, train_step, t2.state, N + 1, N + k)
+        torch.cuda.synchronize()
+        rep_s = time.perf_counter() - t_rep
+        counts = {key: v for key, v in _build.launches.items() if v}
+        log(f"[replay] replay of steps {N + 1}-{N + k}: replayed "
+            f"{rep.replayed_steps}, diverged_at {rep.diverged_at}, missing "
+            f"{rep.missing_batches}, corrupt {rep.corrupt_batches}, "
+            f"{rep_s:.3f} s; launches {counts}")
+        require(rep.replayed_steps == list(range(N + 1, N + k + 1))
+                and rep.diverged_at is None and rep.complete,
+                "the replay is not the recorded window bit for bit")
+        require(all(counts.get(key, 0) > 0 for key in REPLAY_KERNELS),
+                f"the replay launched none of some of {REPLAY_KERNELS}")
+        out["launches"] = counts
+
+        reset(nudge=True)
+        nudged = replay_mod.replay(rank_dir, train_step, t2.state, N + 1,
+                                   N + k)
+        log(f"[replay] planted fault, one element of the start state's "
+            f"['params']['layers']['wq'] one ulp up: diverged_at "
+            f"{nudged.diverged_at}, replayed {nudged.replayed_steps}")
+        require(nudged.diverged_at == N + 1,
+                "the replay does not see a start state one ulp off")
+        del t2, trainers[:], leaves, saved
+    finally:
+        replay_mod.pytree_digest = digest
+        saver = AsyncCheckpointSaver.get_ckpt_saver()
+        if saver is not None:
+            saver.close(unlink=True)
+        AsyncCheckpointSaver._instance = None
+        factory.close()
+        shutil.rmtree(root, ignore_errors=True)
+        shutil.rmtree(sock, ignore_errors=True)
+        os.environ.pop(multi_process.SOCKET_DIR_ENV, None)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+            False)
+        gc.collect()
+        torch.cuda.empty_cache()
+    state_s = [s for s, is_state in digests if is_state]
+    out["digest_s"] = state_s
+    import hashlib
+
+    block = np.zeros(1 << 30, dtype=np.uint8)
+    t = time.perf_counter()
+    hashlib.sha256(block).hexdigest()
+    sha_gbps = block.nbytes / 1e9 / (time.perf_counter() - t)
+    del block
+    log(f"[replay] this host's sha256 of 1 GiB: {sha_gbps:.3f} GB/s (a "
+        "digest's bytes all pass through it, on one core)")
+    out["phase_s"] = time.perf_counter() - t_phase
+    log(f"[replay] {card} | state digests (the whole state to the host, "
+        f"sha256): {len(state_s)}, {statistics.mean(state_s):.3f} s each "
+        f"(min {min(state_s):.3f}, max {max(state_s):.3f}); the phase "
+        f"{out['phase_s']:.3f} s")
     return out
 
 
@@ -4630,6 +4860,17 @@ def master_failover_reading(r, master):
         and min(spans) - 1e-6 <= ewma <= max(spans) + 1e-6
         and not health.get("hangs") and not health.get("stragglers")
         and not {"hang", "straggler"} & set(problems))
+    # the Brain runs in every master by default: at world 1 with no
+    # launch capacity it may decide nothing
+    brain = {n: master.status.get(n, {}).get("brain") for n in (1, 2)}
+    decisions = [e for e in read_events(master.events)
+                 if e["name"] in ("scale_decision", "scale_execute")]
+    checks["both incarnations' /status hold the Brain's block, and the "
+           "master's timeline no scale_decision"] = bool(
+        all(isinstance(b, dict) and "in_flight" in b
+            for b in brain.values()) and not decisions)
+    lines.append(f"the Brain on /status: {brain}; scale events "
+                 f"{[e['labels'] for e in decisions]}")
     checks["/metrics of both incarnations holds the RPC latency "
            "histogram"] = all(
         "dlrover_tpu_master_rpc_latency_seconds_bucket"
@@ -4874,6 +5115,10 @@ def main() -> int:
     ap.add_argument("--ckpt-layers", type=int, default=0,
                     help="depth of both checkpoint legs (default: the "
                     f"largest of {CKPT_DEPTHS} whose two shm slots fit)")
+    ap.add_argument("--skip-replay", action="store_true",
+                    help="leave out the replay phase")
+    ap.add_argument("--replay-only", action="store_true",
+                    help="only the build and the replay phase")
     ap.add_argument("--skip-elastic", action="store_true",
                     help="leave out the elastic-launch leg")
     ap.add_argument("--elastic-only", action="store_true",
@@ -4931,6 +5176,10 @@ def main() -> int:
         elastic_path(args)
         log(smi_line())
         return 0
+    if args.replay_only:
+        replay_phase(args)
+        log(smi_line())
+        return 0
     kernel_checks()
     flash_checks()
     rows = ring_phase()
@@ -4955,6 +5204,12 @@ def main() -> int:
         rows += int8_path(args)
     if not (args.kernels_only or args.skip_ckpt):
         ckpt_path(args)
+    if not (args.kernels_only or args.skip_replay):
+        replay = replay_phase(args)
+        for row in rows:
+            key = ELASTIC_ROWS.get(row["name"])
+            if key is not None:
+                row["replay_launches"] = replay["launches"].get(key, 0)
     if not (args.kernels_only or args.skip_elastic):
         elastic = elastic_path(args)
         for row in rows:

@@ -2,7 +2,12 @@
 
 Copy of ``dlrover_tpu/agent/ckpt_saver.py``.  It persists the port's
 shared-memory shards (``agent/ckpt_shm.py``) in the ``.drckpt`` format
-both packages read.
+both packages read.  One change: a factory request from a worker of a
+new world updates the existing saver's global shard count, and
+rebuilds the saver where the node's index in the world moved (the
+reference keeps the first world's saver, so after a shrink node 0's
+commits wait for done files of nodes that left, and a survivor that
+became node 0 never commits).
 
 Reference parity: ``dlrover/python/elastic_agent/torch/ckpt_saver.py:345``
 (AsyncCheckpointSaver + CommonDirCheckpointSaver): lives in the *agent*
@@ -471,8 +476,33 @@ class AsyncCheckpointSaver:
                     continue
                 except Exception:  # queue closed
                     return
-                if cls._instance is not None:
-                    logger.info("ckpt saver already exists; skip")
+                have = (cls._instance.config
+                        if cls._instance is not None else None)
+                if have is not None and (
+                        have.node_rank, have.local_shard_num) != (
+                        config.node_rank, config.local_shard_num):
+                    # the node's place in the world moved (a node before
+                    # it left): its shards have new global ranks, so the
+                    # saver serves new segments and sockets.  The old
+                    # segments hold the old world's ranks, which no
+                    # worker of this node reads again
+                    logger.info(
+                        "ckpt saver: node rank %d, was %d; rebuilding",
+                        config.node_rank, have.node_rank)
+                    old, cls._instance = cls._instance, None
+                    old.close(unlink=True)
+                elif have is not None:
+                    if have.global_shard_num != config.global_shard_num:
+                        # the world changed under this agent (an elastic
+                        # re-mesh after a peer drained): a commit waits
+                        # for the new world's nodes, not the old one's
+                        logger.info(
+                            "ckpt saver: world of %d shards, was %d",
+                            config.global_shard_num,
+                            have.global_shard_num)
+                        have.global_shard_num = config.global_shard_num
+                    else:
+                        logger.info("ckpt saver already exists; skip")
                     continue
                 saver = cls(config)
                 saver.start()

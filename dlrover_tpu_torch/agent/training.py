@@ -342,6 +342,7 @@ class ElasticTrainingAgent:
         world_size: int,
         process_rank: int,
         local_rank: int,
+        node_index: int,
     ) -> Dict[str, str]:
         env = dict(os.environ)
         env.update(self._config.envs)
@@ -349,6 +350,7 @@ class ElasticTrainingAgent:
             {
                 NodeEnv.MASTER_ADDR: self._client.addr,
                 NodeEnv.NODE_RANK: str(self._node_rank),
+                NodeEnv.NODE_INDEX: str(node_index),
                 NodeEnv.PROCESS_RANK: str(process_rank),
                 NodeEnv.PROCESS_COUNT: str(world_size),
                 NodeEnv.LOCAL_RANK: str(local_rank),
@@ -429,7 +431,8 @@ class ElasticTrainingAgent:
         self._procs = []
         for local_rank, process_rank in enumerate(process_ids):
             env = self._worker_env(
-                rdzv_round, coordinator, world_size, process_rank, local_rank
+                rdzv_round, coordinator, world_size, process_rank,
+                local_rank, node_index,
             )
             if self._zygote is not None:
                 proc = self._zygote.spawn(self._entrypoint, env)

@@ -173,6 +173,10 @@ class NodeEnv:
     JOB_NAME = "DLROVER_TPU_JOB_NAME"
     NODE_ID = "DLROVER_TPU_NODE_ID"
     NODE_RANK = "DLROVER_TPU_NODE_RANK"
+    # the node's index in this round's world (the order that assigns
+    # process ranks): the checkpoint engine's node rank, which the node
+    # rank is not once a node before it has left the world
+    NODE_INDEX = "DLROVER_TPU_NODE_INDEX"
     NODE_NUM = "DLROVER_TPU_NODE_NUM"
     NODE_TYPE = "DLROVER_TPU_NODE_TYPE"
     # training-process side

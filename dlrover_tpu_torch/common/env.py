@@ -38,6 +38,12 @@ def get_node_rank() -> int:
     return _get_int(NodeEnv.NODE_RANK, get_node_id())
 
 
+def get_node_index() -> int:
+    """The node's index in this rendezvous round's world (set by the
+    agent); the node rank where no agent set it."""
+    return _get_int(NodeEnv.NODE_INDEX, get_node_rank())
+
+
 def get_process_rank() -> int:
     return _get_int(NodeEnv.PROCESS_RANK, 0)
 
@@ -263,16 +269,43 @@ def profile_enabled() -> bool:
 
 
 BRAIN_ENV = "DLROVER_TPU_BRAIN"
+BRAIN_INTERVAL_ENV = "DLROVER_TPU_BRAIN_INTERVAL_S"
+BRAIN_COOLDOWN_ENV = "DLROVER_TPU_BRAIN_COOLDOWN_S"
+BRAIN_SUSTAIN_ENV = "DLROVER_TPU_BRAIN_SUSTAIN"
 
 
 def brain_enabled() -> bool:
-    """Switch of the Brain (the observatory-fed optimizer, auto-scaler
-    and planned-action executor).  Not ported yet: on, the master
-    raises ``NotImplementedError`` naming ROADMAP A3c.3c.  Default in
-    the port: off; the JAX package's default is on."""
-    return os.getenv(BRAIN_ENV, "0").lower() not in (
+    """Kill-switch for the autonomy loop: the observatory-fed Brain
+    (``master/resource_optimizer.ObservatoryBrainOptimizer`` +
+    ``master/auto_scaler.BrainAutoScaler`` + the planned-action
+    executor in ``master/brain.py``), its node directives riding the
+    ``WaitingNodeNum`` response, its journal component, and the
+    ``scale_decision``/``scale_execute`` telemetry.
+    ``DLROVER_TPU_BRAIN=0`` leaves the master without it: no
+    directives on the wire, nothing journaled.  Default: enabled, as
+    in the reference."""
+    return os.getenv(BRAIN_ENV, "1").lower() not in (
         "0", "false", "off",
     )
+
+
+def brain_interval_s() -> float:
+    """Cadence of the Brain decision cycle."""
+    return env_float(BRAIN_INTERVAL_ENV, 30.0)
+
+
+def brain_cooldown_s() -> float:
+    """Minimum quiet time after an executed decision before the next
+    same-direction decision; opposite-direction decisions wait twice
+    this (hysteresis)."""
+    return env_float(BRAIN_COOLDOWN_ENV, 120.0)
+
+
+def brain_sustain_cycles() -> int:
+    """Consecutive decision cycles a signal (straggler verdict, hang
+    verdict, chronic stall share) must persist before the Brain acts
+    on it: one noisy snapshot is not a verdict."""
+    return max(int(env_float(BRAIN_SUSTAIN_ENV, 2.0)), 1)
 
 
 SELF_OBS_ENV = "DLROVER_TPU_SELF_OBS"

@@ -44,6 +44,26 @@ incarnation (``DLROVER_TPU_RESTART_COUNT=0``) once step N's snapshot is
 in shared memory: the fault the elastic launch recovers from.  The
 hook runs before step N + 1 on the training thread (the data iterator
 runs ahead on the prefetch's thread).
+
+``--step_sleep S --slow_from_step N --slow_rank R --slow_factor F`` is
+the sleep fault of the reference's harness
+(``scripts/goodput_train.py``,
+``GOODPUT_STEP_SLEEP``/``_SLOW_AFTER``/``_SLOW_FACTOR``): after each
+train step every rank sleeps ``S`` seconds of simulated work, and the
+ranks of node ``R`` sleep ``F * S`` from step ``N`` on: a node that
+turned slow mid-run (it stays slow where a re-mesh gives it new ranks),
+which the step barrier makes the whole world wait for, and which the
+master's health engine sees in its ``step`` spans.
+``--state_digests`` adds ``trainer.fault_tolerance.pytree_digest`` of
+the state to the report: after the restore (``restored``) and at every
+snapshot taken in drain mode (``drain_digests``, by step), so that a
+state restored after a drain can be held against the state the drained
+world had at that step; the report is then written at every snapshot.
+``--digest_from_step N`` also digests every snapshot of the first
+incarnation from step N on (``snapshot_digests``): a witness of each
+step the world may restore after a drain.  The ranks meet after such a
+digest, and the next ``step`` span starts there: the digest is this
+harness's reading, not the step's work.
 """
 
 import time
@@ -112,6 +132,20 @@ def parse_args(argv=None):
     p.add_argument("--report_dir", default="")
     p.add_argument("--crash_after_step", type=int, default=0)
     p.add_argument("--crash_rank", type=int, default=0)
+    p.add_argument("--step_sleep", type=float, default=0.0,
+                   help="seconds every rank sleeps after each step")
+    p.add_argument("--slow_from_step", type=int, default=0,
+                   help="from this step on, node --slow_rank sleeps "
+                   "--slow_factor times --step_sleep (0 = never)")
+    p.add_argument("--slow_rank", type=int, default=1,
+                   help="the node rank that turns slow")
+    p.add_argument("--slow_factor", type=float, default=1.0)
+    p.add_argument("--state_digests", action="store_true",
+                   help="report pytree_digest of the restored state and "
+                   "of every state snapshotted in drain mode")
+    p.add_argument("--digest_from_step", type=int, default=0,
+                   help="with --state_digests, also digest every snapshot "
+                   "of the first incarnation from this step on (0 = none)")
     p.add_argument("--data", type=int, default=-1,
                    help="data-parallel ranks (-1: the world over --fsdp)")
     p.add_argument("--fsdp", type=int, default=1,
@@ -333,6 +367,56 @@ def main(argv=None, strategy=None):
 
         result.fns.train_step = crashing_step
 
+    if args.step_sleep > 0:
+        inner_step = result.fns.train_step
+        slow = ctx.node_rank == args.slow_rank and args.slow_from_step > 0
+
+        def sleeping_step(state, batch):
+            step = state["step"] + 1
+            out = inner_step(state, batch)
+            factor = (max(args.slow_factor, 1.0)
+                      if slow and step >= args.slow_from_step else 1.0)
+            time.sleep(args.step_sleep * factor)
+            return out
+
+        result.fns.train_step = sleeping_step
+
+    callbacks = []
+    if args.state_digests and report:
+        from dlrover_tpu_torch.trainer.callbacks import TrainerCallback
+        from dlrover_tpu_torch.trainer.drain import drain_requested
+        from dlrover_tpu_torch.trainer.fault_tolerance import pytree_digest
+
+        witness = args.digest_from_step > 0 and ctx.restart_count == 0
+
+        class StateDigests(TrainerCallback):
+            """Digest each drain-mode snapshot (and, from
+            ``--digest_from_step`` on, each of the first incarnation);
+            write the report at every snapshot (a worker the agent stops
+            writes no other)."""
+
+            def on_save(self, step, storage):
+                keys = []
+                if drain_requested():
+                    keys.append("drain_digests")
+                if witness and step >= args.digest_from_step:
+                    keys.append("snapshot_digests")
+                if keys:
+                    digest = pytree_digest(trainer.state)
+                    for key in keys:
+                        report.data.setdefault(key, {})[str(step)] = digest
+                # before the ranks meet: a peer that left fails the
+                # barrier, and the digest must be on disk by then
+                report.write(trainer)
+                if "snapshot_digests" in keys:
+                    # every rank digests this step: the ranks meet again
+                    # after it (a slower digest would sit in its peer's
+                    # next step), and the next step span starts after it
+                    trainer._couple_ranks()
+                    trainer.progress.restart_step_clock()
+
+        callbacks.append(StateDigests())
+
     def eval_iter():
         # fixed held-out set (seeded separately from training data)
         eval_rng = np.random.default_rng(12345)
@@ -350,10 +434,16 @@ def main(argv=None, strategy=None):
                      save_storage_interval=args.save_storage_interval),
         data_iter,
         eval_iter_fn=eval_iter,
+        callbacks=callbacks,
     )
     if report:
         report.data["marks"]["trainer_built"] = time.time()
-    trainer.restore()
+    restored = trainer.restore()
+    if args.state_digests and report:
+        from dlrover_tpu_torch.trainer.fault_tolerance import pytree_digest
+
+        report.data["restored"] = {"step": restored,
+                                   "digest": pytree_digest(trainer.state)}
     _build.reset_launches()  # count this incarnation's steps only
     summary = trainer.train()
     if report:

@@ -1,9 +1,10 @@
 """Master failover: durable control-plane journaling and replay.
 
 Copy of ``dlrover_tpu/master/failover.py``: the same journal ops, so
-either package's master replays a db the other wrote.  The Brain and
-the deep-capture components stay None in the port (ROADMAP A3c.3c and
-A7); ``attach`` skips a None component.
+either package's master replays a db the other wrote.  The Brain
+(``master/auto_scaler.BrainAutoScaler``) journals under ``brain``; the
+deep-capture component stays None in the port (ROADMAP A7), and
+``attach`` skips a None component.
 
 A master crash must not be a job crash (ROADMAP item 1; DLRover's
 ElasticJob controller recreates a failed master pod and agents simply

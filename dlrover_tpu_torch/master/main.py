@@ -55,6 +55,11 @@ def run(args) -> int:
     from dlrover_tpu_torch.common.env import get_free_port
     from dlrover_tpu_torch.master.master import LocalJobMaster
 
+    # before the environment is touched: a refused platform leaves the
+    # caller's environment as it was
+    if args.platform != "local":
+        raise NotImplementedError(
+            f"the {args.platform} master is not ported yet: ROADMAP A3c.3d")
     if args.brain_db:
         os.environ["DLROVER_TPU_BRAIN_DB"] = args.brain_db
     if args.workers:
@@ -67,9 +72,6 @@ def run(args) -> int:
     os.environ.setdefault("DLROVER_TPU_JOB_NAME", args.job_name)
 
     port = args.port or get_free_port()
-    if args.platform != "local":
-        raise NotImplementedError(
-            f"the {args.platform} master is not ported yet: ROADMAP A3c.3d")
     master = LocalJobMaster(port, args.node_num)
     master.prepare()
     logger.info("job %s master listening on %s", args.job_name,

@@ -3,18 +3,21 @@
 Copy of ``dlrover_tpu/master/master.py`` (``JobMaster`` :39,
 ``LocalJobMaster`` :380, ``run_local_master`` :496): the durable master
 (the Brain datastore that ``DLROVER_TPU_BRAIN_DB`` opens, the failover
-journal and its replay, fencing by ``(job_epoch, incarnation)``) and the
+journal and its replay, fencing by ``(job_epoch, incarnation)``), the
 observatory (``HealthEngine``, ``MasterSelfTelemetry`` and
-``MasterHealth``, the diagnosis chain, the ``--status_port`` server),
-each behind the reference's switch and default.  Not ported yet: the
-Brain (``DLROVER_TPU_BRAIN``: ``auto_scaler``, ``brain``,
-``resource_optimizer``, ROADMAP A3c.3c), the live profiler's deep-capture
+``MasterHealth``, the diagnosis chain, the ``--status_port`` server)
+and the Brain (``BrainAutoScaler`` over the health engine, journaled
+under the journal's ``brain`` component), each behind the reference's
+switch and default.  Not ported yet: the live profiler's deep-capture
 coordinator (``DLROVER_TPU_PROFILE``, ROADMAP A7) and the distributed
-master (k8s / ray scalers, ROADMAP A3c.3d).  Those two switches default
-to off in the port (``common/env.py``); one turned on makes
-``JobMaster`` raise ``NotImplementedError`` naming its item rather than
-run without it.  The journal's Brain and capture components stay None,
-as the reference's are with those switches off.
+master (k8s / ray scalers and ``AllreduceAutoScaler``, ROADMAP
+A3c.3d).  The profiler's switch defaults to off in the port
+(``common/env.py``); turned on, it makes ``JobMaster`` raise
+``NotImplementedError`` naming its item rather than run without it.
+The journal's capture component stays None, as the reference's is with
+that switch off.  This master has no scaler: its Brain drains and
+shrinks, and never grows (no launch capacity), as the reference's
+local master.
 
 Reference parity: ``dlrover/python/master/local_master.py``.
 """
@@ -51,14 +54,12 @@ _ctx = Context.singleton_instance()
 
 def later_subsystems_on():
     """The master subsystems not ported yet whose switch is on (the
-    port's defaults leave both off)."""
+    port's default leaves it off)."""
     from dlrover_tpu_torch.common import env
 
     switches = (
         ("the live profiler and deep capture (DLROVER_TPU_PROFILE) is "
          "not ported yet: ROADMAP A7", env.profile_enabled()),
-        ("the Brain (DLROVER_TPU_BRAIN) is not ported yet: ROADMAP A3c.3c",
-         env.brain_enabled()),
     )
     return [name for name, on in switches if on]
 
@@ -70,6 +71,7 @@ class JobMaster:
         import os
 
         from dlrover_tpu_torch.common.env import (
+            brain_enabled,
             master_workers,
             observatory_enabled,
             self_obs_enabled,
@@ -154,9 +156,34 @@ class JobMaster:
             capture=self.capture_coordinator,
             master_health=self.master_health,
         )
-        # the Brain is ROADMAP A3c.3c: None, as the reference's is
-        # under DLROVER_TPU_BRAIN=0
+        # the autonomy loop: observatory signals -> hysteresis-guarded
+        # BrainDecision -> ONE planned action (cooperative drain
+        # directive + fence + reshard re-mesh).  None under
+        # DLROVER_TPU_BRAIN=0 or with the observatory off.
         self.brain = None
+        if brain_enabled() and self.health_engine is not None:
+            from dlrover_tpu_torch.master.auto_scaler import BrainAutoScaler
+            from dlrover_tpu_torch.master.brain import (
+                BrainExecutor,
+                NodeDirectives,
+            )
+            from dlrover_tpu_torch.master.resource_optimizer import (
+                ObservatoryBrainOptimizer,
+            )
+
+            self.brain = BrainAutoScaler(
+                ObservatoryBrainOptimizer(),
+                BrainExecutor(
+                    rdzv_manager=self.rdzv_managers[
+                        RendezvousName.ELASTIC_TRAINING
+                    ],
+                    directives=NodeDirectives(),
+                    job_manager=self.job_manager,
+                ),
+                health_engine=self.health_engine,
+                timeline_aggregator=self.timeline_aggregator,
+                job=self._job_name,
+            )
         #: plain-HTTP /metrics + /status (off unless --status_port)
         self.status_server = None
         self.speed_monitor.set_target_worker_num(node_num)
@@ -264,6 +291,8 @@ class JobMaster:
         self.task_manager.start()
         self.job_manager.start()
         self.diagnosis_manager.start()
+        if self.brain is not None:
+            self.brain.start()
         self._start_status_server(servicer)
         logger.info("master serving on port %s", self._port)
 
@@ -340,6 +369,8 @@ class JobMaster:
         self.task_manager.stop()
         self.job_manager.stop()
         self.diagnosis_manager.stop()
+        if self.brain is not None:
+            self.brain.stop()
         if self.status_server is not None:
             self.status_server.stop()
             self.status_server = None

@@ -1,7 +1,11 @@
 """The job observatory: streaming health derivation from the timeline.
 
 Copy of ``dlrover_tpu/observability/health.py`` (``dominant_category``
-comes from the port's ``observability/attribution.py``).
+comes from the port's ``observability/attribution.py``), with one
+change: of two nodes, the straggler score's across-node median is the
+faster node's EWMA (the reference's upper middle is the slow node's
+own, so no verdict could brand it); at any other count it is the
+reference's.
 
 PR-1 gave every process a structured event timeline and PR-5 batched
 the agent->master reporting path — but nothing consumed them *live*:
@@ -401,6 +405,11 @@ class HealthEngine:
         )
         if not ewmas:
             return 0.0
+        if len(ewmas) == 2:
+            # of two nodes the reference's upper middle is the slow
+            # node's own EWMA, which hides it from its own verdict: the
+            # faster node is the yardstick
+            return ewmas[0]
         return ewmas[len(ewmas) // 2]
 
     #: open-span suppression expires after this many watchdog windows

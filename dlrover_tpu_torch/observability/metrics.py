@@ -146,6 +146,11 @@ class MetricsRegistry:
         with self._lock:
             self._metrics[key] = self._metrics.get(key, 0.0) + value
 
+    def observe_duration(self, name: str, seconds: float, labels=None):
+        """Simple duration tracking: _sum/_count pair."""
+        self.inc_counter(name + "_seconds_sum", seconds, labels)
+        self.inc_counter(name + "_count", 1.0, labels)
+
     def get(self, name: str, labels=None, default: float = 0.0) -> float:
         with self._lock:
             return self._metrics.get(self._key(name, labels), default)

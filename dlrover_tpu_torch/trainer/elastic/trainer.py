@@ -159,6 +159,14 @@ class ElasticTrainer:
             except ConnectionError:
                 pass
 
+    def restart_step_clock(self):
+        """Start the next ``step`` span now (the trainer calls it after
+        the ranks' step barrier): what came before it, a wait for a
+        slower peer, is not this rank's step time."""
+        if self._step_mark is not None:
+            now_m = time.monotonic()
+            self._step_mark = (anchored_now(now_m), now_m)
+
     def _write_chip_stats(self, now: float):
         path = os.getenv(CHIP_STATS_ENV, "")
         stats = card_stats(self._device) if path else None

@@ -6,11 +6,17 @@ Port of ``dlrover_tpu/trainer/trainer.py`` (``TrainingArgs`` :36-80,
 ``Trainer`` :83, the restart overlap :131-166, ``_init_or_restore_state``
 :255-305, ``_resolve_snapshot_mode`` :315-349, ``_maybe_checkpoint``
 :361-411, ``_consume_metrics`` :413-433, ``evaluate`` :565-618,
-``train`` :619-860) without what later slices bring: replay
-(``replay_dir``: ROADMAP A3c.7); the resident profiler, the metrics
-exporter and sparse tables (``trace_interval``, ``metrics_port``,
-``sparse_tables``: A7).  Setting one of those raises
-``NotImplementedError`` rather than doing nothing.
+``train`` :619-860), with the reference's callbacks (``callbacks``:
+``on_train_begin``, ``on_step_end`` when a step's metrics are read,
+``on_save``, ``on_eval``, ``on_train_end``; ``trainer/callbacks.py``),
+its replay recorder (``replay_dir``: each step's batch recorded before
+the step, the state's digest after every ``replay_digest_interval``-th;
+``trainer/replay.py``) and its loss-spike capture
+(``capture_loss_spikes``), without what a later slice brings: the
+resident profiler, the metrics exporter and sparse tables
+(``trace_interval``, ``metrics_port``, ``sparse_tables``: ROADMAP A7).
+Setting one of those raises ``NotImplementedError`` rather than doing
+nothing.
 
 Under the elastic launch (``python -m dlrover_tpu_torch.run``) the
 ``Trainer`` joins the agent's world (``init_distributed`` on the train
@@ -83,6 +89,8 @@ read appends ``{"step", "loss", "grad_norm", "step_time_s"}`` to
 
 import collections
 import logging
+import os
+import tempfile
 import time
 from dataclasses import dataclass
 from typing import Callable, Iterable, Optional
@@ -93,7 +101,6 @@ logger = logging.getLogger(__name__)
 
 # option -> the ROADMAP slice that brings it
 _LATER = {
-    "replay_dir": "A3c.7 (replay)",
     "trace_interval": "A7 (device-side observability)",
     "metrics_port": "A7 (device-side observability)",
     "sparse_tables": "A7 (sparse tables)",
@@ -117,8 +124,18 @@ class TrainingArgs:
     # background), "staged" (the step waits for the copy to host
     # memory) or "auto" (see _resolve_snapshot_mode)
     snapshot_mode: str = "auto"
-    # not ported yet: setting any of these raises (see _LATER)
+    # record steps (``spike_<step>.npz`` + ``spikes.jsonl``) whose loss
+    # stands out of the recent window, in spike_dir (default:
+    # <checkpoint_dir or the temp dir>/spikes)
+    capture_loss_spikes: bool = False
+    spike_dir: str = ""
+    # deterministic-replay flight recorder (trainer/replay.py): batches
+    # ring-logged every step under <replay_dir>/rank<r>, state digests
+    # every replay_digest_interval steps (a digest copies the whole
+    # state to the host: keep the interval coarse; <= 0: batches only)
     replay_dir: str = ""
+    replay_digest_interval: int = 50
+    # not ported yet: setting any of these raises (see _LATER)
     trace_interval: int = 0
     metrics_port: int = 0
     sparse_tables: Optional[dict] = None
@@ -132,19 +149,25 @@ class Trainer:
         data_iter_fn: Callable[[], Iterable],
         eval_iter_fn: Optional[Callable[[], Iterable]] = None,
         rng_seed: int = 0,
+        callbacks=None,
     ):
         """``data_iter_fn()`` returns a fresh iterator of host batches
         (dicts of numpy arrays or tensors); ``eval_iter_fn`` enables
-        ``evaluate()`` and the ``eval_interval`` cadence."""
+        ``evaluate()`` and the ``eval_interval`` cadence; ``callbacks``
+        is a list of ``trainer.callbacks.TrainerCallback``."""
         for name, slice_ in _LATER.items():
             if getattr(args, name):
                 raise NotImplementedError(
                     f"TrainingArgs.{name} is not ported yet: ROADMAP "
                     f"{slice_}"
                 )
+        from dlrover_tpu_torch.trainer.callbacks import CallbackList
         from dlrover_tpu_torch.trainer.elastic import (
             ElasticTrainer,
             init_distributed,
+        )
+        from dlrover_tpu_torch.trainer.fault_tolerance import (
+            LossSpikeCapture,
         )
 
         self._result = accelerate_result
@@ -160,6 +183,19 @@ class Trainer:
         self._data_iter_fn = data_iter_fn
         self._eval_iter_fn = eval_iter_fn
         self._rng_seed = rng_seed
+        self._callbacks = CallbackList(callbacks)
+        self._replay = None
+        if args.replay_dir:
+            from dlrover_tpu_torch.trainer.replay import ReplayRecorder
+
+            self._replay = ReplayRecorder(os.path.join(
+                args.replay_dir, f"rank{self._ctx.rank:05d}"))
+        self._spikes = (
+            LossSpikeCapture(
+                args.spike_dir or os.path.join(
+                    args.checkpoint_dir or tempfile.gettempdir(), "spikes"))
+            if args.capture_loss_spikes else None
+        )
         self.state = None
         self.history = []
         self._last_done = None  # a CUDA event or a host time
@@ -198,7 +234,7 @@ class Trainer:
                 checkpoint_dir=args.checkpoint_dir,
                 process_rank=env.get_process_rank(),
                 process_count=env.get_process_count(),
-                node_rank=env.get_node_rank(),
+                node_rank=env.get_node_index(),
                 local_shard_num=env.get_local_process_count(),
             )
             # the restart critical path: start staging the restore's
@@ -361,6 +397,7 @@ class Trainer:
             "step": step, "mode": self._snapshot_mode,
             "storage": to_storage, "saved": saved,
             "host_s": time.perf_counter() - t0})
+        self._callbacks.on_save(step, storage=to_storage)
 
     def _snapshot_buffers(self):
         from dlrover_tpu_torch.agent.ckpt_shm import _flatten_keyed
@@ -417,6 +454,7 @@ class Trainer:
             import torch.distributed as dist
 
             dist.barrier(group=self._ctx.host_group)
+            self.progress.restart_step_clock()
 
     def _prefetch(self, iterator):
         """The pass's batches on the card: the rank's rows, copied on a
@@ -445,7 +483,7 @@ class Trainer:
         else:
             self._last_done = time.perf_counter()
 
-    def _consume_metrics(self, step: int, metrics) -> float:
+    def _consume_metrics(self, step: int, metrics, batch=None) -> float:
         done = metrics.get("done")
         if done is not None:
             done.synchronize()  # the whole step, optimizer included
@@ -457,10 +495,13 @@ class Trainer:
             self._last_done = now
         loss = float(metrics["loss"])
         self.marks.setdefault("first_step_done", time.time())
-        record = {"step": step, "loss": loss, "step_time_s": dt}
+        if self._spikes is not None:
+            self._spikes.observe(step, loss, batch)
+        record = {"loss": loss, "step_time_s": dt}
         if "grad_norm" in metrics:
             record["grad_norm"] = float(metrics["grad_norm"])
-        self.history.append(record)
+        self._callbacks.on_step_end(step, record)
+        self.history.append({"step": step, **record})
         if self._args.log_interval and step % self._args.log_interval == 0:
             logger.info("step %d loss %.4f (%.3fs/step)", step, loss, dt)
         return dt
@@ -502,6 +543,7 @@ class Trainer:
         logger.info("eval @ step %d: loss %.4f (%d batches, %.2fs)",
                     self.state["step"], result["eval_loss"], count,
                     result["eval_time_s"])
+        self._callbacks.on_eval(self.state["step"], result)
         return result
 
     def train(self):
@@ -514,12 +556,13 @@ class Trainer:
         hang = HangDetector(timeout=self._args.hang_timeout,
                             on_hang=default_hang_action)
         hang.start()
+        self._callbacks.on_train_begin(step)
         step_times = []
         eval_every = (
             self._args.eval_interval if self._eval_iter_fn is not None
             else 0
         )
-        pending = None  # (step, metrics) read one step late
+        pending = None  # (step, metrics, batch) read one step late
         # False from train_step until the ranks have met after it:
         # train_step updates the state in place, so an exception there
         # leaves a state no checkpoint may hold; and a step whose barrier
@@ -534,17 +577,27 @@ class Trainer:
                     for batch in batches:
                         if step >= self._args.max_steps:
                             break
+                        if self._replay is not None:
+                            # the batch is on the card: the recorder
+                            # copies it back (replay is an opt-in debug
+                            # mode, correctness over overlap)
+                            self._replay.record(step + 1, batch)
                         whole = False
                         self.state, metrics = self._fns.train_step(
                             self.state, batch)
                         step += 1
+                        if (self._replay is not None
+                                and self._args.replay_digest_interval > 0
+                                and step % self._args.replay_digest_interval
+                                == 0):
+                            self._replay.commit(step, self.state)
                         self.progress.step_done()
                         hang.report_step(step)
                         self._couple_ranks()
                         whole = True
                         if pending is not None:
                             step_times.append(self._consume_metrics(*pending))
-                        pending = (step, metrics)
+                        pending = (step, metrics, batch)
                         self._maybe_checkpoint(step)
                         if eval_every and step % eval_every == 0:
                             # settle the pending read so the eval pause is
@@ -571,9 +624,11 @@ class Trainer:
         hang.stop()
         if self._engine is not None:
             self._final_checkpoint(step)
-        return {
+        summary = {
             "final_step": step,
             "mean_step_time": (
                 sum(step_times) / len(step_times) if step_times else 0.0
             ),
         }
+        self._callbacks.on_train_end(summary)
+        return summary

@@ -543,15 +543,18 @@ def test_leaf_digests_see_one_flipped_byte():
 
 
 def test_a3c_switches_default_off(monkeypatch):
-    """The reference's defaults: the observatory and the self-telemetry
-    on, the live profiler and the Brain off; with no Brain db the master
-    is incarnation 0 and fences nothing."""
+    """The port's defaults: the observatory, the self-telemetry and the
+    Brain on, as the reference's are; the live profiler off (ROADMAP
+    A7: the reference's default is on); with no Brain db the master is
+    incarnation 0 and fences nothing."""
+    from dlrover_tpu_torch.master.auto_scaler import BrainAutoScaler
+
     for name in (env.OBSERVATORY_ENV, env.PROFILE_ENV, env.BRAIN_ENV,
                  env.SELF_OBS_ENV, "DLROVER_TPU_BRAIN_DB",
                  "DLROVER_TPU_STATUS_PORT"):
         monkeypatch.delenv(name, raising=False)
     assert env.observatory_enabled() and env.self_obs_enabled()
-    assert not (env.profile_enabled() or env.brain_enabled())
+    assert env.brain_enabled() and not env.profile_enabled()
     # the client's reconnect and epochs stay on
     assert env.master_failover_enabled()
     # the agent's switches take the reference's defaults: the watcher
@@ -561,12 +564,13 @@ def test_a3c_switches_default_off(monkeypatch):
     assert config.watch_preemption and config.restart_overlap
     m = LocalJobMaster(get_free_port())
     assert m.health_engine is not None and m.master_telemetry is not None
-    assert m.brain is None and m.capture_coordinator is None
+    assert isinstance(m.brain, BrainAutoScaler)
+    assert m.capture_coordinator is None
     assert m.job_epoch == 0 and m.incarnation == 0
 
 
 @pytest.mark.parametrize("name,value", [
-    ("DLROVER_TPU_PROFILE", "1"), ("DLROVER_TPU_BRAIN", "1"),
+    ("DLROVER_TPU_PROFILE", "1"),
 ])
 def test_a3c_master_subsystems_raise(monkeypatch, name, value):
     monkeypatch.setenv(name, value)

@@ -91,7 +91,11 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "master.diagnosis", "observability.health",
               "observability.self_telemetry",
               "observability.status_server", "observability.attribution",
-              "agent.diagnosis_collector"):
+              "agent.diagnosis_collector",
+              # the Brain, replay and callbacks
+              "master.resource_optimizer", "master.scaler", "master.brain",
+              "master.auto_scaler", "scheduler.kubernetes",
+              "trainer.replay", "trainer.callbacks"):
         assert f"dlrover_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -461,7 +461,6 @@ def test_left_out_options_raise_not_implemented():
         tl.LlamaConfig.tiny(tie_word_embeddings=True)
     result = _tiny_result(npp, tcfg)
     for name, value, where in (
-        ("replay_dir", "/x", "A3c"),
         ("trace_interval", 5, "A7"), ("metrics_port", 9000, "A7"),
         ("sparse_tables", {"t": object()}, "A7"),
     ):
