@@ -54,6 +54,7 @@ from dlrover_tpu_torch.common.device import DeviceLike, resolve_device
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.parallel.mesh import (
     MeshContext,
+    create_hybrid_parallel_mesh,
     create_parallel_mesh,
     destroy_parallel_mesh,
 )
@@ -107,8 +108,16 @@ CheckMeshFn = Callable[[MeshContext], None]
 
 def _mesh_for(strategy: Strategy, dev, set_global: bool) -> MeshContext:
     _check_axes(strategy)
-    mesh_ctx = create_parallel_mesh(strategy.mesh_dims(), device=dev,
-                                    set_global=set_global)
+    dcn = tuple(dict(strategy.extras).get("dcn", ()))
+    if dcn:
+        sizes = dict(strategy.mesh_dims())
+        mesh_ctx = create_hybrid_parallel_mesh(
+            [(n, sizes[n]) for n in dcn],
+            [(n, s) for n, s in sizes.items() if n not in dcn],
+            device=dev, set_global=set_global)
+    else:
+        mesh_ctx = create_parallel_mesh(strategy.mesh_dims(), device=dev,
+                                        set_global=set_global)
     if strategy.pipe > 1:
         mesh_ctx.pipeline_microbatches = (
             strategy.pipe_microbatches or 2 * strategy.pipe)

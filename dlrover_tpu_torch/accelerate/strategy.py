@@ -1,6 +1,8 @@
 """Strategy representation + candidate generation.
 
-Copy of ``dlrover_tpu/accelerate/strategy.py``.
+Copy of ``dlrover_tpu/accelerate/strategy.py``.  The port reads one
+entry of ``Strategy.extras``, ``("dcn", axes)``: the axes a hybrid mesh
+lays across nodes.
 
 Reference parity: ``atorch/atorch/auto/strategy.py:4`` (``Strategy`` =
 ordered opt-method list), ``auto/engine/optimization_method.py``
@@ -35,6 +37,9 @@ class Strategy:
     num_micro_steps: int = 1
     # GPipe microbatch count when pipe > 1 (0 -> auto: 2 x pipe)
     pipe_microbatches: int = 0
+    # ``(("dcn", (axis, ...)),)``: the axes a hybrid mesh lays across
+    # nodes (``parallel.mesh.create_hybrid_parallel_mesh``, outermost, in
+    # that order); the others stay inside a node
     extras: Tuple = ()
 
     @property

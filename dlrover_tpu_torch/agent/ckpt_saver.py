@@ -7,7 +7,15 @@ new world updates the existing saver's global shard count, and
 rebuilds the saver where the node's index in the world moved (the
 reference keeps the first world's saver, so after a shrink node 0's
 commits wait for done files of nodes that left, and a survivor that
-became node 0 never commits).
+became node 0 never commits).  The rebuild first carries each local
+shard's snapshot segment to its new global rank (``carry_segments``: a
+hard link of the /dev/shm file under the new rank's name, and the slot
+meta served from the new rank's dict), and only then unlinks the old
+names, so that the survivor of a drain restores its newest snapshot;
+the restore reads a slot whose layout no longer fits the new world
+from storage, through ``reshard``.  ``save_shm_to_storage(commit=False)``
+persists without the commit's wait for the other nodes' done files
+(the Brain drain's flush: the peers flush only after the fence).
 
 Reference parity: ``dlrover/python/elastic_agent/torch/ckpt_saver.py:345``
 (AsyncCheckpointSaver + CommonDirCheckpointSaver): lives in the *agent*
@@ -32,13 +40,17 @@ import signal
 import threading
 import time
 from dataclasses import dataclass
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from dlrover_tpu_torch.common.constants import CheckpointConstant
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.common.multi_process import SharedQueue
 from dlrover_tpu_torch.common.storage import get_checkpoint_storage
-from dlrover_tpu_torch.agent.ckpt_shm import SharedMemoryHandler, shard_lock
+from dlrover_tpu_torch.agent.ckpt_shm import (
+    SharedMemoryHandler,
+    segment_paths,
+    shard_lock,
+)
 
 FACTORY_QUEUE = "ckpt_factory"
 EVENT_QUEUE = "ckpt_event"
@@ -71,7 +83,13 @@ class AsyncCheckpointSaver:
     _instance: Optional["AsyncCheckpointSaver"] = None
     _factory_thread: Optional[threading.Thread] = None
 
-    def __init__(self, config: SaverConfig, storage=None):
+    #: how long a carried segment waits for another agent's segment of
+    #: the same name to go (two nodes on one host: the drained node's
+    #: agent unlinks its segments when it exits)
+    CARRY_WAIT_S = 15.0
+
+    def __init__(self, config: SaverConfig, storage=None,
+                 carried: Optional[Dict[int, dict]] = None):
         self.config = config
         self._storage = storage or get_checkpoint_storage(
             path=config.checkpoint_dir
@@ -79,12 +97,15 @@ class AsyncCheckpointSaver:
         self._shm_handlers: List[SharedMemoryHandler] = []
         self._locks = []
         for local_rank in range(config.local_shard_num):
+            meta = (carried or {}).get(local_rank)
             self._shm_handlers.append(
                 SharedMemoryHandler(
                     self._global_rank(local_rank),
                     name=config.name,
                     host=True,
                 )
+                if meta is None else SharedMemoryHandler.hosting(
+                    self._global_rank(local_rank), config.name, meta)
             )
             self._locks.append(
                 shard_lock(
@@ -116,29 +137,79 @@ class AsyncCheckpointSaver:
     def stop(self):
         self._stopped = True
 
-    def close(self, unlink: bool = False):
+    def _join_persist(self) -> bool:
+        """Stop the event loop and wait for a persist in flight; False
+        when it is still busy after 60 s."""
         self.stop()
-        # join the event loop BEFORE closing shm: a persist in flight
-        # holds memoryview slices of the segments (dump_to_file), and
-        # closing under it raises BufferError "exported pointers exist"
         t = self._persist_thread
         if t is not None and t.is_alive():
             t.join(timeout=60)
-            if t.is_alive():
-                # the handles must stay open (the stuck persist holds
-                # buffer views), but named POSIX shm is NOT reclaimed
-                # at process exit — unlink the names now (safe while
-                # mapped) so the multi-GB segments die with the last
-                # process instead of squatting in /dev/shm until reboot
+        return t is None or not t.is_alive()
+
+    def carry_segments(self, config: SaverConfig) -> Dict[int, dict]:
+        """Move this saver's snapshots to the global ranks of ``config``
+        (the node's index in the world moved): each local shard's
+        segment files are hard-linked under the new rank's names and
+        their old names removed, so no byte is copied.  Returns
+        ``{local_rank: slot meta}`` for the new saver to serve.  A shard
+        stays behind (its restore then reads storage) where the local
+        shard count changed, or where another agent's segment keeps the
+        new name for ``CARRY_WAIT_S``."""
+        if not self._join_persist():
+            logger.error("ckpt saver busy; its snapshots are not carried")
+            return {}
+        if config.local_shard_num != self.config.local_shard_num:
+            return {}
+        carried = {}
+        for local_rank, handler in enumerate(self._shm_handlers):
+            meta = dict(handler.meta.get_all())
+            if not any(slot.get("valid")
+                       for slot in (meta.get("slots") or {}).values()):
+                continue
+            old_rank = self._global_rank(local_rank)
+            new_rank = config.node_rank * config.local_shard_num + local_rank
+            src = segment_paths(old_rank, self.config.name)
+            dst = segment_paths(new_rank, config.name)
+            if not os.path.exists(src[0]):
+                continue
+            deadline = time.time() + self.CARRY_WAIT_S
+            while (any(os.path.exists(p) for p in dst)
+                   and time.time() < deadline):
+                time.sleep(0.1)
+            if any(os.path.exists(p) for p in dst):
                 logger.error(
-                    "ckpt saver event loop still busy after 60s; "
-                    "leaving handles open%s",
-                    ", unlinking shm names" if unlink else "",
-                )
-                if unlink:
-                    for handler in self._shm_handlers:
-                        handler.unlink_name()
-                return
+                    "ckpt saver: %s still exists; shard %d's snapshot "
+                    "is not carried to rank %d", dst[0], old_rank, new_rank)
+                continue
+            for a, b in zip(src, dst):
+                if os.path.exists(a):
+                    os.link(a, b)
+                    os.unlink(a)
+            carried[local_rank] = meta
+            logger.info(
+                "ckpt saver: shard %d's snapshot (step %s) carried to "
+                "rank %d", old_rank, meta.get("step"), new_rank)
+        return carried
+
+    def close(self, unlink: bool = False):
+        # join the event loop BEFORE closing shm: a persist in flight
+        # holds memoryview slices of the segments (dump_to_file), and
+        # closing under it raises BufferError "exported pointers exist"
+        if not self._join_persist():
+            # the handles must stay open (the stuck persist holds
+            # buffer views), but named POSIX shm is NOT reclaimed
+            # at process exit — unlink the names now (safe while
+            # mapped) so the multi-GB segments die with the last
+            # process instead of squatting in /dev/shm until reboot
+            logger.error(
+                "ckpt saver event loop still busy after 60s; "
+                "leaving handles open%s",
+                ", unlinking shm names" if unlink else "",
+            )
+            if unlink:
+                for handler in self._shm_handlers:
+                    handler.unlink_name()
+            return
         for handler in self._shm_handlers:
             handler.close(unlink=unlink)
         for lock in self._locks:
@@ -185,7 +256,8 @@ class AsyncCheckpointSaver:
         )
 
     def save_step_checkpoint(self, step: int, root: Optional[str] = None,
-                             commit_timeout: Optional[float] = None):
+                             commit_timeout: Optional[float] = None,
+                             commit: bool = True):
         """Persist all local shm shards of ``step`` and commit.
 
         A shard whose shm snapshot is at a different step makes the
@@ -271,7 +343,7 @@ class AsyncCheckpointSaver:
         )
         record_ckpt_io("persist", persisted_bytes, io_seconds)
         self._write_done_file(stage)
-        if self.config.node_rank == 0:
+        if self.config.node_rank == 0 and commit:
             committed = self.commit_checkpoint(
                 step, root,
                 timeout=(
@@ -345,7 +417,7 @@ class AsyncCheckpointSaver:
         common = set.intersection(*step_sets)
         return max(common) if common else -1
 
-    def save_shm_to_storage(self, reason: str = ""):
+    def save_shm_to_storage(self, reason: str = "", commit: bool = True):
         """Emergency flush: persist whatever valid snapshot sits in shm
         (called on SIGTERM / worker failure; reference ``:473-495``).
 
@@ -384,12 +456,14 @@ class AsyncCheckpointSaver:
 
         # bounded commit: under preemption the peer node may never
         # write its done file; the shards themselves are persisted
-        # either way, and a restart must not stall behind the poll
+        # either way, and a restart must not stall behind the poll.
+        # commit=False: the shards and the done file only
         return self.save_step_checkpoint(
             step,
             commit_timeout=env_float(
                 "DLROVER_TPU_EMERGENCY_COMMIT_TIMEOUT_S", 20.0
             ),
+            commit=commit,
         )
 
     #: whether the atexit fallback flush is armed (non-main-thread
@@ -483,14 +557,21 @@ class AsyncCheckpointSaver:
                         config.node_rank, config.local_shard_num):
                     # the node's place in the world moved (a node before
                     # it left): its shards have new global ranks, so the
-                    # saver serves new segments and sockets.  The old
-                    # segments hold the old world's ranks, which no
-                    # worker of this node reads again
+                    # saver serves new segments and sockets.  The
+                    # snapshots move to the new ranks first; only then
+                    # do the old names go
                     logger.info(
                         "ckpt saver: node rank %d, was %d; rebuilding",
                         config.node_rank, have.node_rank)
                     old, cls._instance = cls._instance, None
+                    carried = old.carry_segments(config)
+                    # before the new saver binds its sockets: the event
+                    # queue's name is the same for both
                     old.close(unlink=True)
+                    saver = cls(config, carried=carried)
+                    saver.start()
+                    cls._instance = saver
+                    continue
                 elif have is not None:
                     if have.global_shard_num != config.global_shard_num:
                         # the world changed under this agent (an elastic

@@ -450,6 +450,13 @@ def _views(buf, base: int, specs) -> Dict[str, torch.Tensor]:
     return out
 
 
+def segment_paths(rank: int, name: str = "default") -> Tuple[str, str]:
+    """The /dev/shm files of shard ``rank``'s snapshot and generation
+    segments (``SharedMemoryHandler``'s names)."""
+    return (os.path.join(SHM_DIR, f"{SHM_PREFIX}_{name}_{rank}"),
+            os.path.join(SHM_DIR, f"{SHM_PREFIX}_gen_{name}_{rank}"))
+
+
 class SharedMemoryHandler:
     """One checkpoint shard in shared memory (one per training process).
 
@@ -468,6 +475,16 @@ class SharedMemoryHandler:
         self._gen_name = f"{SHM_PREFIX}_gen_{name}_{rank}"
         self._gen: Optional[SharedMemory] = None
         self.meta = SharedDict(f"ckpt_meta_{name}_{rank}", create=host)
+
+    @classmethod
+    def hosting(cls, rank: int, name: str, meta: Dict
+                ) -> "SharedMemoryHandler":
+        """The agent side of a shard whose meta dict serves ``meta``
+        (a carried segment's slots) from its first request on."""
+        handler = cls(rank, name=name, host=False)
+        handler.meta = SharedDict(f"ckpt_meta_{name}_{rank}", create=True,
+                                  initial=meta)
+        return handler
 
     # -- writer (training process) ----------------------------------------
     NUM_SLOTS = 2  # double-buffer: previous snapshot survives a crash

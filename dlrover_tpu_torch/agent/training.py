@@ -28,7 +28,7 @@ node.  Workers restore through the overlapped restart path unless
 the reference, the agent runs the resource, heartbeat and
 training-progress monitors (``agent/monitor.py``), which the reference
 defines and starts nowhere.  Not ported yet: the deep-capture directive
-(ROADMAP A3c.3), which the port's master never sends.  The SIGTERM
+(ROADMAP A7), which the port's master never sends.  The SIGTERM
 drain is always installed (the port has no ``DLROVER_TPU_RESHARD``
 switch).
 """
@@ -887,11 +887,11 @@ class ElasticTrainingAgent:
     # ------------------------------------------------------ deep capture
     def _start_capture(self, reason: str, capture_id: int):
         """A master ``capture`` directive: the deep capture is ROADMAP
-        A3c.3 (the port's master never sends one: its capture
-        coordinator is off)."""
+        A7 (the port's master never sends one: its capture coordinator
+        is off)."""
         raise NotImplementedError(
             f"capture directive {capture_id} ({reason}): deep capture is "
-            "not ported yet: ROADMAP A3c.3")
+            "not ported yet: ROADMAP A7")
 
     def _execute_brain_drain(self, reason: str, decision_id: int) -> int:
         """The cooperative half of a Brain drain_replace/shrink: the
@@ -903,7 +903,27 @@ class ElasticTrainingAgent:
             "brain directive: graceful drain and exit "
             "(decision %s: %s)", decision_id, reason,
         )
-        self._on_preemption(f"brain:{reason}")
+        # ``_on_preemption``'s drain -> flush -> fence, but the flush
+        # persists without a commit (the port's): the other nodes flush
+        # only after the fence that this drain's report sets, so a
+        # drained node 0 would wait out the commit timeout for their
+        # done files (the reference waits
+        # DLROVER_TPU_EMERGENCY_COMMIT_TIMEOUT_S)
+        event = f"preemption:brain:{reason}"
+        self._preempted = True
+        with get_event_logger().span("preemption_drain",
+                                     event=f"brain:{reason}"):
+            self._drain_worker_snapshots(event)
+            saver = AsyncCheckpointSaver.get_ckpt_saver()
+            if saver is not None:
+                try:
+                    saver.save_shm_to_storage(reason=event, commit=False)
+                except Exception as e:  # noqa: BLE001
+                    logger.warning("breakpoint ckpt flush failed: %s", e)
+            self._try_report_failure(
+                f"maintenance event brain:{reason}",
+                TrainingExceptionLevel.NODE_PREEMPTED,
+            )
         self._stop_workers(timeout=self._config.failure_stop_timeout)
         return AgentExitCode.NODE_PREEMPTED
 

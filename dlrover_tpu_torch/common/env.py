@@ -10,11 +10,13 @@ state and observatory (the datastore's write-behind switch, the timeline
 retention, the snapshot cadence, the observatory and self-telemetry
 switches) and ``get_free_port``.
 
-One difference: the switches of the master's subsystems that the port
-does not have yet (the live profiler and deep capture, ROADMAP A7; the
-Brain, ROADMAP A3c.3c) default to off here.  Turned on, the master
-raises ``NotImplementedError`` naming them rather than running without
-them.  Each other reader comes with the slice that calls it.
+One difference: the switch of the master's subsystem that the port
+does not have yet (the live profiler and deep capture,
+``DLROVER_TPU_PROFILE``, ROADMAP A7) defaults to off here; turned on,
+the master raises ``NotImplementedError`` naming it rather than running
+without it.  The Brain (``DLROVER_TPU_BRAIN``) defaults to on, as in the
+reference, and every master builds it (``brain_enabled``).  Each other
+reader comes with the slice that calls it.
 """
 
 import os

@@ -256,8 +256,11 @@ class SharedDict(LocalSocketComm):
     dict with ``get_all``.
     """
 
-    def __init__(self, name: str, create: bool = False):
-        self._dict: Optional[Dict] = {} if create else None
+    def __init__(self, name: str, create: bool = False,
+                 initial: Optional[Dict] = None):
+        # ``initial`` is in the dict before the server serves it: no
+        # client ever reads it empty
+        self._dict: Optional[Dict] = dict(initial or {}) if create else None
         super().__init__("dict_" + name, create)
 
     def _do_set(self, key, value):

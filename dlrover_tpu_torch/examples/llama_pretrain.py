@@ -61,7 +61,13 @@ state restored after a drain can be held against the state the drained
 world had at that step; the report is then written at every snapshot.
 ``--digest_from_step N`` also digests every snapshot of the first
 incarnation from step N on (``snapshot_digests``): a witness of each
-step the world may restore after a drain.  The ranks meet after such a
+step the world may restore after a drain; ``--digest_every_incarnation``
+digests those of every incarnation (the replicas of a world that grew
+back are held to each other step by step).  The sleep fault keys on
+``ctx.node_rank``, the launcher's own node rank
+(``DLROVER_TPU_NODE_RANK``), not on the node's place in the world
+(``DLROVER_TPU_NODE_INDEX``): a replacement node that takes the place of
+the slowed one is not slowed.  The ranks meet after such a
 digest, and the next ``step`` span starts there: the digest is this
 harness's reading, not the step's work.
 """
@@ -146,6 +152,9 @@ def parse_args(argv=None):
     p.add_argument("--digest_from_step", type=int, default=0,
                    help="with --state_digests, also digest every snapshot "
                    "of the first incarnation from this step on (0 = none)")
+    p.add_argument("--digest_every_incarnation", action="store_true",
+                   help="with --digest_from_step, digest the snapshots of "
+                   "every incarnation, not only the first")
     p.add_argument("--data", type=int, default=-1,
                    help="data-parallel ranks (-1: the world over --fsdp)")
     p.add_argument("--fsdp", type=int, default=1,
@@ -252,6 +261,7 @@ class _Report:
         self.path = os.path.join(
             report_dir, f"rank{ctx.rank}_inc{ctx.restart_count}.json")
         self.data = {"rank": ctx.rank, "world": ctx.world_size,
+                     "node_rank": ctx.node_rank,
                      "restart_count": ctx.restart_count,
                      "pid": os.getpid(), "device": str(ctx.device),
                      "entry": ENTRY,
@@ -387,7 +397,8 @@ def main(argv=None, strategy=None):
         from dlrover_tpu_torch.trainer.drain import drain_requested
         from dlrover_tpu_torch.trainer.fault_tolerance import pytree_digest
 
-        witness = args.digest_from_step > 0 and ctx.restart_count == 0
+        witness = args.digest_from_step > 0 and (
+            ctx.restart_count == 0 or args.digest_every_incarnation)
 
         class StateDigests(TrainerCallback):
             """Digest each drain-mode snapshot (and, from

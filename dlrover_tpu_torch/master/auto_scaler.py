@@ -1,10 +1,10 @@
 """Auto-scalers: the periodic decide-and-act loops.
 
 Copy of ``dlrover_tpu/master/auto_scaler.py`` (imports rewritten).
-``AllreduceAutoScaler`` and ``set_scaler`` come with the copy; the
-master that wires them (``DistributedJobMaster``, with a scaler) is
-ROADMAP A3c.3d.  The local master builds only the Brain, which without
-a scaler drains and shrinks and never grows.
+``DistributedJobMaster`` (``master/master.py``) wires them as the
+reference does: ``set_scaler`` hands the Brain its scaler, and with the
+Brain off it runs ``AllreduceAutoScaler``.  The local master builds only
+the Brain, which without a scaler drains and shrinks and never grows.
 
 Two generations live here:
 
@@ -255,6 +255,7 @@ class BrainAutoScaler(_DecisionLoop):
         #: an in-flight decision inherited from a dead incarnation
         #: must be re-armed (its directive died with the old master)
         self._resume_pending = False
+        executor.on_follow_up = self._journal
 
     @property
     def directives(self):
@@ -421,7 +422,9 @@ class BrainAutoScaler(_DecisionLoop):
             logger.warning("brain journal failed: %s", e)
 
     def export_state(self) -> dict:
-        return self._optimizer.export_state()
+        # the port's: which decisions' pod-side legs already ran
+        return dict(self._optimizer.export_state(),
+                    followed_up=self._executor.followed_up())
 
     def restore_state(self, state: dict):
         """Journal replay: reinstall the optimizer's hysteresis /
@@ -430,6 +433,7 @@ class BrainAutoScaler(_DecisionLoop):
         cycle; its original decision deadline still bounds it, so a
         long outage abandons instead of acting on stale evidence."""
         self._optimizer.restore_state(state)
+        self._executor.restore_followed_up(state.get("followed_up") or [])
         self._resume_pending = self._optimizer.in_flight is not None
 
     def status(self) -> dict:

@@ -4,7 +4,19 @@ Copy of ``dlrover_tpu/master/brain.py`` (imports rewritten).  In the
 port the drained node's agent is ``agent/training.py``
 (``_execute_brain_drain``), its survivors re-solve through
 ``accelerate/solver.resolve_for_world`` and restore through
-``trainer/checkpoint/reshard.py``.
+``trainer/checkpoint/reshard.py``.  One addition: once a drain's
+pod-side leg has handed the node's pod to the scaler, the job manager
+releases the node (``JobManager.release_node``), so that its
+silent heartbeat does not relaunch it beside the replacement; the
+pod-side leg finds a node that has not sent its first heartbeat yet
+(still INITIAL in the job manager), where the reference skips it; and a
+drain with a replacement completes, and launches the replacement, once
+the survivors have re-meshed without the node, not at its fence.
+Because that leaves a window of a re-mesh between the fence and the
+pod-side leg, the leg is journaled before its plan reaches the scaler
+(``followed_up`` in the Brain's journaled state), and a master that
+fails over re-runs it unless the record says that it ran; the reference
+never re-runs a resumed decision's leg.
 
 A :class:`~dlrover_tpu_torch.master.resource_optimizer.BrainDecision` names
 a world transition; this module turns it into ONE coordinated action
@@ -39,7 +51,7 @@ master resumes or abandons instead of flip-flopping.
 import threading
 from typing import Dict, List, Optional, Tuple
 
-from dlrover_tpu_torch.common.constants import NodeType
+from dlrover_tpu_torch.common.constants import NodeStatus, NodeType
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.common.messages import ScalePlan
 from dlrover_tpu_torch.master.resource_optimizer import (
@@ -103,9 +115,18 @@ class BrainExecutor:
         self._scaler = scaler
         #: decision ids whose pod-side follow-up already ran
         self._followed_up = set()
+        #: called once a follow-up is marked, before its plan reaches the
+        #: scaler (the Brain journals its state there)
+        self.on_follow_up = None
 
     def set_scaler(self, scaler):
         self._scaler = scaler
+
+    def followed_up(self) -> List[int]:
+        return sorted(self._followed_up)
+
+    def restore_followed_up(self, ids):
+        self._followed_up = {int(i) for i in ids}
 
     @property
     def can_launch(self) -> bool:
@@ -134,16 +155,27 @@ class BrainExecutor:
         """rank -> pod name for scaler-side removal/migration (the
         seed mapping; an unmapped rank just skips the scaler leg —
         the cooperative directive still drains it)."""
+        node = self._node_of(node_rank)
+        return node.name if node is not None else None
+
+    def _node_of(self, node_rank: int):
         if self._job_manager is None:
             return None
-        for node in self._job_manager.get_running_nodes():
+        candidates = list(self._job_manager.get_running_nodes())
+        # the port's fallback: a node the rendezvous holds whose first
+        # heartbeat (one a monitor interval, 15 s) has not come yet is
+        # still INITIAL in the job manager, and its pod is the plan's
+        candidates += [n for n in self._job_manager.nodes.values()
+                       if n.status in (NodeStatus.INITIAL,
+                                       NodeStatus.PENDING)]
+        for node in candidates:
             key = (
                 node.rank_index
                 if node.rank_index is not None
                 else node.id
             )
             if key == node_rank and node.name:
-                return node.name
+                return node
         return None
 
     # ---------------------------------------------------------- execute
@@ -169,6 +201,14 @@ class BrainExecutor:
             }
             self._scale(plan)
 
+    def _replaces(self, decision: BrainDecision) -> bool:
+        """Whether the drain's pod-side leg launches a replacement."""
+        return (
+            self._scaler is not None
+            and decision.action == ACTION_DRAIN_REPLACE
+            and decision.to_world >= decision.from_world
+        )
+
     def _scaler_followup(self, decision: BrainDecision):
         """Pod-side leg of a drain, AFTER the drain concluded: delete
         the (already exiting) pod, plus a replacement when the
@@ -179,18 +219,21 @@ class BrainExecutor:
         if decision.decision_id in self._followed_up:
             return
         self._followed_up.add(decision.decision_id)
-        name = self._node_name(decision.node)
-        if name is None:
+        node = self._node_of(decision.node)
+        if node is None:
             return
+        if self.on_follow_up is not None:
+            self.on_follow_up()
         plan = ScalePlan()
-        if decision.action == ACTION_DRAIN_REPLACE and (
-            decision.to_world >= decision.from_world
-        ):
+        if self._replaces(decision):
             # replace: a fresh pod for the drained one
-            plan.migrate_nodes[name] = {"type": NodeType.WORKER}
+            plan.migrate_nodes[node.name] = {"type": NodeType.WORKER}
         else:
-            plan.remove_nodes.append(name)
+            plan.remove_nodes.append(node.name)
         self._scale(plan)
+        # the port's addition: the pod is the scaler's now, so the job
+        # manager's heartbeat watch must not relaunch it a second time
+        self._job_manager.release_node(node.id)
 
     def _scale(self, plan: ScalePlan):
         if self._scaler is None:
@@ -206,9 +249,19 @@ class BrainExecutor:
         reflects the decision, None while still pending."""
         world = self.current_world()
         if decision.action in (ACTION_DRAIN_REPLACE, ACTION_SHRINK):
-            if decision.node in self.fenced() or (
-                world and decision.node not in world
-            ):
+            gone = bool(world) and decision.node not in world
+            if self._replaces(decision):
+                # the port's order: the replacement comes once the
+                # survivors have re-meshed without the node.  Their next
+                # restart then commits a step of their own world, which
+                # the newcomer restores; launched at the fence, it can
+                # reach the rendezvous first, and the world it forms with
+                # the survivors shares no step but the last commit
+                if gone:
+                    self._scaler_followup(decision)
+                    return OUTCOME_DONE
+                return None
+            if decision.node in self.fenced() or gone:
                 self._scaler_followup(decision)
                 return OUTCOME_DONE
             return None
@@ -244,12 +297,13 @@ class BrainExecutor:
         """Re-arm an in-flight action inherited from a dead master
         incarnation (directives are memory-only and died with it).
         Returns False when the decision is already satisfied."""
-        # the pod-side follow-up may have run on the dead incarnation
-        # with its journal record still in the write-behind linger —
-        # a resumed drain therefore NEVER re-runs it (same reasoning
-        # as grow below: re-issuing risks double-created pods; a
-        # missing replacement is the controller's to reconcile)
-        self._followed_up.add(decision.decision_id)
+        # the port's: the pod-side follow-up is journaled before its
+        # plan goes out, so the dead incarnation's record says whether
+        # it ran (``restore_followed_up``); a leg that had not run, as
+        # one that waits for the survivors' re-mesh, runs here.  The
+        # reference never re-runs it, and a replacement whose leg came
+        # after the fence was lost with the master.  A record lost in
+        # the journal's write-behind linger re-runs the leg
         if self.check(decision) is not None:
             return False
         if decision.action in (ACTION_DRAIN_REPLACE, ACTION_SHRINK):

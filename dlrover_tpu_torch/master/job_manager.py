@@ -120,6 +120,10 @@ class JobManager(metaclass=ABCMeta):
     def set_journal(self, cb: Optional[Callable[[str, dict], None]]):
         self._journal_cb = cb
 
+    def _new_node(self, node_type: str, node_id: int, **kwargs) -> Node:
+        """A node this manager first hears of (the hook names it)."""
+        return Node(node_type, node_id, **kwargs)
+
     @property
     def nodes_version(self) -> int:
         return self._nodes_version
@@ -237,6 +241,18 @@ class JobManager(metaclass=ABCMeta):
         if fire:
             self._fire_callbacks(node, new_status)
 
+    def release_node(self, node_id: int):
+        """The port's: a plan handed this node's pod to the scaler (removed, or
+        migrated to a replacement): it is DELETED here, and no missing
+        heartbeat of it relaunches it."""
+        with self._lock:
+            node = self._nodes.get(node_id)
+            if node is None:
+                return
+        self.process_event(NodeEvent(NodeEventType.DELETED, Node(
+            node.type, node_id, name=node.name,
+            status=NodeStatus.DELETED)))
+
     def _fire_callbacks(self, node: Node, status: str):
         for callback in self._event_callbacks:
             try:
@@ -271,10 +287,10 @@ class JobManager(metaclass=ABCMeta):
 
     def update_node_address(self, node_type: str, node_id: int, addr: str):
         with self._lock:
-            node = self._nodes.setdefault(
-                node_id,
-                Node(node_type, node_id, status=NodeStatus.RUNNING),
-            )
+            node = self._nodes.get(node_id)
+            if node is None:
+                node = self._nodes[node_id] = self._new_node(
+                    node_type, node_id, status=NodeStatus.RUNNING)
             node.host_addr = addr
             self._bump_nodes_version()
             self._journal_node(node)
@@ -285,8 +301,8 @@ class JobManager(metaclass=ABCMeta):
         with self._lock:
             node = self._nodes.get(node_id)
             if node is None:
-                node = Node(node_type, node_id,
-                            status=NodeStatus.RUNNING)
+                node = self._new_node(node_type, node_id,
+                                      status=NodeStatus.RUNNING)
                 self._nodes[node_id] = node
                 started = True
             node.heartbeat_time = timestamp
@@ -422,7 +438,7 @@ class JobManager(metaclass=ABCMeta):
         node_id = int(row.get("id", 0))
         node = self._nodes.get(node_id)
         if node is None:
-            node = Node(
+            node = self._new_node(
                 row.get("type", NodeType.WORKER),
                 node_id,
                 rank_index=row.get("rank_index"),
@@ -503,12 +519,21 @@ class DistributedJobManager(JobManager):
     through a pluggable scaler (reference:
     ``master/node/dist_job_manager.py:80``).  The k8s watcher/scaler
     plug in here; in in-process tests a fake scaler is injected.
+
+    Two changes against the reference (where this manager with a
+    scaler stops at ``start``: see ``Scaler.scale_to``): a node is named
+    as its pod is (``<job>-<type>-<id>``, the name ``GpuPodScaler`` and the
+    controller give it), so that the Brain's remove and migrate plans
+    name a real pod; and the Brain releases a node that its plan handed
+    to the scaler (``JobManager.release_node``), so that the node's
+    missing heartbeats do not relaunch it a second time.
     """
 
     def __init__(self, node_num: int, scaler=None,
                  heartbeat_timeout: Optional[float] = None,
                  pending_timeout: Optional[float] = None):
         super().__init__()
+        self._job_name = os.getenv("DLROVER_TPU_JOB_NAME", "default")
         self._node_num = node_num
         self._scaler = scaler
         self._heartbeat_timeout = (
@@ -523,7 +548,7 @@ class DistributedJobManager(JobManager):
         for node_id in range(self._node_num):
             if node_id in self._nodes:
                 continue  # restored by a failover replay
-            node = Node(
+            node = self._new_node(
                 NodeType.WORKER,
                 node_id,
                 status=NodeStatus.INITIAL,
@@ -538,6 +563,10 @@ class DistributedJobManager(JobManager):
             name="heartbeat-monitor",
             daemon=True,
         ).start()
+
+    def _new_node(self, node_type: str, node_id: int, **kwargs) -> Node:
+        kwargs.setdefault("name", f"{self._job_name}-{node_type}-{node_id}")
+        return Node(node_type, node_id, **kwargs)
 
     def _monitor_heartbeats(self):
         while not self._stopped:
@@ -583,6 +612,7 @@ class DistributedJobManager(JobManager):
         node.inc_relaunch_count()
         with self._lock:
             new_node = node.get_relaunch_node(self._next_node_id)
+            new_node.name = self._new_node(new_node.type, new_node.id).name
             new_node.create_time = time.time()
             self._next_node_id += 1
             self._nodes[new_node.id] = new_node

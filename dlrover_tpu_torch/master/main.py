@@ -1,9 +1,13 @@
 """Master CLI: ``python -m dlrover_tpu_torch.master.main --port ...
 --node-num N``.
 
-Copy of ``dlrover_tpu/master/main.py``.  The port has the local master
-only: ``--platform k8s`` and ``ray`` raise ``NotImplementedError`` (the
-distributed master is ROADMAP A3c.3d).  ``--brain_db`` opens the durable
+Copy of ``dlrover_tpu/master/main.py``.  ``--platform local`` builds the
+local master; ``k8s`` and ``ray`` build a ``DistributedJobMaster``, as
+the reference does: on k8s with an ``ElasticJobScaler`` (ScalePlan
+custom resources for the operator, ``master/controller.py``), on ray
+with no scaler (the master only observes).  A k8s master on a machine
+without the ``kubernetes`` package raises its ``ImportError``; it never
+falls back to the local master.  ``--brain_db`` opens the durable
 datastore (journal, replay, fencing) and ``--status_port`` the
 ``/metrics`` and ``/status`` server, as in the reference.
 
@@ -53,13 +57,16 @@ def run(args) -> int:
     import os
 
     from dlrover_tpu_torch.common.env import get_free_port
-    from dlrover_tpu_torch.master.master import LocalJobMaster
+    from dlrover_tpu_torch.master.master import (
+        DistributedJobMaster,
+        LocalJobMaster,
+    )
 
-    # before the environment is touched: a refused platform leaves the
-    # caller's environment as it was
-    if args.platform != "local":
-        raise NotImplementedError(
-            f"the {args.platform} master is not ported yet: ROADMAP A3c.3d")
+    if args.platform == "k8s":
+        # before the environment is touched: without the kubernetes
+        # package the master raises its ImportError as it is, and the
+        # caller's environment stays as it was
+        import kubernetes  # noqa: F401
     if args.brain_db:
         os.environ["DLROVER_TPU_BRAIN_DB"] = args.brain_db
     if args.workers:
@@ -72,7 +79,25 @@ def run(args) -> int:
     os.environ.setdefault("DLROVER_TPU_JOB_NAME", args.job_name)
 
     port = args.port or get_free_port()
-    master = LocalJobMaster(port, args.node_num)
+    if args.platform == "local":
+        master = LocalJobMaster(port, args.node_num)
+    else:
+        # platform-appropriate scaler: without one, BOTH the relaunch
+        # path and the autoscale cycle are observers only
+        if args.platform == "k8s":
+            from dlrover_tpu_torch.master.scaler import ElasticJobScaler
+
+            scaler = ElasticJobScaler(args.job_name)
+        else:
+            # ray masters get their ActorScaler from the ray
+            # scheduler layer (needs a live client); no default here
+            scaler = None
+        master = DistributedJobMaster(
+            port,
+            args.node_num,
+            scaler=scaler,
+            pending_timeout=args.pending_timeout,
+        )
     master.prepare()
     logger.info("job %s master listening on %s", args.job_name,
                 master.addr)

@@ -1,7 +1,10 @@
-"""The local job master (spawned by ``python -m dlrover_tpu_torch.run``).
+"""Job masters: local (in-process, spawned by ``python -m
+dlrover_tpu_torch.run``) and distributed (its own process or pod,
+supervising a multi-host job).
 
 Copy of ``dlrover_tpu/master/master.py`` (``JobMaster`` :39,
-``LocalJobMaster`` :380, ``run_local_master`` :496): the durable master
+``LocalJobMaster`` :380, ``DistributedJobMaster`` :401,
+``run_local_master`` :496): the durable master
 (the Brain datastore that ``DLROVER_TPU_BRAIN_DB`` opens, the failover
 journal and its replay, fencing by ``(job_epoch, incarnation)``), the
 observatory (``HealthEngine``, ``MasterSelfTelemetry`` and
@@ -9,17 +12,20 @@ observatory (``HealthEngine``, ``MasterSelfTelemetry`` and
 and the Brain (``BrainAutoScaler`` over the health engine, journaled
 under the journal's ``brain`` component), each behind the reference's
 switch and default.  Not ported yet: the live profiler's deep-capture
-coordinator (``DLROVER_TPU_PROFILE``, ROADMAP A7) and the distributed
-master (k8s / ray scalers and ``AllreduceAutoScaler``, ROADMAP
-A3c.3d).  The profiler's switch defaults to off in the port
+coordinator (``DLROVER_TPU_PROFILE``, ROADMAP A7).  The profiler's
+switch defaults to off in the port
 (``common/env.py``); turned on, it makes ``JobMaster`` raise
 ``NotImplementedError`` naming its item rather than run without it.
 The journal's capture component stays None, as the reference's is with
-that switch off.  This master has no scaler: its Brain drains and
-shrinks, and never grows (no launch capacity), as the reference's
-local master.
+that switch off.  The local master has no scaler: its Brain drains
+and shrinks, and never grows (no launch capacity), as the reference's
+local master.  ``DistributedJobMaster`` takes the platform's scaler
+(``ElasticJobScaler`` on k8s, ``scheduler/ray.ActorScaler`` on ray),
+hands it to the Brain (grow, drain with replace) or, with the Brain
+off, runs ``AllreduceAutoScaler`` over it, as the reference does.
 
-Reference parity: ``dlrover/python/master/local_master.py``.
+Reference parity: ``dlrover/python/master/local_master.py`` and
+``dist_master.py:86,175,211``.
 """
 
 import threading
@@ -34,6 +40,7 @@ from dlrover_tpu_torch.common.global_context import Context
 from dlrover_tpu_torch.common.log import default_logger as logger
 from dlrover_tpu_torch.master.job_manager import (
     AllReduceNodeHandlingCallback,
+    DistributedJobManager,
     LocalJobManager,
     TaskRescheduleCallback,
 )
@@ -67,7 +74,8 @@ def later_subsystems_on():
 class JobMaster:
     """Common wiring of the master components + gRPC service."""
 
-    def __init__(self, port: int, node_num: int = 1, job_manager=None):
+    def __init__(self, port: int, node_num: int = 1,
+                 job_manager=None, diagnosis_manager=None):
         import os
 
         from dlrover_tpu_torch.common.env import (
@@ -142,20 +150,22 @@ class JobMaster:
                 datastore=get_default_datastore(),
             )
             self.master_health = MasterHealth(self.master_telemetry)
-        from dlrover_tpu_torch.master.diagnosis import DiagnosisManager
+        if diagnosis_manager is None:
+            from dlrover_tpu_torch.master.diagnosis import DiagnosisManager
 
-        # with the observatory on, the chain sits on top of the
-        # streaming derivations (straggler / data-stall / hang watchdog
-        # operators) and records conclusions to the timeline + Brain;
-        # off, it is exactly the old manager
-        self.diagnosis_manager = DiagnosisManager(
-            speed_monitor=self.speed_monitor,
-            health_engine=self.health_engine,
-            datastore=get_default_datastore(),
-            job=self._job_name,
-            capture=self.capture_coordinator,
-            master_health=self.master_health,
-        )
+            # with the observatory on, the chain sits on top of the
+            # streaming derivations (straggler / data-stall / hang
+            # watchdog operators) and records conclusions to the
+            # timeline + Brain; off, it is exactly the old manager
+            diagnosis_manager = DiagnosisManager(
+                speed_monitor=self.speed_monitor,
+                health_engine=self.health_engine,
+                datastore=get_default_datastore(),
+                job=self._job_name,
+                capture=self.capture_coordinator,
+                master_health=self.master_health,
+            )
+        self.diagnosis_manager = diagnosis_manager
         # the autonomy loop: observatory signals -> hysteresis-guarded
         # BrainDecision -> ONE planned action (cooperative drain
         # directive + fence + reshard re-mesh).  None under
@@ -402,6 +412,100 @@ class LocalJobMaster(JobMaster):
             self.process_diagnosis()
             time.sleep(1)
         return 0
+
+
+class DistributedJobMaster(JobMaster):
+    """Multi-host master with a 30s supervision loop deciding
+    early-stop / hang / all-exited (reference: ``dist_master.py:211``)."""
+
+    SUPERVISE_INTERVAL = 30
+
+    def __init__(self, port: int, node_num: int, scaler=None,
+                 diagnosis_manager=None, pending_timeout=None,
+                 autoscale: bool = True, max_workers: int = 0):
+        super().__init__(
+            port,
+            node_num,
+            job_manager=DistributedJobManager(
+                node_num, scaler=scaler, pending_timeout=pending_timeout
+            ),
+            diagnosis_manager=diagnosis_manager,
+        )
+        if not autoscale and self.brain is not None:
+            # autoscaling explicitly disabled: the Brain must not run
+            # either (dropped before prepare() wires the journal /
+            # servicer, so nothing references it)
+            self.brain = None
+        if self.brain is not None and scaler is not None:
+            # the Brain gains launch capacity: grow decisions and
+            # drain REPLACEMENTS execute through the same scaler the
+            # job manager relaunches with
+            self.brain.set_scaler(scaler)
+        # seed periodic optimize -> ScalePlan cycle (reference
+        # job_auto_scaler.py:271); with the Brain on it is replaced
+        # wholesale — DLROVER_TPU_BRAIN=0 reproduces it exactly.  The
+        # plan executes through the SAME scaler the job manager
+        # relaunches with.
+        self.auto_scaler = None
+        if autoscale and scaler is not None and self.brain is None:
+            import os
+
+            from dlrover_tpu_torch.master.auto_scaler import (
+                AllreduceAutoScaler,
+            )
+            from dlrover_tpu_torch.master.resource_optimizer import (
+                LocalAllreduceOptimizer,
+            )
+
+            self.auto_scaler = AllreduceAutoScaler(
+                LocalAllreduceOptimizer(
+                    min_workers=node_num,
+                    max_workers=max_workers or node_num,
+                    job_name=os.getenv(
+                        "DLROVER_TPU_JOB_NAME", "default"
+                    ),
+                ),
+                scaler,
+                speed_monitor=self.speed_monitor,
+                job_manager=self.job_manager,
+                rendezvous_manager=self.rdzv_managers.get(
+                    RendezvousName.NETWORK_CHECK
+                ),
+            )
+
+    def run(self) -> int:
+        exit_code = 0
+        if self.auto_scaler is not None:
+            self.auto_scaler.start()
+        while not self._stopped.is_set():
+            if self.job_manager.all_workers_exited():
+                if self.job_manager.all_workers_failed():
+                    self.request_stop(
+                        False, JobExitReason.WORKER_ERROR
+                    )
+                    exit_code = 1
+                else:
+                    self.request_stop(True, JobExitReason.SUCCEEDED)
+                break
+            stop_reason = self.job_manager.should_stop_job()
+            if stop_reason:
+                logger.error("stopping job: %s", stop_reason)
+                self.request_stop(False, JobExitReason.WORKER_ERROR)
+                exit_code = 1
+                break
+            if self.speed_monitor.step_is_stagnant():
+                logger.warning("global step stagnant: possible hang")
+                self.request_stop(False, JobExitReason.HANG_ERROR)
+                exit_code = 1
+                break
+            if self.task_manager.finished():
+                self.request_stop(True, JobExitReason.SUCCEEDED)
+                break
+            self.process_diagnosis()
+            self._stopped.wait(self.SUPERVISE_INTERVAL)
+        if self.auto_scaler is not None:
+            self.auto_scaler.stop()
+        return exit_code
 
 
 def run_local_master(port: int, node_num: int) -> LocalJobMaster:

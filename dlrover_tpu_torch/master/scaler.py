@@ -10,7 +10,11 @@ Copy of ``dlrover_tpu/master/scaler.py`` (imports rewritten).  A
 ``TpuPodScaler``, the same logic) drives the k8s API when the
 ``kubernetes`` package exists; the pod template decides the
 accelerator.  ``InMemoryScaler`` is the test double (reference tests
-mock k8sClient the same way, SURVEY.md §4).
+mock k8sClient the same way, SURVEY.md §4).  ``Scaler.scale_to`` and
+``relaunch`` are the port's: the reference's ``DistributedJobManager``
+calls both and no scaler of the reference defines either, so its
+distributed master with a scaler fails at ``start``.  Both are plans
+through ``scale``.
 """
 
 import threading
@@ -31,6 +35,21 @@ class Scaler(metaclass=ABCMeta):
     @abstractmethod
     def scale(self, plan: ScalePlan):
         ...
+
+    def scale_to(self, count: int, node_type: str = NodeType.WORKER):
+        """Target ``count`` nodes of ``node_type``: what
+        ``DistributedJobManager.start`` asks for."""
+        plan = ScalePlan()
+        plan.node_group_resources[node_type] = {"count": count}
+        self.scale(plan)
+
+    def relaunch(self, node: Node, new_node: Node):
+        """Replace a dead node: its pod goes, and one for ``new_node``'s
+        id comes (``DistributedJobManager._maybe_relaunch``)."""
+        plan = ScalePlan()
+        plan.remove_nodes.append(node.name)
+        plan.launch_nodes.append({"type": new_node.type, "id": new_node.id})
+        self.scale(plan)
 
 
 class InMemoryScaler(Scaler):

@@ -26,8 +26,13 @@ The device kind follows the process's device: a CUDA mesh needs an
 NCCL world, a CPU mesh a gloo one.  There is no other pairing: a CUDA
 gradient never syncs over gloo.
 
-``create_hybrid_parallel_mesh`` (DCN axes across slices, ICI inside)
-waits for the multi-node launch: ROADMAP A3c.3d.
+``create_hybrid_parallel_mesh`` (the reference's ``:158``) lays the DCN
+axes across nodes and keeps the ICI axes inside one: the ranks are
+grouped by node (``granule_fn(rank)``, by default each rank's node
+index, gathered over the world), nodes in numeric order, and the mesh
+is ``create_parallel_mesh`` of the DCN axes (outermost) then the ICI
+axes.  The agent numbers ranks node by node, so that order is the
+ranks' own; a grouping that would need another order is refused.
 """
 
 import math
@@ -268,11 +273,87 @@ def create_parallel_mesh(
     return ctx
 
 
-def create_hybrid_parallel_mesh(*args, **kwargs) -> MeshContext:
-    raise NotImplementedError(
-        "create_hybrid_parallel_mesh (DCN axes across nodes, ICI axes "
-        "inside one) comes with the multi-node launch: ROADMAP A3c.3d"
-    )
+def _granule_order(key):
+    """Numeric keys in numeric order (node 10 after node 2), then the
+    others by their text."""
+    return (0, key, "") if isinstance(key, int) else (1, 0, str(key))
+
+
+def hybrid_layout(
+    dcn_config: Sequence[Tuple[str, int]],
+    ici_config: Sequence[Tuple[str, int]],
+    granules: Sequence[object],
+) -> Tuple[List[Tuple[str, int]], List[int]]:
+    """``(dims, layout)`` of the hybrid mesh whose rank ``r`` lies in
+    granule ``granules[r]``: the DCN dims over the granules, the ICI
+    dims over the ranks of one granule, and the global ranks in the
+    mesh's row-major order (granules in ``_granule_order``, each
+    granule's ranks in rank order).  Uneven granules raise."""
+    groups: Dict[object, List[int]] = {}
+    for rank, key in enumerate(granules):
+        groups.setdefault(key, []).append(rank)
+    keys = sorted(groups, key=_granule_order)
+    per = {len(g) for g in groups.values()}
+    if len(per) != 1:
+        raise ValueError(
+            f"uneven granules: {sorted(per)} ranks per granule")
+    dcn_dims = _resolve_dims(dcn_config, len(keys))
+    ici_dims = _resolve_dims(ici_config, per.pop())
+    return (list(dcn_dims) + list(ici_dims),
+            [r for k in keys for r in groups[k]])
+
+
+def _node_indices(world: int) -> List[int]:
+    """Every rank's node index (``DLROVER_TPU_NODE_INDEX``), gathered
+    over the world."""
+    from dlrover_tpu_torch.common.env import get_node_index
+
+    mine = get_node_index()
+    if world <= 1:
+        return [mine]
+    import torch.distributed as dist
+
+    rows = [None] * world
+    dist.all_gather_object(rows, mine)
+    return [int(r) for r in rows]
+
+
+def create_hybrid_parallel_mesh(
+    dcn_config: Sequence[Tuple[str, int]],
+    ici_config: Sequence[Tuple[str, int]],
+    device: Optional[torch.device] = None,
+    set_global: bool = True,
+    granule_fn=None,
+) -> MeshContext:
+    """Multi-node mesh: DCN axes stride ACROSS nodes, ICI axes stay
+    INSIDE a node (reference ``dlrover_tpu/parallel/mesh.py:158``, where
+    the granule is a TPU slice).  Put data and pipe in ``dcn_config``,
+    tensor, seq, expert and fsdp in ``ici_config``: their collectives
+    then run over the node's own links.
+
+    ``granule_fn(rank) -> key`` groups the world's ranks (default: each
+    rank's node index, gathered over the world; the test seam).  The
+    mesh is ``create_parallel_mesh`` over the DCN axes (outermost) then
+    the ICI axes, so ``destroy_parallel_mesh`` frees it the same way.
+    Where the granules in numeric order do not hold the ranks in their
+    own order (the reference permutes its devices; the agent numbers
+    ranks node by node, so no launch of the port does this), it raises.
+    """
+    world, _ = _world()
+    if granule_fn is None:
+        granules = _node_indices(world)
+    else:
+        granules = [granule_fn(r) for r in range(world)]
+    dims, layout = hybrid_layout(dcn_config, ici_config, granules)
+    if layout != list(range(world)):
+        raise ValueError(
+            f"granules {granules} do not hold the ranks in order: the "
+            "ranks of one node must follow each other, nodes in "
+            "numeric order")
+    n_dcn = len(list(dcn_config))
+    logger.info("hybrid mesh: dcn %s x ici %s over %d ranks",
+                dict(dims[:n_dcn]), dict(dims[n_dcn:]), world)
+    return create_parallel_mesh(dims, device=device, set_global=set_global)
 
 
 def get_mesh_context() -> Optional[MeshContext]:

@@ -1,5 +1,37 @@
 """The Brain on two cards: a node slowed mid-run is branded a straggler,
-drained by one planned action, and the job finishes on the other card.
+drained by one planned action, and the job finishes on the other card,
+or, where the master has a scaler, grows back to two.
+
+The grow run (first; ``--skip-grow`` leaves it out) holds its master in
+this process: a ``DistributedJobMaster`` with an ``ElasticJobScaler``,
+and an ``ElasticJobController``, over one ``FakeK8s`` client, so that
+only the k8s API is faked.  The ElasticJob's worker template is one
+launcher of the example on one card (``$(NODE_RANK)``, ``$(CARD)``), and
+the client starts a worker pod once a card is free, as the device
+plugin would; ``delete_pod`` sends the launcher SIGTERM.  The master's
+start writes a ScalePlan of two workers, which the controller turns
+into the two first pods; the Brain's ``drain_replace`` of the slowed
+node (2 -> 2: with a scaler it replaces) writes a second, migrating the
+drained pod, and the controller creates its replacement (node 2, whose
+pod asks for ``nvidia.com/gpu``) on the freed card.  The run requires
+exactly one decision, the two ScalePlans applied, the replacement
+launched and at world 2 with node 0, the two replicas' digests equal at
+every step both took after the grow (``--digest_every_incarnation``)
+and their states at the end, and a two-card run resumed from a copy of
+the checkpoint the grow restored bit for bit with them; it prints the
+decision -> the replacement's launch -> its first step at world 2 and
+the wall to the target step.  The replacement comes once node 0 has
+re-meshed into the world of 1 the drain leaves (the Brain's pod-side
+leg waits for that), so node 0's next restart commits a step of that
+world, which both restore; the launchers wait 30 s in the rendezvous
+(5 s on gloo), so the replacement waits out node 0's restart (~11 s on
+the cards) instead of forming a world alone; its Brain cools down 120 s (the
+default), so the world of 1 is not grown by a decision of its own.
+
+``--slow-rank`` (1 by default) is the node slowed, and drained, in every
+run; with 0 the survivor is node 1, whose index in the world moves to
+0 (C10: it must resume from its own newest snapshot, at or past the
+last step both nodes snapshotted).
 
 One master (``python -m dlrover_tpu_torch.master.main --node_num 2``,
 a Brain db, ``--status_port 0``) on timescales that are not the port's
@@ -19,7 +51,8 @@ sleeps ``--step-sleep`` seconds after each step (simulated work) and
 node 1 sleeps ``--slow-factor`` times that from step ``--slow-from`` on
 (the example's sleep fault).
 
-Run 1 (the Brain on, its default) requires: node 1 branded a straggler
+Run 1 (the Brain on, its default, no scaler) requires, with the slow
+node ``--slow-rank`` 1: node 1 branded a straggler
 on the master's ``/status``; exactly one ``scale_decision``
 (``drain_replace`` of node 1, reason ``straggler:...``, world 2 -> 1);
 node 1's launcher exits with ``NODE_PREEMPTED`` (43); ``scale_execute``
@@ -44,9 +77,11 @@ live under ``build/brain_nccl/``, their logs go to
 
     python3 scripts/torch_brain_nccl.py                 # two cards
     python3 scripts/torch_brain_nccl.py --device cpu    # gloo, no card
+    python3 scripts/torch_brain_nccl.py --slow-rank 0 --skip-grow
 """
 
 import argparse
+import copy
 import json
 import os
 import re
@@ -77,6 +112,14 @@ BRAIN_ENV = {"DLROVER_TPU_BRAIN_INTERVAL_S": "0.5",
              # of the step before it) and its 8 GB flush outlast the
              # default 20 s on two H100s, and the master fenced it instead
              "DLROVER_TPU_BRAIN_EXEC_DEADLINE_S": "60"}
+#: the grow run's Brain: those timescales with the default cooldown
+#: (120 s), so that the world of 1 the drain leaves, while the
+#: replacement starts, is not grown a second time by a decision of its own
+GROW_ENV = dict(BRAIN_ENV, DLROVER_TPU_BRAIN_COOLDOWN_S="120",
+                # a replacing drain is done once node 0 has re-meshed,
+                # 45-58 s after the decision on the cards (PRs 15-16)
+                DLROVER_TPU_BRAIN_EXEC_DEADLINE_S="120")
+GROW_JOB = "brain-grow"
 NODE_PREEMPTED = 43
 CARD_MODEL = ["--config", "llama2_7b", "--layers", "2", "--seq", "2048",
               "--batch", "4"]
@@ -126,6 +169,24 @@ class Master:
                  "--status_port", "0", "--job_name", JOB],
                 cwd=REPO, env=env, stdout=f, stderr=subprocess.STDOUT,
                 start_new_session=True)
+        self.poller = StatusPoller(self._base)
+        self.status = self.poller.status
+
+    def _base(self):
+        m = re.search(r"DLROVER_TPU_STATUS_PORT=(\d+)", self.log.read_text())
+        return None if m is None else f"http://127.0.0.1:{m.group(1)}"
+
+    def stop(self):
+        self.poller.stop()
+        _stop(self.proc)
+
+
+class StatusPoller:
+    """A master's ``/status``, read every half second from the moment
+    ``base_fn()`` names its address."""
+
+    def __init__(self, base_fn):
+        self._base_fn = base_fn
         #: every /status read, with the wall clock it was taken at
         self.status = []
         self._stop = threading.Event()
@@ -136,11 +197,9 @@ class Master:
         base = None
         while not self._stop.wait(0.5):
             if base is None:
-                m = re.search(r"DLROVER_TPU_STATUS_PORT=(\d+)",
-                              self.log.read_text())
-                if m is None:
+                base = self._base_fn()
+                if base is None:
                     continue
-                base = f"http://127.0.0.1:{m.group(1)}"
             try:
                 status = json.loads(urllib.request.urlopen(
                     base + "/status", timeout=2).read().decode())
@@ -151,7 +210,6 @@ class Master:
     def stop(self):
         self._stop.set()
         self._thread.join(timeout=5)
-        _stop(self.proc)
 
 
 def launch_node(run_dir: Path, log_dir: Path, node: int, master: Master,
@@ -317,6 +375,454 @@ def copy_shard(src: Path, shard: int, step: int, dest: Path):
     (dest / C.TRACKER_FILE).write_text(str(step))
 
 
+class FakeK8s:
+    """The k8s API of the grow run, inside this process: the one client
+    that the master's ``ElasticJobScaler`` and the ``ElasticJobController``
+    share.  Custom resources are dicts.  A worker pod is a launcher on one
+    card: ``create_pod`` queues it, and it starts once a card is free (the
+    device plugin's part: a card is free when the launcher that held it
+    has exited), with its container's command and env, ``$(VAR)``
+    expanded from the env as k8s does and ``CARD`` naming the card it got.
+    ``delete_pod`` sends the pod's launcher SIGTERM.  The master's pod is
+    this process: it is listed and never launched."""
+
+    def __init__(self, cards, log_dir: Path, run: str, env: dict):
+        self.pods = {}
+        self.crds = {"elasticjobs": {}, "scaleplans": {}}
+        self.procs = {}
+        self.card = {}
+        #: pod name -> wall time of its launch / deletion / exit seen
+        self.launched, self.deleted, self.exited = {}, {}, {}
+        self._free = list(cards)
+        self._pending = []
+        self._lock = threading.Lock()
+        self._log_dir, self._run, self._env = log_dir, run, env
+        self._stopped = threading.Event()
+        self._thread = threading.Thread(target=self._schedule, daemon=True)
+        self._thread.start()
+
+    def create_pod(self, manifest):
+        name = manifest["metadata"]["name"]
+        with self._lock:
+            self.pods[name] = copy.deepcopy(manifest)
+            if manifest["metadata"]["labels"].get("node-type") == "worker":
+                self._pending.append(name)
+
+    def delete_pod(self, name):
+        with self._lock:
+            self.pods.pop(name, None)
+            self.deleted[name] = time.time()
+            proc = self.procs.get(name)
+        if proc is not None and proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+
+    def list_pods(self, label_selector=""):
+        want = dict(kv.split("=") for kv in label_selector.split(",") if kv)
+        with self._lock:
+            return {"items": [
+                copy.deepcopy(p) for p in self.pods.values()
+                if all(p["metadata"]["labels"].get(k) == v
+                       for k, v in want.items())]}
+
+    def create_custom_resource(self, group, version, plural, body):
+        with self._lock:
+            body = copy.deepcopy(body)
+            body["metadata"].setdefault(
+                "uid", f"uid-{plural}-{len(self.crds[plural])}")
+            self.crds[plural][body["metadata"]["name"]] = body
+
+    def list_custom_resource(self, group, version, plural):
+        with self._lock:
+            return {"items": [copy.deepcopy(v)
+                              for v in self.crds[plural].values()]}
+
+    def update_custom_resource_status(self, group, version, plural, name,
+                                      body):
+        with self._lock:
+            self.crds[plural][name].setdefault("status", {}).update(
+                copy.deepcopy(body["status"]))
+
+    def _schedule(self):
+        while not self._stopped.wait(0.2):
+            with self._lock:
+                for name, proc in self.procs.items():
+                    if proc.poll() is not None:
+                        self.exited.setdefault(name, time.time())
+                        if name in self.card:
+                            self._free.append(self.card.pop(name))
+                while self._pending and self._free:
+                    name = self._pending.pop(0)
+                    self.card[name] = self._free.pop(0)
+                    self.procs[name] = self._launch(name, self.card[name])
+                    self.launched[name] = time.time()
+
+    def _launch(self, name, card):
+        container = self.pods[name]["spec"]["containers"][0]
+        sock = tempfile.mkdtemp(prefix=f"dtg{card}", dir="/tmp")
+        env = dict(self._env, CARD=str(card),
+                   DLROVER_TPU_TORCH_SOCKET_DIR=sock)
+        env.update({e["name"]: e["value"] for e in container.get("env", [])})
+        cmd = [re.sub(r"\$\((\w+)\)", lambda m: env[m.group(1)], a)
+               for a in container["command"]]
+        log = open(self._log_dir / f"{self._run}_{name}.log", "w")
+        proc = subprocess.Popen(cmd, cwd=REPO, env=env, stdout=log,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        proc.sock, proc.logf = sock, log
+        return proc
+
+    def exits(self):
+        """``{pod: returncode}`` of the launchers that have exited."""
+        with self._lock:
+            return {n: p.returncode for n, p in self.procs.items()
+                    if p.poll() is not None}
+
+    def idle(self) -> bool:
+        with self._lock:
+            return not self._pending and all(
+                p.poll() is not None for p in self.procs.values())
+
+    def close(self):
+        self._stopped.set()
+        self._thread.join(timeout=5)
+        for proc in self.procs.values():
+            _stop(proc)
+            proc.logf.close()
+            shutil.rmtree(proc.sock, ignore_errors=True)
+
+
+def elastic_job(run_dir: Path, master_addr: str, model, args) -> dict:
+    """The grow run's ElasticJob: its worker template is one launcher of
+    the example on one card, which asks for that card."""
+    device = [] if args.device == "cpu" else ["--device", "cuda:$(CARD)"]
+    command = [
+        sys.executable, "-m", "dlrover_tpu_torch.run", "--nnodes=1:2",
+        "--nproc_per_node=1", "--node_rank=$(NODE_RANK)",
+        f"--master_addr={master_addr}", "--max-restarts=2",
+        "--monitor_interval=0.5",
+        # the replacement waits this long in the rendezvous for node 0,
+        # whose restart (drain, flush, commit) takes ~11 s on the cards
+        # and ~3 s on gloo: at 2 s it formed a world of its own from
+        # step 0 meanwhile
+        f"--rdzv_waiting_timeout={5 if args.device == 'cpu' else 30}",
+        "--failure_stop_timeout=2",
+        f"--events_file={run_dir}/events_node$(NODE_RANK).jsonl",
+        "-m", "dlrover_tpu_torch.examples.llama_pretrain", *model, *device,
+        "--steps", str(args.steps), "--data", "2",
+        "--save_memory_interval", "1", "--save_storage_interval", "1000",
+        "--ckpt_dir", str(run_dir / "ckpt"),
+        "--report_dir", f"{run_dir}/rep/node$(NODE_RANK)",
+        "--step_sleep", str(args.step_sleep),
+        "--slow_from_step", str(args.slow_from),
+        "--slow_rank", str(args.slow_rank),
+        "--slow_factor", str(args.slow_factor),
+        "--state_digests", "--digest_from_step", str(args.slow_from),
+        "--digest_every_incarnation"]
+    return {
+        "apiVersion": "elastic.dlrover-tpu.io/v1alpha1",
+        "kind": "ElasticJob",
+        "metadata": {"name": GROW_JOB, "uid": "grow-1"},
+        "spec": {"replicaSpecs": {"worker": {"replicas": 2, "template": {
+            "spec": {"containers": [{
+                "name": "worker", "image": "local",
+                "command": command,
+                "resources": {"limits": {"nvidia.com/gpu": 1}}}]}}}}}}
+
+
+def run_grow(root: Path, log_dir: Path, model, args):
+    """The grow run: the master of this process (``DistributedJobMaster``
+    with an ``ElasticJobScaler``) and an ``ElasticJobController`` over one
+    ``FakeK8s``; the master's start asks for the two workers, the
+    controller makes their pods, and the drained node's replacement comes
+    the same way.  Returns the readings."""
+    from dlrover_tpu_torch.common.env import get_free_port
+    from dlrover_tpu_torch.master.controller import (
+        ELASTICJOB_PLURAL,
+        GROUP,
+        MASTER_SUFFIX,
+        VERSION,
+        ElasticJobController,
+    )
+    from dlrover_tpu_torch.master.master import DistributedJobMaster
+    from dlrover_tpu_torch.master.scaler import ElasticJobScaler
+    from dlrover_tpu_torch.observability.events import (
+        read_events,
+        set_default_event_logger,
+    )
+
+    run_dir = root / "brain_grow"
+    for node in range(4):
+        (run_dir / "rep" / f"node{node}").mkdir(parents=True)
+    launcher_env = dict(
+        os.environ, PYTHONPATH=str(REPO), DLROVER_TPU_BRAIN="1",
+        # the preemption watcher asks a port on this machine that refuses
+        # connections, never a real metadata server
+        DLROVER_TPU_METADATA_BASE="http://127.0.0.1:9/",
+        DLROVER_TPU_TIMELINE_REPORT_S="1.0",
+        DLROVER_TPU_PREEMPT_DRAIN_GRACE_S="15",
+        DLROVER_TPU_EMERGENCY_COMMIT_TIMEOUT_S="3")
+    if args.device == "cpu":
+        launcher_env["OMP_NUM_THREADS"] = "1"
+    port = get_free_port()
+    saved = dict(os.environ)
+    # the master's environment: this process's
+    os.environ.update(GROW_ENV, DLROVER_TPU_BRAIN="1",
+                      DLROVER_TPU_JOB_NAME=GROW_JOB,
+                      DLROVER_TPU_EVENTS_FILE=str(
+                          run_dir / "master_events.jsonl"),
+                      DLROVER_TPU_STATUS_PORT="0")
+    # the master's timeline goes to its events file
+    set_default_event_logger(None)
+    client = FakeK8s((0, 1), log_dir, "brain_grow", launcher_env)
+    client.create_custom_resource(
+        GROUP, VERSION, ELASTICJOB_PLURAL,
+        elastic_job(run_dir, f"127.0.0.1:{port}", model, args))
+    # the master's pod is this process: the controller finds it
+    client.pods[f"{GROW_JOB}{MASTER_SUFFIX}"] = {"metadata": {
+        "name": f"{GROW_JOB}{MASTER_SUFFIX}",
+        "labels": {"job": GROW_JOB, "node-type": "master"}}}
+    master = DistributedJobMaster(
+        port, 2, scaler=ElasticJobScaler(GROW_JOB, k8s_client=client))
+    controller = ElasticJobController(client, resync_interval=0.5)
+    poller = None
+    t0 = time.time()
+    try:
+        master.prepare()
+        controller.start()
+        threading.Thread(target=master.run, daemon=True).start()
+        poller = StatusPoller(
+            lambda: f"http://127.0.0.1:{master.status_server.port}")
+        deadline = t0 + args.timeout
+        while not (client.launched and client.idle()):
+            require(time.time() < deadline, "brain_grow: timed out")
+            time.sleep(0.2)
+        time.sleep(0.5)  # the scheduler's last exit times
+        exits = client.exits()
+    finally:
+        controller.stop()
+        if poller is not None:
+            poller.stop()
+        master.stop()
+        client.close()
+        os.environ.clear()
+        os.environ.update(saved)
+        set_default_event_logger(None)
+    reports = {}
+    for path in (run_dir / "rep").glob("node*/rank*_inc*.json"):
+        d = json.loads(path.read_text())
+        reports[(int(path.parent.name[4:]), d["restart_count"])] = d
+    return {"t0": t0, "exits": exits, "reports": reports,
+            "master_events": read_events(str(run_dir / "master_events.jsonl")),
+            "node_events": {n: read_events(str(p)) for n, p in (
+                (int(p.stem[len("events_node"):]), p)
+                for p in run_dir.glob("events_node*.jsonl"))},
+            "status": poller.status, "dir": run_dir, "client": client}
+
+
+def two_card_run(root: Path, log_dir: Path, name: str, ckpt: Path, model,
+                 args):
+    """Two launchers of the example (Brain off, no slow node, no sleep),
+    node n on card n, resumed from ``ckpt``; returns each node's report."""
+    run_dir = root / name
+    env = dict(os.environ, PYTHONPATH=str(REPO), DLROVER_TPU_BRAIN="0")
+    master = Master(run_dir, env, log_dir)
+    procs = []
+    try:
+        for node in (0, 1):
+            rep = run_dir / f"rep{node}"
+            rep.mkdir(parents=True)
+            sock = tempfile.mkdtemp(prefix=f"dtr{node}", dir="/tmp")
+            penv = dict(env, DLROVER_TPU_TORCH_SOCKET_DIR=sock,
+                        DLROVER_TPU_METADATA_BASE="http://127.0.0.1:9/")
+            device = ["--device", f"cuda:{node}"]
+            if args.device == "cpu":
+                penv["OMP_NUM_THREADS"] = "1"
+                device = []
+            cmd = [sys.executable, "-m", "dlrover_tpu_torch.run",
+                   "--nnodes=2", "--nproc_per_node=1", f"--node_rank={node}",
+                   f"--master_addr={master.addr}", "--max-restarts=0",
+                   "--monitor_interval=0.5",
+                   "-m", "dlrover_tpu_torch.examples.llama_pretrain", *model,
+                   *device, "--steps", str(args.steps), "--data", "2",
+                   "--save_memory_interval", "1000",
+                   "--save_storage_interval", "1000",
+                   "--ckpt_dir", str(ckpt), "--report_dir", str(rep),
+                   "--state_digests"]
+            log = open(log_dir / f"{name}_node{node}.log", "w")
+            proc = subprocess.Popen(cmd, cwd=REPO, env=penv, stdout=log,
+                                    stderr=subprocess.STDOUT,
+                                    start_new_session=True)
+            proc.sock, proc.logf = sock, log
+            procs.append(proc)
+        deadline = time.time() + args.timeout
+        while any(p.poll() is None for p in procs):
+            require(time.time() < deadline, f"{name}: timed out")
+            time.sleep(0.2)
+        require(all(p.returncode == 0 for p in procs),
+                f"{name}: exits {[p.returncode for p in procs]}")
+    finally:
+        for proc in procs:
+            _stop(proc)
+            proc.logf.close()
+            shutil.rmtree(proc.sock, ignore_errors=True)
+        master.stop()
+    return [json.loads(next((run_dir / f"rep{n}").glob(
+        "rank*_inc0.json")).read_text()) for n in (0, 1)]
+
+
+def check_grow(r, root, logs, model, args, card):
+    """The grow run's readings: one decision, the replacement through
+    ScalePlan -> controller -> pod, the world back at 2, the replicas
+    equal, and bit for bit with two cards resumed from the checkpoint the
+    grow restored."""
+    from dlrover_tpu_torch.common.constants import CheckpointConstant as C
+    from dlrover_tpu_torch.master.controller import SCALEPLAN_PLURAL
+
+    slow = args.slow_rank
+    client = r["client"]
+    pod = lambda n: f"{GROW_JOB}-worker-{n}"  # noqa: E731
+    evs = r["master_events"]
+    decisions = _named(evs, "scale_decision")
+    executes = _named(evs, "scale_execute")
+    print(f"[grow] scale_decision {[e['labels'] for e in decisions]}; "
+          f"scale_execute {[e['labels'] for e in executes]}", flush=True)
+    require(len(decisions) == 1, f"{len(decisions)} decisions, not one")
+    d = decisions[0]["labels"]
+    require(d["action"] == "drain_replace" and d["target_node"] == slow
+            and str(d["reason"]).startswith("straggler:")
+            and (d["from_world"], d["to_world"]) == (2, 2),
+            f"the decision is not a drain of node {slow} with its "
+            f"replacement, 2 -> 2: {d}")
+    require([e["labels"]["outcome"] for e in executes] == ["done"],
+            f"scale_execute: {[e['labels'] for e in executes]}")
+    # the chain: the job manager's start, then the drain's migrate plan,
+    # each applied by the controller
+    plans = [client.crds[SCALEPLAN_PLURAL][k]
+             for k in sorted(client.crds[SCALEPLAN_PLURAL])]
+    specs = [p["spec"] for p in plans]
+    print(f"[grow] ScalePlans {[(p['metadata']['name'], p['spec'], p.get('status', {}).get('phase')) for p in plans]}",
+          flush=True)
+    require(len(plans) == 2 and all(p["status"]["phase"] == "Succeeded"
+                                    for p in plans), "the ScalePlans")
+    require(specs[0]["replicaResourceSpecs"] == {"worker": {"count": 2}},
+            f"the first plan: {specs[0]}")
+    require(list(specs[1]["migratePods"]) == [pod(slow)],
+            f"the drain's plan: {specs[1]}")
+    new = pod(2)
+    require(sorted(client.launched) == [pod(0), pod(1), new],
+            f"launched pods {sorted(client.launched)}")
+    spec = client.pods[new]["spec"]["containers"][0]
+    require(spec["resources"]["limits"] == {"nvidia.com/gpu": 1},
+            f"the replacement's pod asks for {spec['resources']}")
+    require(pod(slow) in client.deleted, "the drained pod was not deleted")
+    exits = r["exits"]
+    # the drained node exits with the preemption code, or, where the
+    # controller's deletion of its pod finds its launcher still tearing
+    # down (the interpreter's exit restores SIGTERM's default), by it
+    require(exits.get(pod(slow)) in (NODE_PREEMPTED, -signal.SIGTERM)
+            and exits.get(pod(1 - slow)) == 0 and exits.get(new) == 0,
+            f"exits {exits}")
+    rep = r["reports"]
+    surv = 1 - slow
+    mine = sorted(k for k in rep if k[0] == surv)
+    # the survivor's rendezvous rounds, from its launcher's log
+    worlds = [int(w) for w in re.findall(
+        r"round \d+: world_size=(\d+)",
+        (logs / f"brain_grow_{pod(surv)}.log").read_text())]
+    print(f"[grow] node {surv}'s worlds by round {worlds}; its reports "
+          f"{mine}; the replacement's (node 2) "
+          f"{sorted(k for k in rep if k[0] == 2)}", flush=True)
+    # the drain leaves node 0 a world of 1, and the replacement, launched
+    # once it re-meshed, makes it 2 again
+    require(worlds[:1] == [2] and 1 in worlds and worlds[-1] == 2
+            and worlds.index(1) < len(worlds) - 1,
+            f"node {surv}'s worlds {worlds}, not 2, ..., 1, ..., 2")
+    last = rep[mine[-1]]
+    repl = [rep[k] for k in rep if k[0] == 2]
+    require(len(repl) == 1 and repl[0]["world"] == 2
+            and repl[0]["node_rank"] == 2, "the replacement's report")
+    repl = repl[0]
+    key = lambda h: [(x["step"], x["loss"], x["grad_norm"]) for x in h]  # noqa: E731
+    require(last["history"] and last["history"][-1]["step"] == args.steps,
+            f"node {surv} did not finish the target steps")
+    require(key(repl["history"]) == key(last["history"]),
+            "the replicas' steps after the grow differ")
+    require(repl["restored"] == last["restored"],
+            f"the replicas restored {repl['restored']} and "
+            f"{last['restored']}")
+    R = last["restored"]["step"]
+    # no step of the world of 2 is lost, and the grown world resumes
+    # from a state the survivor held (digested) before the grow
+    held = {}
+    for x in mine[:-1]:
+        held.update({int(k): v for k, v in
+                     rep[x].get("snapshot_digests", {}).items()})
+    newest2 = max(int(k) for k in rep[mine[0]].get("snapshot_digests", {}))
+    require(R >= newest2, f"the grown world restored step {R}, before "
+            f"node {surv}'s newest step in the world of 2, {newest2}")
+    require(held.get(R) == last["restored"]["digest"],
+            f"the grown world's restored state is not node {surv}'s state "
+            f"at step {R} (digested steps {sorted(held)})")
+    a = {int(k): v for k, v in last.get("snapshot_digests", {}).items()}
+    b = {int(k): v for k, v in repl.get("snapshot_digests", {}).items()}
+    common = sorted(set(a) & set(b))
+    require(common and all(a[k] == b[k] for k in common),
+            f"the replicas' digests differ or share no step: {common}")
+    require(last["digests"] == repl["digests"], "the final states differ")
+    print(f"[grow] node {surv} and the replacement restored step {R} "
+          f"({last['io_log'][:1]} / {repl['io_log'][:1]}) and agree by "
+          f"pytree_digest at steps {common} and at the end", flush=True)
+    # the checkpoint the grow restored, copied, on two cards
+    src = Path(r["dir"]) / "ckpt" / f"{C.CKPT_DIR_PREFIX}{R}"
+    require(src.is_dir(), f"no committed checkpoint of step {R}")
+    copy_dir = root / "grow_resume_ckpt"
+    shutil.copytree(src, copy_dir / src.name)
+    (copy_dir / C.TRACKER_FILE).write_text(str(R))
+    two = two_card_run(root, logs, "grow_resume", copy_dir, model, args)
+    for n, other in zip((0, 1), (last, repl)):
+        require(two[n]["restored"] == last["restored"],
+                f"the two-card run's node {n} restored {two[n]['restored']}")
+        require(key(two[n]["history"]) == key(other["history"]),
+                f"the two-card run's node {n} differs from the grown world")
+        require(two[n]["digests"] == other["digests"],
+                f"the two-card run's node {n} ends in another state")
+    print(f"[grow] a two-card run resumed from a copy of checkpoint {R} "
+          f"({sorted(p.name for p in src.iterdir())}) ran steps "
+          f"{R + 1}-{args.steps} bit for bit with the grown world", flush=True)
+    # the sleep fault keys on the launcher's own node rank: the
+    # replacement (node 2) is not the slowed node 1, though it holds
+    # node 1's place (index 1) in the world
+    require(repl["node_rank"] == 2 != slow,
+            f"the replacement runs as node {repl['node_rank']}")
+    h0 = rep[(surv, 0)]["history"]
+    before, during = stretches(h0, args.slow_from)
+    after = statistics.median(h["step_time_s"] for h in repl["history"][1:])
+    mine_after = statistics.median(
+        h["step_time_s"] for h in last["history"][1:])
+    # the legs, on the host clock
+    t_dec = decisions[0]["wall"]
+    t_launch = client.launched[new]
+    t_first = repl["marks"].get("first_step_done", float("nan"))
+    legs = {"scale_decision -> the drained node's pod deleted":
+                client.deleted[pod(slow)] - t_dec,
+            "scale_decision -> the replacement's launch": t_launch - t_dec,
+            "the replacement's launch -> its first step at world 2":
+                t_first - t_launch,
+            "scale_decision -> the replacement's first step at world 2":
+                t_first - t_dec}
+    print(f"[grow] {card} | grow timeline (host clock): "
+          + "; ".join(f"{k} {v:.3f} s" for k, v in legs.items()), flush=True)
+    print(f"[grow] {card} | step time (median, card clock where there is a "
+          f"card): node {surv} before the slowdown {before} s, during it "
+          f"{during} s; after the grow (a digest every step) node {surv} "
+          f"{mine_after} s, the replacement {after} s", flush=True)
+    return {"decision": d, "restored_step": R, "worlds": worlds,
+            "grow_legs": legs, "digested_steps": common,
+            "replacement_step_s": after,
+            "node_steps_s": {"before": before, "during": during},
+            "wall_grow": client.exited[pod(surv)] - r["t0"]}
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--device", default="",
@@ -325,7 +831,13 @@ def main():
     ap.add_argument("--slow-from", type=int, default=0)
     ap.add_argument("--slow-factor", type=float, default=5.0)
     ap.add_argument("--step-sleep", type=float, default=0.0)
+    ap.add_argument("--slow-rank", type=int, default=1, choices=(0, 1),
+                    help="the node slowed, and drained, in every run")
     ap.add_argument("--timeout", type=float, default=0.0)
+    ap.add_argument("--skip-grow", action="store_true",
+                    help="leave out the grow run")
+    ap.add_argument("--skip-on", action="store_true",
+                    help="leave out run 1 (the Brain on, no scaler)")
     ap.add_argument("--skip-off", action="store_true",
                     help="leave out run 2 (DLROVER_TPU_BRAIN=0)")
     args = ap.parse_args()
@@ -336,7 +848,6 @@ def main():
     args.slow_from = args.slow_from or (6 if cpu else 4)
     args.step_sleep = args.step_sleep or (0.4 if cpu else 0.5)
     args.timeout = args.timeout or (300.0 if cpu else 900.0)
-    args.slow_rank = 1  # the checks below read node 1 as the slow node
     sys.path.insert(0, str(REPO))
     card = "cpu (gloo)"
     if not cpu:
@@ -358,23 +869,39 @@ def main():
     for d in (root, logs):
         shutil.rmtree(d, ignore_errors=True)
     logs.mkdir(parents=True)
+    readings = {"slow_rank": args.slow_rank}
+    walls = []
     try:
-        on = run_job(root, logs, "brain_on", True, model, args)
-        readings = check_brain_on(on, root, logs, model, args, card)
+        # first: its master lives in this process
+        if not args.skip_grow:
+            grow = run_grow(root, logs, model, args)
+            readings.update(check_grow(grow, root, logs, model, args, card))
+            walls.append(f"Brain with a scaler (the world grows back) "
+                         f"{readings['wall_grow']:.3f} s")
+        if not args.skip_on:
+            on = run_job(root, logs, "brain_on", True, model, args)
+            readings.update(check_brain_on(on, root, logs, model, args,
+                                           card))
+            walls.append(f"Brain without a scaler {readings['wall_on']:.3f}"
+                         " s")
         if not args.skip_off:
             off = run_job(root, logs, "brain_off", False, model, args)
             readings.update(check_brain_off(off, args, card))
+            walls.append(f"Brain off {readings['wall_off']:.3f} s")
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    off_s = ("not run" if args.skip_off
-             else f"{readings['wall_off']:.3f} s")
-    print(f"{card} | wall to step {args.steps}: Brain on "
-          f"{readings['wall_on']:.3f} s, Brain off {off_s}", flush=True)
-    print(json.dumps({"brain_nccl": readings}), flush=True)
+    print(f"{card} | wall to step {args.steps} (node {args.slow_rank} "
+          f"slowed): " + "; ".join(walls), flush=True)
+    print(json.dumps({"brain_nccl": readings}, default=str), flush=True)
     print(json.dumps({"ok": True}))
 
 
 def check_brain_on(r, root, logs, model, args, card):
+    """Run 1's readings.  The slow node is ``args.slow_rank``; the
+    survivor, the other one, is the index 0 of the world of 1 (where the
+    slow node is node 0, its snapshots move to that index: C10)."""
+    slow = args.slow_rank
+    surv = 1 - slow
     evs = r["master_events"]
     decisions = _named(evs, "scale_decision")
     executes = _named(evs, "scale_execute")
@@ -382,28 +909,31 @@ def check_brain_on(r, root, logs, model, args, card):
           f"scale_execute {[e['labels'] for e in executes]}", flush=True)
     require(len(decisions) == 1, f"{len(decisions)} decisions, not one")
     d = decisions[0]["labels"]
-    require(d["action"] == "drain_replace" and d["target_node"] == 1
+    require(d["action"] == "drain_replace" and d["target_node"] == slow
             and str(d["reason"]).startswith("straggler:")
             and (d["from_world"], d["to_world"]) == (2, 1),
-            f"the decision is not a drain of node 1, 2 -> 1: {d}")
+            f"the decision is not a drain of node {slow}, 2 -> 1: {d}")
     require(len(executes) == 1 and executes[0]["labels"]["outcome"]
             == "done", f"scale_execute: {[e['labels'] for e in executes]}")
     branded = [t for t, s in r["status"]
-               if 1 in (s.get("health") or {}).get("stragglers", [])]
+               if slow in (s.get("health") or {}).get("stragglers", [])]
     brain_blocks = [s["brain"] for _, s in r["status"] if "brain" in s]
-    require(branded, "node 1 never stood among /status's stragglers")
+    require(branded, f"node {slow} never stood among /status's stragglers")
     require(brain_blocks, "/status has no brain block")
-    require(r["exits"][1][0] == NODE_PREEMPTED,
-            f"node 1's launcher exited {r['exits'][1][0]}, not 43")
-    require(r["exits"][0][0] == 0, f"node 0 exited {r['exits'][0][0]}")
+    require(r["exits"][slow][0] == NODE_PREEMPTED,
+            f"node {slow}'s launcher exited {r['exits'][slow][0]}, not 43")
+    require(r["exits"][surv][0] == 0,
+            f"node {surv} exited {r['exits'][surv][0]}")
     rep = r["reports"]
     require((0, 0) in rep and (1, 0) in rep, f"reports {sorted(rep)}")
+    # the survivor's incarnations at world 1 are rank 0 of that world
     inc1 = [k for k in rep if k[0] == 0 and k[1] > 0]
-    require(len(inc1) == 1, f"node 0's restarts: {sorted(rep)}")
+    require(len(inc1) == 1, f"node {surv}'s restarts: {sorted(rep)}")
     n0 = rep[inc1[0]]
-    require(n0["world"] == 1, f"node 0 restarted into world {n0['world']}")
+    require(n0["world"] == 1 and n0.get("node_rank", surv) == surv,
+            f"node {surv} restarted into world {n0['world']}")
     require(n0["history"] and n0["history"][-1]["step"] == args.steps,
-            "node 0 did not finish the target steps")
+            f"node {surv} did not finish the target steps")
     restored = n0["restored"]
     R = restored["step"]
     # step -> {node: {digests}} of the world of 2's snapshots: drain mode,
@@ -414,30 +944,58 @@ def check_brain_on(r, root, logs, model, args, card):
             for step, dig in rep[key].get(field, {}).items():
                 world2.setdefault(int(step), {}).setdefault(
                     key[0], set()).add(dig)
-    d1 = {int(k): v for k, v in rep[(1, 0)].get("drain_digests", {}).items()}
-    flushed = flushed_shards(r["dir"], 1)
-    require(flushed, "node 1 flushed no shard")
+    d1 = {int(k): v
+          for k, v in rep[(slow, 0)].get("drain_digests", {}).items()}
+    # the drained node's flush: shard_<slow> of a step of the world of 2,
+    # at most the survivor's restored step (a survivor that became index
+    # 0 writes shard_0 of later steps)
+    flushed = {k: v for k, v in flushed_shards(r["dir"], slow).items()
+               if k <= R}
+    require(flushed, f"node {slow} flushed no shard")
     D = max(flushed)
-    print(f"[on] node 1 flushed step {D} ({flushed[D].relative_to(r['dir'])}"
-          f"); its drain-mode snapshots {sorted(d1)}; node 0 restored step "
-          f"{R} ({n0['io_log'][:1]})", flush=True)
-    require(D in d1, f"node 1 recorded no digest of the step it flushed")
-    require(R >= D, f"node 0 restored step {R}, before the drained {D}")
-    # 1. the drained flush itself: a one-card restore of node 1's shard,
-    # resharded from the world of 2, is the state node 1 had at step D
+    # its state at step D: its own drain-mode digest, or, where its
+    # worker was stopped before that digest was written, the world of
+    # 2's (the replicas' digests agree, checked below)
+    want = d1.get(D) or next(iter(set().union(
+        *world2.get(D, {}).values())), None)
+    print(f"[on] node {slow} flushed step {D} ("
+          f"{flushed[D].relative_to(r['dir'])}); its drain-mode snapshots "
+          f"{sorted(d1)}; node {surv} restored step {R} ({n0['io_log'][:1]})",
+          flush=True)
+    require(want is not None,
+            f"no digest of step {D}, the step node {slow} flushed")
+    require(R >= D, f"node {surv} restored step {R}, before the drained {D}")
+    # C10: the survivor resumes from its own newest snapshot (in shared
+    # memory, carried to its new index where that moved), at or past the
+    # last step both nodes snapshotted in the world of 2
+    snapped = sorted(st for st, v in world2.items() if len(v) == 2)
+    require(n0["io_log"] and n0["io_log"][0][:2] == ["restore_shm", R],
+            f"node {surv} did not restore step {R} from shared memory: "
+            f"{n0['io_log'][:1]}")
+    require(not snapped or R >= snapped[-1],
+            f"node {surv} restored step {R}, before step {snapped[-1]} "
+            "that both nodes snapshotted")
+    require(n0["history"][0]["step"] == R + 1,
+            f"node {surv}'s first step at world 1 is "
+            f"{n0['history'][0]['step']}, not {R + 1}")
+    # 1. the drained flush itself: a one-card restore of the slow node's
+    # shard, resharded from the world of 2, is the state it had at step D
     copy = root / "drained_ckpt"
-    copy_shard(flushed[D], 1, D, copy)
+    copy_shard(flushed[D], slow, D, copy)
     a, a_evs = one_card_run(root, logs, "drained_restore", copy, D, model,
                             args)
     reshard = [e["labels"] for e in a_evs if e["name"] == "reshard"]
-    require(a["restored"] == {"step": D, "digest": d1[D]},
-            f"the drained flush restores to {a['restored']}, not node 1's "
-            f"state at step {D}")
-    require(any((x["from_world"], x["to_world"]) == (2, 1)
-                for x in reshard), f"no reshard 2 -> 1: {reshard}")
-    print(f"[on] a one-card restore of node 1's drained flush went through "
-          f"reshard {reshard} and equals node 1's state at step {D} by "
-          "pytree_digest", flush=True)
+    require(a["restored"] == {"step": D, "digest": want},
+            f"the drained flush restores to {a['restored']}, not node "
+            f"{slow}'s state at step {D}")
+    # shard_1 alone is a slice of another world for rank 0 of world 1:
+    # it is read through reshard; shard_0 is rank 0's own (data parallel)
+    require(slow == 0 or any((x["from_world"], x["to_world"]) == (2, 1)
+                             for x in reshard),
+            f"no reshard 2 -> 1: {reshard}")
+    print(f"[on] a one-card restore of node {slow}'s drained flush went "
+          f"through reshard {reshard} and equals node {slow}'s state at step "
+          f"{D} by pytree_digest", flush=True)
     # 2. the two replicas agree wherever both digested a step, and node
     # 0's restored state is the world of 2's state at that step
     for step, by_node in sorted(world2.items()):
@@ -447,67 +1005,69 @@ def check_brain_on(r, root, logs, model, args, card):
     require(R in world2, f"no node of the world of 2 digested step {R}, "
             f"the step node 0 restored (digested: {sorted(world2)})")
     require(set().union(*world2[R].values()) == {restored["digest"]},
-            f"node 0's restored state at step {R} is not the state the "
+            f"node {surv}'s restored state at step {R} is not the state the "
             f"world of 2 had at that step")
-    both = sorted(s for s, v in world2.items() if len(v) == 2)
-    print(f"[on] node 0's restored state at step {R} equals the world of "
-          f"2's state at that step by pytree_digest (digested by node(s) "
+    print(f"[on] node {surv}'s restored state at step {R} equals the world "
+          f"of 2's state at that step by pytree_digest (digested by node(s) "
           f"{sorted(world2[R])}); the replicas' digests agree at steps "
-          f"{both}", flush=True)
-    # 3. node 0's steps after the restore, against one card resumed from a
-    # copy of the checkpoint node 0 restored (its own flush of step R)
-    mine = flushed_shards(r["dir"], 0)
-    require(R in mine, f"node 0 flushed no shard of step {R}: {sorted(mine)}")
+          f"{snapped}", flush=True)
+    # 3. the survivor's steps after the restore, against one card resumed
+    # from a copy of the checkpoint it restored (its own flush of step R)
+    mine = flushed_shards(r["dir"], surv)
+    require(R in mine,
+            f"node {surv} flushed no shard of step {R}: {sorted(mine)}")
     copy = root / "resume_ckpt"
-    copy_shard(mine[R], 0, R, copy)
+    copy_shard(mine[R], surv, R, copy)
     one, _ = one_card_run(root, logs, "resume", copy, args.steps, model,
                           args)
     key = lambda h: [(x["step"], x["loss"], x["grad_norm"]) for x in h]  # noqa: E731
     require(one["restored"] == restored,
             f"the one-card run restored {one['restored']}")
     require(key(one["history"]) == key(n0["history"]),
-            "node 0's steps after the restore differ from the one-card "
+            f"node {surv}'s steps after the restore differ from the one-card "
             f"resume's: {key(n0['history'])[:3]} vs "
             f"{key(one['history'])[:3]}")
     require(one["digests"] == n0["digests"], "the final states differ")
-    print(f"[on] a one-card run resumed from a copy of node 0's flush of "
-          f"step {R} restored the same state and ran steps "
-          f"{R + 1}-{args.steps} bit for bit with node 0", flush=True)
+    print(f"[on] a one-card run resumed from a copy of node {surv}'s flush "
+          f"of step {R} restored the same state and ran steps "
+          f"{R + 1}-{args.steps} bit for bit with node {surv}", flush=True)
     # the drain's timeline
     t_dec = decisions[0]["wall"]
     t_exec = executes[0]["wall"]
-    t_exit = r["exits"][1][1]
-    n0_evs = r["node_events"][0]
+    t_exit = r["exits"][slow][1]
+    n0_evs = r["node_events"][surv]
     begin = [e["wall"] for e in n0_evs if e["name"] == "rendezvous"
              and e["ph"] == "B" and e.get("inc", 0) >= 1]
-    require(begin, "node 0's events hold no rendezvous of its restart")
+    require(begin, f"node {surv}'s events hold no rendezvous of its restart")
     t_rdzv = min(e["wall"] for e in n0_evs if e["name"] == "rendezvous"
                  and e["ph"] == "E" and e["wall"] >= min(begin))
     t_first = n0["marks"].get("first_step_done", float("nan"))
     t_branded = branded[0]
     legs = {"straggler on /status -> scale_decision": t_dec - t_branded,
-            "scale_decision -> node 1's launcher exit (43)": t_exit - t_dec,
+            f"scale_decision -> node {slow}'s launcher exit (43)":
+                t_exit - t_dec,
             "scale_decision -> scale_execute (done)": t_exec - t_dec,
-            "scale_decision -> node 0's rendezvous at world 1":
+            f"scale_decision -> node {surv}'s rendezvous at world 1":
                 t_rdzv - t_dec,
-            "scale_decision -> node 0's first step at world 1":
+            f"scale_decision -> node {surv}'s first step at world 1":
                 t_first - t_dec}
     print(f"[on] {card} | drain timeline (host clock): "
           + "; ".join(f"{k} {v:.3f} s" for k, v in legs.items()),
           flush=True)
-    h0 = rep[(0, 0)]["history"]
+    h0 = rep[(surv, 0)]["history"]
     last_w2 = h0[-1]["step"] if h0 else 0
     before, during = stretches(h0, args.slow_from)
     after = statistics.median(h["step_time_s"] for h in n0["history"][1:]) \
         if len(n0["history"]) > 1 else None
-    print(f"[on] {card} | node 0's step time (median, card clock where "
+    print(f"[on] {card} | node {surv}'s step time (median, card clock where "
           f"there is a card): before the slowdown {before} s, during it "
           f"(steps {args.slow_from}-{last_w2}) {during} s, after the "
           f"drain (world 1, steps {R + 2}-{args.steps}) {after} s",
           flush=True)
-    wall = r["exits"][0][1] - r["t0"]
-    return {"wall_on": wall, "decision": d, "restored_step": R,
-            "drained_step": D,
+    wall = r["exits"][surv][1] - r["t0"]
+    return {"wall_on": wall, "slow_rank": slow, "decision": d,
+            "restored_step": R, "drained_step": D,
+            "both_snapshotted": snapped[-1] if snapped else None,
             "drain_legs": legs,
             "node0_steps_s": {"before": before, "during": during,
                               "after": after}}
@@ -520,7 +1080,8 @@ def check_brain_off(r, args, card):
     require(r["exits"] [0][0] == 0 and r["exits"][1][0] == 0,
             f"Brain off exits {r['exits']}")
     rep = r["reports"]
-    h0, h1 = rep[(0, 0)]["history"], rep[(1, 0)]["history"]
+    slow = args.slow_rank
+    h0, h1 = rep[(1 - slow, 0)]["history"], rep[(slow, 0)]["history"]
     require(h0[-1]["step"] == args.steps, "Brain off did not finish")
     before, during = stretches(h0, args.slow_from)
     before1, slow1 = stretches(h1, args.slow_from)
@@ -531,10 +1092,10 @@ def check_brain_off(r, args, card):
             f"{before} -> {during}, node 1 {before1} -> {slow1}")
     brain = [s.get("brain") for _, s in r["status"]]
     require(not any(brain), "Brain off: /status has a brain block")
-    print(f"[off] {card} | no decision; node 0's step time before the "
-          f"slowdown {before} s, during it {during} s (node 1 {slow1} s) "
-          f"to step {args.steps}", flush=True)
-    return {"wall_off": r["exits"][0][1] - r["t0"],
+    print(f"[off] {card} | no decision; node {1 - slow}'s step time "
+          f"before the slowdown {before} s, during it {during} s (node "
+          f"{slow} {slow1} s) to step {args.steps}", flush=True)
+    return {"wall_off": r["exits"][1 - slow][1] - r["t0"],
             "off_node0_steps_s": {"before": before, "during": during}}
 
 

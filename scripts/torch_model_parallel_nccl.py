@@ -25,6 +25,13 @@ training on its rows), one card a worker, launched by
     process restores it at world 1 (``DLROVER_TPU_PREV_WORLD=2``: the
     layout-aware load reads each leaf from both shards), and every leaf
     must equal the two-card run's reassembled leaf bit for bit.
+(d) The hybrid mesh on four cards: two launchers (``--nnodes=2``, a
+    master of their own) of two cards each, ``dcn {data 2} x ici
+    {tensor 2}`` (``Strategy(extras=(("dcn", ("data",)),))``: the data
+    axis strides across the launchers, the tensor axis stays inside
+    one), at (a)'s size; every rank's losses and grad norms within ``TOL`` of the
+    one-card run's, with its window and peak memory.  ``--only-hybrid``
+    runs the one-card run and (d) alone.
 
 With ``--device cpu`` the same runs go through gloo at a small size
 (fp32, ``TOL_CPU``; (b) at 4 layers).  Prints the card's name and power
@@ -34,6 +41,7 @@ limit.  Runs live under ``build/mp_nccl/``; the launchers' output goes to
     python3 scripts/torch_model_parallel_nccl.py               # four cards
     python3 scripts/torch_model_parallel_nccl.py --device cpu  # gloo
     python3 scripts/torch_model_parallel_nccl.py --skip-32     # (a), (c)
+    python3 scripts/torch_model_parallel_nccl.py --only-hybrid # one card, (d)
 """
 
 import argparse
@@ -43,6 +51,7 @@ import os
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -117,6 +126,78 @@ def run(name: str, root: Path, logs: Path, model, nproc: int, strategy="",
     return out, wall
 
 
+def run_hybrid(name: str, root: Path, logs: Path, model, strategy: str):
+    """Two launchers of two ranks each (node n on cards 2n and 2n + 1),
+    one master; returns ({rank: report}, seconds)."""
+    from dlrover_tpu_torch.common.env import get_free_port
+
+    rep = root / name
+    rep.mkdir(parents=True)
+    cpu = "cpu" in model
+    env = dict(os.environ, PYTHONPATH=str(REPO),
+               DLROVER_TPU_METADATA_BASE="http://127.0.0.1:9/",
+               DLROVER_TPU_SP_KERNEL="auto")
+    if cpu:
+        env["OMP_NUM_THREADS"] = "1"
+    else:
+        env.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    port = get_free_port()
+    master_log = open(logs / f"{name}_master.log", "w")
+    master = subprocess.Popen(
+        [sys.executable, "-m", "dlrover_tpu_torch.master.main", "--port",
+         str(port), "--node_num", "2", "--job_name", name],
+        cwd=REPO, env=env, stdout=master_log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    worker = [str(Path(__file__).resolve()), "--worker", strategy, "--",
+              *model, "--report_dir", str(rep)]
+    procs, t0 = [], time.time()
+    try:
+        for node in (0, 1):
+            nenv = dict(env, DLROVER_TPU_TORCH_SOCKET_DIR=tempfile.mkdtemp(
+                prefix=f"dmh{node}", dir="/tmp"))
+            if not cpu:
+                nenv["CUDA_VISIBLE_DEVICES"] = f"{2 * node},{2 * node + 1}"
+            log = open(logs / f"{name}_node{node}.log", "w")
+            procs.append((subprocess.Popen(
+                [sys.executable, "-m", "dlrover_tpu_torch.run",
+                 "--nnodes=2", "--nproc_per_node=2", f"--node_rank={node}",
+                 f"--master_addr=127.0.0.1:{port}", "--max-restarts=0",
+                 "--monitor_interval=0.2", *worker],
+                cwd=REPO, env=nenv, stdout=log, stderr=subprocess.STDOUT,
+                start_new_session=True), log, nenv))
+        deadline = t0 + 900
+        while any(p.poll() is None for p, _, _ in procs):
+            require(time.time() < deadline, f"{name}: timed out")
+            time.sleep(0.2)
+        wall = time.time() - t0
+        codes = [p.returncode for p, _, _ in procs]
+        require(codes == [0, 0], f"{name}: launchers exited {codes}:\n" +
+                "".join((logs / f"{name}_node{n}.log").read_text()[-3000:]
+                        for n in (0, 1)))
+    finally:
+        for p, log, nenv in procs:
+            if p.poll() is None:
+                os.killpg(p.pid, 9)
+                p.wait()
+            log.close()
+            shutil.rmtree(nenv["DLROVER_TPU_TORCH_SOCKET_DIR"],
+                          ignore_errors=True)
+        if master.poll() is None:
+            os.killpg(master.pid, 15)
+            try:
+                master.wait(timeout=15)
+            except subprocess.TimeoutExpired:
+                os.killpg(master.pid, 9)
+                master.wait()
+        master_log.close()
+    out = {}
+    for p in rep.glob("rank*_inc0.json"):
+        d = json.loads(p.read_text())
+        out[d["rank"]] = d
+    require(set(out) == set(range(4)), f"{name}: reports {sorted(out)}")
+    return out, wall
+
+
 def compare(name, got, want, tol):
     """Every step's loss and grad norm against the one-card run's."""
     dl = [abs(g["loss"] - w["loss"]) for g, w in zip(got, want)]
@@ -152,6 +233,23 @@ def describe(name, reps, one=None):
               + ("" if one is None else
                  f"; one card: window {window_ms(one['history'])} reserved"
                  f" {reserved_gib(one)}"), flush=True)
+
+
+def hybrid(root, logs, model8, want, one, tol, cpu):
+    """(d): ``dcn {data 2} x ici {tensor 2}`` over two launchers of two
+    ranks each, against the one-card run."""
+    reps, wall = run_hybrid("hybrid_dcn_data2_ici_tensor2", root, logs,
+                            model8, "tensor=2,dcn=data")
+    for r in range(4):
+        compare(f"(d) hybrid rank {r}", reps[r]["history"], want, tol)
+    describe("(d) dcn {data 2} x ici {tensor 2}", reps, one[0])
+    if not cpu:
+        for r in range(4):
+            require(all(reps[r]["launches"].get(k, 0) for k in KERNELS),
+                    f"(d) rank {r}: a kernel did not launch")
+    return {"s": wall,
+            "window_ms": [window_ms(reps[r]["history"]) for r in range(4)],
+            "max_reserved_gib": [reserved_gib(reps[r]) for r in range(4)]}
 
 
 def restore_world1(ckpt: str, model, device: str):
@@ -204,12 +302,15 @@ def worker(spec: str, example_args):
 
     strategy = None
     if spec != "-":
-        sizes = {k: int(v) for k, v in (kv.split("=")
-                                        for kv in spec.split(","))}
+        pairs = dict(kv.split("=") for kv in spec.split(","))
+        # dcn=data+pipe: the axes a hybrid mesh lays across the nodes
+        dcn = tuple(a for a in pairs.pop("dcn", "").split("+") if a)
+        sizes = {k: int(v) for k, v in pairs.items()}
         used = 1
         for k in ("fsdp", "tensor", "seq", "pipe", "expert"):
             used *= sizes.get(k, 1)
-        strategy = Strategy(data=process_count() // used, **sizes)
+        strategy = Strategy(data=process_count() // used,
+                            extras=(("dcn", dcn),) if dcn else (), **sizes)
     llama_pretrain.main(example_args, strategy=strategy)
 
 
@@ -222,13 +323,16 @@ def main():
                     help="cpu for a gloo run without a card")
     ap.add_argument("--skip-32", action="store_true",
                     help="leave out (b), the 32-layer run on four cards")
+    ap.add_argument("--only-hybrid", action="store_true",
+                    help="the one-card run and (d), the hybrid mesh on four "
+                    "cards, alone")
     args = ap.parse_args()
     sys.path.insert(0, str(REPO))
     cpu = args.device == "cpu"
     if not cpu:
         import torch
 
-        need = 2 if args.skip_32 else 4
+        need = 2 if args.skip_32 and not args.only_hybrid else 4
         require(torch.cuda.device_count() >= need, f"needs {need} cards")
         print(subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -253,6 +357,10 @@ def main():
         describe("(a) one card", one)
         summary["a"] = {"one_card": {"s": w1,
                                      "window_ms": window_ms(want)}}
+        if args.only_hybrid:
+            summary["d"] = hybrid(root, logs, model8, want, one, tol, cpu)
+            print(json.dumps({"ok": True, **summary}))
+            return
         tensor2 = None
         for name, strategy, kernel in MESHES:
             reps, wall = run(name, root, logs, model8, 2, strategy, kernel,
@@ -304,6 +412,7 @@ def main():
         require(step == 6 and not diff and set(digests) == set(g[0]),
                 "(c) the world-1 restore differs from the reassembled shards")
         summary["c"] = {"step": step, "leaves": len(digests)}
+        summary["d"] = hybrid(root, logs, model8, want, one, tol, cpu)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(json.dumps({"ok": True, **summary}))

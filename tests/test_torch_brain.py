@@ -375,10 +375,17 @@ def test_a_stale_inherited_decision_is_fenced_not_acted_on():
 
 
 class _NamedJobManager:
+    def __init__(self):
+        self.nodes = {}
+        self.released = []
+
     def get_running_nodes(self):
         return [types.SimpleNamespace(rank_index=i, id=i,
                                       name=f"job-worker-{i}")
                 for i in range(3)]
+
+    def release_node(self, node_id):
+        self.released.append(node_id)
 
 
 def test_pod_leg_waits_for_the_drain_and_grow_reaches_the_scaler():
@@ -392,10 +399,18 @@ def test_pod_leg_waits_for_the_drain_and_grow_reaches_the_scaler():
     assert d.to_world == 3 and not scaler.plans  # a replace, not yet
     manager.fence_node(2, ttl_s=60.0)
     brain.run_cycle(now=T0 + 3)
+    # fenced, but the survivors have not re-meshed: no replacement yet
+    assert not scaler.plans and brain.optimizer.in_flight is d
+    for r in (0, 1):
+        manager.join_rendezvous(r, 1)
+    assert list(manager.get_comm_world(0)[2]) == [0, 1]
+    brain.run_cycle(now=T0 + 4)
     assert [list(p.migrate_nodes) for p in scaler.plans] == [
         ["job-worker-2"]]
+    assert brain.optimizer.in_flight is None
     brain.executor.check(d)
     assert len(scaler.plans) == 1  # idempotent
+    assert brain.executor._job_manager.released == [2]
     grow = make_brain(completed_world([0, 1], max_nodes=3))
     grow_scaler = tscaler.InMemoryScaler()
     grow.set_scaler(grow_scaler)
@@ -404,6 +419,58 @@ def test_pod_leg_waits_for_the_drain_and_grow_reaches_the_scaler():
     assert grow.optimizer.in_flight.action == tro.ACTION_GROW
     assert grow_scaler.plans[-1].node_group_resources["worker"] == {
         "count": 3}
+
+
+@pytest.mark.parametrize("crash", ["before_the_re_mesh",
+                                   "after_the_pod_leg"])
+def test_a_failover_between_the_fence_and_the_re_mesh_keeps_the_replacement(
+        crash):
+    """The replacing drain's pod-side leg waits for the survivors'
+    re-mesh.  A master that fails over inside that window runs the leg
+    once the world reflects the drain; one that fails over after the
+    leg ran (its record journaled, the decision not yet closed) does not
+    run it again."""
+    manager = completed_world([0, 1, 2])
+    health = FakeHealth([(2, 4.0)])
+    scaler = tscaler.InMemoryScaler()
+    a = make_brain(manager, health, scaler=scaler,
+                   job_manager=_NamedJobManager())
+    records = []
+    a.set_journal(lambda op, args: records.append(args))
+    for i in range(3):
+        a.run_cycle(now=T0 + i)
+    d = a.optimizer.in_flight
+    decided = d.to_dict()
+    manager.fence_node(2, ttl_s=60.0)
+    a.run_cycle(now=T0 + 3)
+    assert a.optimizer.in_flight is d and not scaler.plans
+    if crash == "after_the_pod_leg":
+        for r in (0, 1):
+            manager.join_rendezvous(r, 1)
+        manager.get_comm_world(0)
+        a.run_cycle(now=T0 + 4)
+        assert len(scaler.plans) == 1
+        # the master dies before its record of the closed decision
+        assert records[-1]["in_flight"] is None
+        assert records[-2]["followed_up"] == [d.decision_id]
+        records = records[:-1]
+    b_scaler = tscaler.InMemoryScaler()
+    b = make_brain(manager, health, scaler=b_scaler,
+                   job_manager=_NamedJobManager())
+    for args in records:
+        b.restore_state(args)
+    assert b.optimizer.in_flight.to_dict() == decided
+    if crash == "before_the_re_mesh":
+        b.run_cycle(now=T0 + 4)
+        assert b.optimizer.in_flight is not None and not b_scaler.plans
+        for r in (0, 1):
+            manager.join_rendezvous(r, 1)
+        manager.get_comm_world(0)
+    b.run_cycle(now=T0 + 5)
+    assert b.optimizer.in_flight is None
+    want = [["job-worker-2"]] if crash == "before_the_re_mesh" else []
+    assert [list(p.migrate_nodes) for p in b_scaler.plans] == want
+    assert b.export_state()["followed_up"] == [d.decision_id]
 
 
 def test_the_loop_thread_starts_and_stops():
@@ -698,6 +765,18 @@ def test_two_gloo_nodes_the_brain_drains_node_0_the_survivor_commits(
     latest = find_latest_checkpoint(str(r["dir"] / "ckpt"))
     assert latest is not None and os.path.basename(latest) == (
         f"{CheckpointConstant.CKPT_DIR_PREFIX}14")
+    # C10: node 1 resumes from its own newest snapshot of the world of 2,
+    # carried to its new rank (not from the last commit, step 0): its
+    # first step at world 1 follows the newest step it snapshotted there
+    first = r["reports"][(1, 0)]
+    snapped = max(int(k) for k in first["snapshot_digests"])
+    restored = later[0]["restored"]
+    assert restored["step"] >= snapped >= args.slow_from
+    assert later[0]["history"][0]["step"] == restored["step"] + 1
+    assert later[0]["io_log"][0][:2] == ["restore_shm", restored["step"]]
+    both = {int(k): v for k, v in first["snapshot_digests"].items()}
+    if restored["step"] in both:
+        assert restored["digest"] == both[restored["step"]]
 
 
 def test_a_new_worlds_worker_updates_the_agents_saver(monkeypatch,
@@ -742,6 +821,85 @@ def test_a_new_worlds_worker_updates_the_agents_saver(monkeypatch,
         shutil.rmtree(sock, ignore_errors=True)
 
 
+def test_the_savers_rebuild_carries_the_snapshot_before_it_unlinks(
+        monkeypatch, tmp_path):
+    """C10: the node's index moved from 1 to 0.  The rebuilt saver
+    serves the old rank's newest snapshot under rank 0, and the old
+    saver is closed (its names unlinked) only after the segment moved."""
+    import shutil
+    import tempfile
+    import uuid
+
+    import torch
+
+    from dlrover_tpu_torch.agent.ckpt_saver import (
+        FACTORY_QUEUE,
+        AsyncCheckpointSaver,
+        SaverConfig,
+    )
+    from dlrover_tpu_torch.agent.ckpt_shm import (
+        SharedMemoryHandler,
+        segment_paths,
+    )
+    from dlrover_tpu_torch.common import multi_process
+    from dlrover_tpu_torch.common.multi_process import SharedQueue
+
+    sock = tempfile.mkdtemp(prefix="dtb", dir="/tmp")
+    monkeypatch.setenv(multi_process.SOCKET_DIR_ENV, sock)
+    name = f"c10{uuid.uuid4().hex[:8]}"
+    seen = []
+    close = AsyncCheckpointSaver.close
+
+    def recording_close(self, unlink=False):
+        seen.append((self.config.node_rank,
+                     os.path.exists(segment_paths(1, name)[0]),
+                     os.path.exists(segment_paths(0, name)[0])))
+        return close(self, unlink=unlink)
+
+    monkeypatch.setattr(AsyncCheckpointSaver, "close", recording_close)
+    factory = AsyncCheckpointSaver.start_async_saving_ckpt(
+        install_signal_handlers=False)
+
+    def wait_for(node_rank):
+        deadline = time.time() + 10
+        while time.time() < deadline:
+            saver = AsyncCheckpointSaver.get_ckpt_saver()
+            if saver is not None and saver.config.node_rank == node_rank:
+                return saver
+            time.sleep(0.05)
+        raise AssertionError(f"no saver of node rank {node_rank}")
+
+    w = torch.arange(4096, dtype=torch.float32)
+    try:
+        queue = SharedQueue(FACTORY_QUEUE, create=False)
+        queue.put(SaverConfig(checkpoint_dir=str(tmp_path), node_rank=1,
+                              global_shard_num=2, name=name))
+        wait_for(1)
+        writer = SharedMemoryHandler(1, name=name)
+        for step in (4, 5):
+            writer.save_state(step, {"w": w + step})
+        writer.close()
+        queue.put(SaverConfig(checkpoint_dir=str(tmp_path), node_rank=0,
+                              global_shard_num=1, name=name))
+        saver = wait_for(0)
+        assert seen == [(1, False, True)]
+        assert saver.max_common_step() == 5
+        reader = SharedMemoryHandler(0, name=name)
+        assert sorted(reader.steps_available()) == [4, 5]
+        step, leaves = reader.load_state(copy=True)
+        assert step == 5 and len(leaves) == 1
+        assert torch.equal(next(iter(leaves.values())), w + 5)
+        reader.close()
+        assert not os.path.exists(segment_paths(1, name)[0])
+        queue.close()
+    finally:
+        AsyncCheckpointSaver.reset(unlink=True)
+        factory.close()
+        shutil.rmtree(sock, ignore_errors=True)
+    assert not any(os.path.exists(p)
+                   for r in (0, 1) for p in segment_paths(r, name))
+
+
 def test_two_nodes_a_straggler_stands_out_where_the_reference_hides_it():
     """Of two nodes the reference's upper median is the slow node's own
     EWMA; the port's is the faster node's, and brands the slow one
@@ -763,3 +921,66 @@ def test_two_nodes_a_straggler_stands_out_where_the_reference_hides_it():
     assert got["jax"][1] == []
     assert got["torch"][1] == [(1, 5.0)]
     assert got["torch"][0] == 0.5 and got["jax"][0] == 2.5
+
+
+def test_a_flush_in_a_world_of_one_commits_what_a_world_of_two_could_not(
+        monkeypatch, tmp_path):
+    """The survivor of a drain flushes its newest snapshot at each
+    restart.  Counted over the world of 2 it waits for the drained
+    node's done file of that step, which never comes (that node flushed
+    an older step); once the world of 1's worker has asked for its saver
+    (C8), the flush of the next restart commits it: the step a
+    replacement then restores."""
+    import shutil
+    import tempfile
+    import uuid
+
+    import torch
+
+    from dlrover_tpu_torch.agent.ckpt_saver import (
+        FACTORY_QUEUE,
+        AsyncCheckpointSaver,
+        SaverConfig,
+        find_latest_checkpoint,
+    )
+    from dlrover_tpu_torch.agent.ckpt_shm import SharedMemoryHandler
+    from dlrover_tpu_torch.common import multi_process
+    from dlrover_tpu_torch.common.multi_process import SharedQueue
+
+    sock = tempfile.mkdtemp(prefix="dtb", dir="/tmp")
+    monkeypatch.setenv(multi_process.SOCKET_DIR_ENV, sock)
+    monkeypatch.setenv("DLROVER_TPU_EMERGENCY_COMMIT_TIMEOUT_S", "0.5")
+    name = f"w1{uuid.uuid4().hex[:8]}"
+    factory = AsyncCheckpointSaver.start_async_saving_ckpt(
+        install_signal_handlers=False)
+    try:
+        queue = SharedQueue(FACTORY_QUEUE, create=False)
+        queue.put(SaverConfig(checkpoint_dir=str(tmp_path), node_rank=0,
+                              global_shard_num=2, name=name))
+        deadline = time.time() + 10
+        while AsyncCheckpointSaver.get_ckpt_saver() is None:
+            assert time.time() < deadline
+            time.sleep(0.05)
+        saver = AsyncCheckpointSaver.get_ckpt_saver()
+        writer = SharedMemoryHandler(0, name=name)
+        writer.save_state(6, {"w": torch.zeros(64)})
+        writer.close()
+        # the restart into the world of 1: node 1 flushed step 5, not 6
+        assert saver.save_shm_to_storage("membership change") is False
+        assert find_latest_checkpoint(str(tmp_path)) is None
+        # the world of 1's worker asks for its saver
+        queue.put(SaverConfig(checkpoint_dir=str(tmp_path), node_rank=0,
+                              global_shard_num=1, name=name))
+        deadline = time.time() + 10
+        while saver.config.global_shard_num != 1:
+            assert time.time() < deadline
+            time.sleep(0.05)
+        assert AsyncCheckpointSaver.get_ckpt_saver() is saver
+        assert saver.save_shm_to_storage("membership change") is True
+        assert os.path.basename(find_latest_checkpoint(str(tmp_path))) == (
+            "checkpoint-6")
+        queue.close()
+    finally:
+        AsyncCheckpointSaver.reset(unlink=True)
+        factory.close()
+        shutil.rmtree(sock, ignore_errors=True)

@@ -18,8 +18,8 @@ tolerances (1e-5 on the loss, 1e-4 on the grad norm, 2e-5 on the
 params; 5e-5 on a loss against one device, ``ONE_LOSS_ATOL``).  The
 JAX 16-device step's gradients are not its own one-device ones wherever
 pipe and seq are both above 1 (a reference fault, ROADMAP §C, pinned
-below), so they are no oracle.  The 32-device hybrid form waits for
-``create_hybrid_parallel_mesh`` (ROADMAP A3c.3d).
+below), so they are no oracle.  The 32-device hybrid form is in
+``tests/test_torch_hybrid_mesh.py``.
 """
 
 import os

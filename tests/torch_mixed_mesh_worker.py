@@ -12,7 +12,16 @@ remat policy:
   remat="none")``;
 - ``p2t2dots``: ``{pipe 2, tensor 2}`` (4 ranks), 4 microbatches,
   ``LlamaConfig.tiny(n_heads=8, n_kv_heads=4, n_layers=4,
-  remat="dots")``.
+  remat="dots")``;
+- ``hybrid8``: the hybrid mesh ``dcn {data 2} x ici {fsdp 2, tensor 2}``
+  (8 ranks, two nodes of four by ``DLROVER_TPU_NODE_INDEX``),
+  ``LlamaConfig.tiny(n_heads=8, n_kv_heads=4, remat="none")``; first
+  in bf16 (the dry run's compute: one step, its loss in ``bf16_loss``),
+  then in fp32;
+- ``hybrid32``: ``dcn {data 2} x ici {pipe 2, fsdp 2, seq 2, tensor 2}``
+  (32 ranks, two nodes of 16), 2 microbatches, the same model;
+- ``one``: the same model on one device (``tests/test_torch_hybrid_mesh.py``
+  calls ``run`` in its own process).
 
 In fp32 from the params in ``inputs.npz`` (``p/<leaf>``), through
 ``auto_accelerate``, AGD(lr=1e-3), a step per global batch of
@@ -35,6 +44,12 @@ CASES = {
               dict(n_heads=8, n_kv_heads=4, remat="none")),
     "p2t2dots": (dict(pipe=2, tensor=2, pipe_microbatches=4),
                  dict(n_heads=8, n_kv_heads=4, n_layers=4, remat="dots")),
+    "hybrid8": (dict(data=2, fsdp=2, tensor=2, extras=(("dcn", ("data",)),)),
+                dict(n_heads=8, n_kv_heads=4, remat="none")),
+    "one": (dict(), dict(n_heads=8, n_kv_heads=4, remat="none")),
+    "hybrid32": (dict(data=2, pipe=2, fsdp=2, seq=2, tensor=2,
+                      pipe_microbatches=2, extras=(("dcn", ("data",)),)),
+                 dict(n_heads=8, n_kv_heads=4, remat="none")),
 }
 
 
@@ -87,11 +102,13 @@ def _paths(tree, prefix=""):
     return [(prefix[:-1], tree)]
 
 
-def run(case, z, out_dir, rank):
+def run(case, z, out_dir, rank, dtype=torch.float32, steps=None,
+        save=True):
     from dlrover_tpu_torch.accelerate import Strategy, auto_accelerate
     from dlrover_tpu_torch.models import llama as tl
     from dlrover_tpu_torch.optimizers import AGD
     from dlrover_tpu_torch.parallel.collectives import all_gather_dim
+    from dlrover_tpu_torch.parallel.mesh import destroy_parallel_mesh
     from dlrover_tpu_torch.parallel.train_step import param_leaves
 
     sizes, model = CASES[case]
@@ -109,7 +126,7 @@ def run(case, z, out_dir, rank):
                 out[k] = t
         return out
 
-    cfg = tl.LlamaConfig.tiny(dtype=torch.float32, **model)
+    cfg = tl.LlamaConfig.tiny(dtype=dtype, **model)
     result = auto_accelerate(
         loss_fn=lambda p, b: tl.loss_fn(p, b, cfg),
         optimizer=lambda ps: AGD(ps, lr=1e-3),
@@ -121,7 +138,7 @@ def run(case, z, out_dir, rank):
     st = fns.init_state(0)
     metrics = []
     with counting_dots(tl) as dots_counts:
-        for b in z["batches"]:
+        for b in z["batches"][:steps]:
             local = fns.batch_sharding.local({"tokens": b})
             st, m = fns.train_step(
                 st, {k: torch.from_numpy(v) for k, v in local.items()})
@@ -134,11 +151,13 @@ def run(case, z, out_dir, rank):
             for shard in p.shards:
                 t = all_gather_dim(t, shard.dim, ctx.group(shard.axis))
             full[path] = t.clone()
-    if rank == 0:
+    destroy_parallel_mesh(ctx)
+    if rank == 0 and save:
         torch.save({"metrics": metrics, "params": full,
                     "dims": dict(ctx.dims),
                     "dots_counts": dict(dots_counts)},
                    os.path.join(out_dir, f"{case}.pt"))
+    return metrics
 
 
 def main(inputs: str, out_dir: str, case: str):
@@ -154,6 +173,12 @@ def main(inputs: str, out_dir: str, case: str):
 
     z = np.load(inputs)
     ctx = init_distributed("cpu")
+    if case == "hybrid8":
+        # the dry run's compute first: its loss is the recorded one
+        bf16 = run(case, z, out_dir, ctx.rank, dtype=torch.bfloat16,
+                   steps=1, save=False)
+        if ctx.rank == 0:
+            torch.save(bf16[0][0], os.path.join(out_dir, "bf16_loss.pt"))
     run(case, z, out_dir, ctx.rank)
     dist.barrier()
     shutdown_distributed()
