@@ -14,6 +14,7 @@ card::
     python3 chip_smoke.py --skip-ckpt --ckpt-layers 2
     python3 chip_smoke.py --elastic-only  # build + the elastic leg
     python3 chip_smoke.py --replay-only   # build + the replay phase
+    python3 chip_smoke.py --offload-only  # build + the offload phase
     python3 chip_smoke.py --skip-serve --skip-int8 --skip-ckpt \
         --skip-elastic   # kernels, training, search and remat phases
 
@@ -137,6 +138,26 @@ Phases (any failed check raises, so the script exits nonzero):
    moments dequantized (B8) and their norms printed; the last step's
    largest leaf captured, B7-B9 checked and timed on it.  Its batches
    too cross through ``device_prefetch`` (bytes and copy ms printed).
+5e. offload phase (``--offload-only`` alone, ``--skip-offload`` leaves it
+   out): the host's ``MemTotal`` and the cgroup's ``memory.max``; then
+   ``HostOffloadAdamW(lr=3e-4, weight_decay=0.1)`` at Llama-2-7B width
+   and 2 layers, one 4 x 2048 batch, 3 steps in each mode (chunked,
+   fused, fused_delayed, ``micro_steps=2``, grouped N=2), fp32 and int8
+   moments, held against the same AdamW (the chunk math, or B9 then the
+   apply) over whole leaves resident on the card, ``fused_delayed`` on
+   the grads shifted by one step: each step's loss and every master
+   element equal (limit 0), a planted fault (one block left a step
+   behind) rejected.  Then Llama-2-7B at its 32 layers with int8
+   moments, remat "full", fused CE, mode ``auto``
+   (``fused_delayed``), 6 steps: losses finite, launches per step as
+   stated (B9 once per chunk), and, with the card's name and power
+   limit, the window of steps 2-6 on the card's clock, peak allocated
+   and reserved memory and the allocator's retries, the pinned host
+   bytes, each direction's bytes and GB/s of the chunk stream (against
+   55 GB/s pinned), the exposed ``offload_copy`` ms (the step's end less
+   its backward's), the ``offload_copy`` spans, and the copy and memory
+   floors.  The kernels line's training and int8 rows carry this leg's
+   counts as ``offload_launches``.
 6. flash-checkpoint leg: the ``df`` of ``/dev/shm`` and of the
    checkpoint dir (under ``build/``, made fresh and removed at the end),
    free RAM, and the pinned 1 GiB copy rate each way (the yardstick).
@@ -178,7 +199,8 @@ Phases (any failed check raises, so the script exits nonzero):
    host through two pinned buffers, sha256), this host's sha256 rate,
    and the phase's seconds.  The training rows of the kernels line carry
    the clean replay's counts as ``replay_launches``.
-7. elastic leg (``--elastic-only`` alone): ``python -m
+7. elastic leg (``--elastic-only`` alone; at 4 layers since the
+   offload phase came, ``--elastic-layers 8`` as before): ``python -m
    dlrover_tpu_torch.run`` (a local master, the agent, one worker) runs
    ``dlrover_tpu_torch.examples.llama_pretrain`` at Llama-2-7B widths
    and the largest of 8, 4, 2 layers whose two shm slots fit (as the
@@ -3617,6 +3639,406 @@ def int8_path(args):
     return out
 
 
+# ------------------------------------------------------- offload phase
+
+OFFLOAD_STEPS = 6
+OFFLOAD_LAYERS = 32  # Llama-2-7B's own depth: the host holds its state
+OFFLOAD_CHECK_LAYERS = 2
+OFFLOAD_CHECK_STEPS = 3
+OFFLOAD_LR, OFFLOAD_WD = 3e-4, 0.1
+# (label, mode of build_offloaded_train_step or "grouped", micro steps):
+# every mode of the offloaded step
+OFFLOAD_MODES = (("chunked", "chunked", 1), ("fused", "fused", 1),
+                 ("fused_delayed", "fused_delayed", 1),
+                 ("micro2", "fused", 2), ("grouped2", "grouped", 1))
+# PCIe each way from pinned memory on the H100 80GB HBM3 host
+# (scripts/torch_ckpt_copy_rates.py)
+PINNED_GBPS = 55.0
+#: the resident int8 leg's reserved peak at 32 layers (PERF.md §5)
+RESIDENT_INT8_RESERVED_GIB = 78.1
+#: the int8 rows of the kernels line and the launch counter each reads
+#: (the training rows: ``ELASTIC_ROWS``)
+OFFLOAD_ROWS = {"int8_adam": "int8_adam", "quantize": "quantize",
+                "dequantize": "dequantize"}
+
+
+def host_memory_reading() -> dict:
+    """MemTotal, MemAvailable, Mlocked and Unevictable
+    (``/proc/meminfo``), this process's VmRSS and the cgroup's memory
+    limit (v2 ``memory.max``, else v1 ``limit_in_bytes``), bytes (None
+    where the file is missing; ``max`` is no limit)."""
+    out = {}
+    with open("/proc/meminfo") as f:
+        for line in f:
+            k, v = line.split(":", 1)
+            if k in ("MemTotal", "MemAvailable", "Mlocked", "Unevictable"):
+                out[k] = int(v.split()[0]) * 1024
+    with open("/proc/self/status") as f:
+        for line in f:
+            if line.startswith("VmRSS"):
+                out["VmRSS"] = int(line.split()[1]) * 1024
+    out["cgroup_memory_max"] = None
+    for path in ("/sys/fs/cgroup/memory.max",
+                 "/sys/fs/cgroup/memory/memory.limit_in_bytes"):
+        try:
+            with open(path) as f:
+                raw = f.read().strip()
+        except OSError:
+            continue
+        out["cgroup_memory_max"] = raw if raw == "max" else int(raw)
+        break
+    return out
+
+
+def _offload_bc(kind, step):
+    """The bias corrections a mode's step uses: the chunked and grouped
+    steps 1 - b**step in float64 then fp32 (``apply_gradients``), the
+    fused ones in fp32."""
+    from dlrover_tpu_torch.ops import quantization as q
+
+    if kind in ("chunked", "grouped"):
+        return (float(np.float32(1.0 - B1 ** step)),
+                float(np.float32(1.0 - B2 ** step)))
+    return q.bias_corrections(B1, B2, step)
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def resident_offload_run(kind, micro, moments, loss, master0, tokens,
+                         steps, device="cuda"):
+    """The offloaded step's AdamW on whole leaves resident on the card:
+    the same forward and backward on the same bf16 params, the chunk
+    math (``_adamw_chunk_math``, or B9 then the apply) over each whole
+    leaf, the mode's bias corrections; ``fused_delayed`` applies each
+    step's grads one step later (step 1 a no-op).  Returns the losses and
+    the fp32 masters after every step."""
+    from dlrover_tpu_torch.optimizers import host_offload as ho
+    from dlrover_tpu_torch.common.tree import (
+        tree_leaves,
+        unflatten_like,
+    )
+
+    # the grouped step keeps each group's leaves (its int8 blocks run
+    # over them); the forward and backward see the joined tree
+    like = _two_groups(master0) if kind == "grouped" else master0
+    master = [t.detach().clone() for t in tree_leaves(like)]
+    params = [m.to(torch.bfloat16) for m in master]
+
+    def tree_of(leaves):
+        tree = unflatten_like(like, leaves)
+        return _join_groups(tree) if kind == "grouped" else tree
+    int8 = moments == "int8"
+    if int8:
+        mom = [[(torch.zeros(ho._q_padded(m.numel()), dtype=torch.int8,
+                             device=device),
+                 torch.zeros(ho._q_padded(m.numel()) // 1024,
+                             device=device)) for _ in range(2)]
+               for m in master]
+    else:
+        mom = [[torch.zeros_like(m), torch.zeros_like(m)] for m in master]
+    if kind == "grouped" or micro == 1:
+        grads_of = lambda p, b: ho.value_and_grad(loss, p, b)  # noqa: E731
+    else:
+        grads_of = ho.make_accumulated_grads_fn(loss, micro)
+    batch = {"tokens": torch.from_numpy(tokens).to(device)}
+    prev = [torch.zeros_like(p) for p in params]
+    losses, masters = [], []
+    for t in range(1, steps + 1):
+        lv, g = grads_of(tree_of(params), batch)
+        g = tree_leaves(_two_groups(g) if kind == "grouped" else g)
+        if kind == "fused_delayed":
+            applied, prev = prev, g
+            upd, wd = max(t - 1, 1), (OFFLOAD_WD if t > 1 else 0.0)
+        else:
+            applied, upd, wd = g, t, OFFLOAD_WD
+        bc1, bc2 = _offload_bc(kind, upd)
+        hyper = dict(lr=OFFLOAD_LR, b1=B1, b2=B2, eps=EPS, wd=wd)
+        for i, (m, gi) in enumerate(zip(master, applied)):
+            if int8:
+                (mq, ms), (nq, ns) = mom[i]
+                ho._adamw_chunk_int8(m.view(-1), *ho._q_views(mq, ms),
+                                     *ho._q_views(nq, ns), gi.reshape(-1),
+                                     bc1, bc2, **hyper)
+            else:
+                ho._adamw_chunk_math(
+                    m.view(-1), mom[i][0].view(-1), mom[i][1].view(-1),
+                    gi.reshape(-1),
+                    torch.full((), bc1, device=device),
+                    torch.full((), bc2, device=device), **hyper)
+            params[i] = m.to(torch.bfloat16)
+        losses.append(float(lv))
+        masters.append([m.clone() for m in master])
+    return losses, masters
+
+
+def _two_groups(tree, boundary=1):
+    """A Llama tree split at layer ``boundary`` into the two groups of
+    ``loss_fn_grouped``."""
+    layers = tree["layers"]
+    return [{"embed": tree["embed"],
+             "layers": {k: v[:boundary] for k, v in layers.items()}},
+            {"layers": {k: v[boundary:] for k, v in layers.items()},
+             "final_norm": tree["final_norm"], "lm_head": tree["lm_head"]}]
+
+
+def _join_groups(parts):
+    a, b = parts
+    return {"embed": a["embed"],
+            "layers": {k: torch.cat([a["layers"][k], b["layers"][k]])
+                       for k in a["layers"]},
+            "final_norm": b["final_norm"], "lm_head": b["lm_head"]}
+
+
+def offload_mode_check(label, kind, micro, moments, cfg, master0, tokens,
+                       device="cuda"):
+    """One mode for ``OFFLOAD_CHECK_STEPS`` steps against
+    ``resident_offload_run``: each step's loss, and the host masters
+    after the last step (every earlier update shows in them).  The two
+    run the same kernels on the same elements, so the readings are
+    differing elements and the limit is 0; the check must reject the
+    planted fault (the last leaf's last block left at its value of the
+    step before).  Returns the readings, ``ok`` among them."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.optimizers import host_offload as ho
+    from dlrover_tpu_torch.common.tree import tree_leaves
+
+    def loss(p, b):
+        return llama.loss_fn(p, b, cfg)
+
+    kw = dict(learning_rate=OFFLOAD_LR, weight_decay=OFFLOAD_WD,
+              moments=moments)
+    if kind == "grouped":
+        parts = _two_groups(master0)
+        init, step = ho.build_grouped_offload_step(
+            lambda *a: llama.loss_fn_ngrouped(a[:-1], a[-1], cfg),
+            init_fns=[lambda p=p: p for p in parts],
+            optimizers=[ho.HostOffloadAdamW(device=device, **kw)
+                        for _ in parts])
+        state = init()
+    else:
+        init, step = ho.build_offloaded_train_step(
+            loss, lambda r: master0, ho.HostOffloadAdamW(device=device, **kw),
+            mode=kind, micro_steps=micro)
+        state = init(0)
+    batch = {"tokens": torch.from_numpy(tokens).to(device)}
+    _sync(device)
+    _build.reset_launches()
+    losses = []
+    for _ in range(OFFLOAD_CHECK_STEPS):
+        holder = [state]
+        del state
+        state, m = step(holder.pop(), batch)
+        losses.append(float(m["loss"]))
+    _sync(device)
+    # each step's loss follows from every earlier update; the masters
+    # are read after the last
+    host = [t for s in (state if kind == "grouped" else (state,))
+            for t in tree_leaves(s.master)]
+    b9 = _build.launches["int8_adam"] / OFFLOAD_CHECK_STEPS
+    ref_losses, ref_masters = resident_offload_run(
+        kind, micro, moments, loss, master0, tokens, OFFLOAD_CHECK_STEPS,
+        device)
+    host = [h.to(device) for h in host]
+    n_diff = sum(differing(h.view(-1), r.view(-1))
+                 for h, r in zip(host, ref_masters[-1]))
+    worst = max(max_err(h.view(-1), r.view(-1))
+                for h, r in zip(host, ref_masters[-1]))
+    # planted fault: the last leaf's last 1,024 elements left at their
+    # value of the step before
+    bad = ref_masters[-1][-1].clone().view(-1)
+    bad[-1024:] = ref_masters[-2][-1].view(-1)[-1024:]
+    fault = differing(host[-1].view(-1), bad)
+    loss_diff = max(abs(a - b) for a, b in zip(losses, ref_losses))
+    ok = n_diff == 0 and fault > 0 and loss_diff == 0.0
+    log(f"[offload] check {label} moments={moments} {OFFLOAD_CHECK_STEPS} "
+        f"steps at {cfg.n_layers} layers: masters differing elements="
+        f"{n_diff} (max_abs_err {worst:.3g}; need 0) | against the "
+        f"planted fault {fault} (need > 0); losses {losses} resident "
+        f"{ref_losses} (max |diff| {loss_diff}; need 0); B9 launches a "
+        f"step {b9} {'ok' if ok else 'FAIL'}")
+    del state, host, ref_masters
+    return {"ok": ok, "differing": n_diff, "fault": fault,
+            "loss_diff": loss_diff, "b9_per_step": b9}
+
+
+def offload_path(args):
+    """``[offload]``: host memory first; every mode of the offloaded
+    AdamW at Llama-2-7B width and ``OFFLOAD_CHECK_LAYERS`` layers against
+    the resident run, fp32 and int8 moments; then Llama-2-7B at
+    ``OFFLOAD_LAYERS`` (32) with int8 moments in ``auto`` mode
+    (``fused_delayed`` on the card) for ``OFFLOAD_STEPS`` steps of one 4
+    x 2048 batch.  Returns the launch counts of that leg."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.observability import events
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.optimizers import host_offload as ho
+
+    card = smi_line()
+    mem = host_memory_reading()
+    log(f"[offload] {card} | host memory (bytes): {mem}")
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        args.bf16_reduced_default)
+    batch, seq = 4, 2048
+
+    # every mode at two layers, full width, against the resident run
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=OFFLOAD_CHECK_LAYERS)
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    master0 = llama.init_params(cfg, gen, "cuda", dtype=torch.float32)
+    t0 = time.perf_counter()
+    checks = {}
+    for label, kind, micro in OFFLOAD_MODES:
+        for moments in ("fp32", "int8"):
+            checks[f"{label}/{moments}"] = offload_mode_check(
+                label, kind, micro, moments, cfg, master0, tokens)
+            gc.collect()
+    log(f"[offload] mode checks {time.perf_counter() - t0:.1f} s; host "
+        f"memory after them {host_memory_reading()}, registered "
+        f"{ho._PinnedBlock.registered_bytes}")
+    del master0
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the leg at full size
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=OFFLOAD_LAYERS)
+    L = cfg.n_layers
+    tokens = np.random.default_rng(SEED).integers(
+        0, cfg.vocab_size, (batch, seq + 1)).astype(np.int32)
+    os.makedirs("build", exist_ok=True)
+    ev_path = os.path.abspath(f"build/offload_events_{os.getpid()}.jsonl")
+    events.set_default_event_logger(events.EventLogger(path=ev_path))
+    opt = ho.HostOffloadAdamW(learning_rate=OFFLOAD_LR,
+                              weight_decay=OFFLOAD_WD, moments="int8",
+                              time_copies=True)
+
+    def init_params(rng):
+        gen = torch.Generator(device="cuda").manual_seed(rng)
+        return llama.init_params(cfg, gen, "cuda", dtype=torch.float32)
+
+    init, step = ho.build_offloaded_train_step(
+        lambda p, b: llama.loss_fn(p, b, cfg), init_params, opt,
+        mode="auto")
+    t0 = time.perf_counter()
+    state = init(SEED)
+    torch.cuda.synchronize()
+    gc.collect()
+    torch.cuda.empty_cache()
+    init_s = time.perf_counter() - t0
+    pinned = ho.host_bytes(state)
+    n_params = sum(t.numel() for _, t in _named_leaves(state.params))
+    chunks = len(opt._order(list(ho.tree_leaves(state.master))))
+    log(f"[offload] Llama-2-7B, {L} layers, {n_params / 1e9:.3f}B params, "
+        f"int8 moments, mode auto -> {type(state).__name__}, remat "
+        f"{cfg.remat}, fused CE chunk {cfg.ce_chunk_rows}, batch {batch} x "
+        f"{seq}, lr {OFFLOAD_LR} wd {OFFLOAD_WD}: init {init_s:.1f} s, "
+        f"pinned host bytes {pinned} ({pinned / 1e9:.2f} GB), {chunks} "
+        f"chunks of <= {opt.chunk} elements")
+    batch_dev = {"tokens": torch.from_numpy(tokens).cuda()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    retries0 = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+    _build.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    losses, dones, bwds, issue_s = [], [], [], []
+    for _ in range(OFFLOAD_STEPS):
+        holder = [state]
+        del state
+        state, m = step(holder.pop(), batch_dev)
+        losses.append(m["loss"])
+        dones.append(m["done"])
+        bwds.append(m["backward_done"])
+        issue_s.append(opt.last_issue_s)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    opt.synchronize()
+    copies = opt.copy_times()
+    events.set_default_event_logger(None)
+    losses = [float(x) for x in losses]
+    step_ms = [start.elapsed_time(dones[0])] + [
+        a.elapsed_time(b) for a, b in zip(dones, dones[1:])]
+    exposed = [max(0.0, b.elapsed_time(d)) for b, d in zip(bwds, dones)]
+    window = sum(step_ms[1:]) / (OFFLOAD_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    reserved = torch.cuda.max_memory_reserved()
+    retries = torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries0
+    each_way = opt.last_stream_bytes / 2 * OFFLOAD_STEPS
+    h2d_ms, d2h_ms = sum(copies["h2d"]), sum(copies["d2h"])
+    spans = [e for e in events.read_events(ev_path)
+             if e["name"] == "offload_copy"]
+    per_step = {k: counts[k] / OFFLOAD_STEPS for k in TRAIN_KERNELS
+                + INT8_KERNELS}
+    expect = {"rms_norm": 4 * L + 1, "rms_norm_bwd": 2 * L + 1,
+              "flash_fwd": 2 * L, "flash_bwd_dkv": L, "flash_bwd_dq": L,
+              "quantize": 0, "dequantize": 0, "int8_adam": chunks}
+    for i, (lv, ms, ex, iss) in enumerate(zip(losses, step_ms, exposed,
+                                              issue_s), 1):
+        log(f"[offload] step {i} loss={lv:.6f} step_ms={ms:.3f} "
+            f"exposed_offload_copy_ms={ex:.3f} (card clock) "
+            f"stream_queued_in_ms={1e3 * iss:.1f} (host clock)")
+    state_bytes = 2 * n_params
+    log(f"[offload] {card} | step_ms_window(2-{OFFLOAD_STEPS})={window:.3f} "
+        f"wall_s={wall:.3f} tokens_per_s={batch * seq / window * 1e3:.1f} "
+        f"max_memory_allocated_GiB={peak / 2**30:.2f} "
+        f"max_memory_reserved_GiB={reserved / 2**30:.2f} "
+        f"allocator_retries={retries} chunk_buffers_GiB="
+        f"{opt._card.bytes() / 2**30:.3f} pinned_host_bytes={pinned} "
+        f"h2d_bytes={int(each_way)} d2h_bytes={int(each_way)} "
+        f"h2d_busy_ms={h2d_ms:.1f} d2h_busy_ms={d2h_ms:.1f} "
+        f"h2d_GBps={each_way / 1e6 / max(h2d_ms, 1e-9):.2f} "
+        f"d2h_GBps={each_way / 1e6 / max(d2h_ms, 1e-9):.2f} (busy time; "
+        f"against {PINNED_GBPS} pinned) exposed_offload_copy_ms_window="
+        f"{sum(exposed[1:]) / (OFFLOAD_STEPS - 1):.3f} launches_per_step="
+        f"{per_step} expected={expect}")
+    stream_ms = [1e3 * e["dur"] for e in spans]
+    log(f"[offload] offload_copy spans={len(spans)} labels="
+        f"{spans[-1]['labels'] if spans else None} stream_ms="
+        f"{[round(x, 1) for x in stream_ms]} stream_GBps_each_way="
+        f"{[round(opt.last_stream_bytes / 2 / 1e6 / max(x, 1e-9), 2) for x in stream_ms]}")
+    floor_gb = opt.last_stream_bytes / 2 / 1e9
+    log(f"[offload] bounds: copy floor {floor_gb:.2f} GB each way at "
+        f"{PINNED_GBPS} GB/s = {floor_gb / PINNED_GBPS:.3f} s with H2D and "
+        f"D2H concurrent, {2 * floor_gb / PINNED_GBPS:.3f} s serial; HBM "
+        f"floor bf16 weights {state_bytes / 1e9:.2f} GB + bf16 grads "
+        f"{state_bytes / 1e9:.2f} GB = {2 * state_bytes / 1e9:.2f} GB, + "
+        f"{state_bytes / 1e9:.2f} GB of the previous step's grads "
+        f"(delayed) = {3 * state_bytes / 2**30:.2f} GiB; the resident int8 "
+        f"leg reserved {RESIDENT_INT8_RESERVED_GIB} GiB (PERF.md)")
+    bad = [k for k, v in checks.items() if not v["ok"]]
+    require(not bad, f"offload modes disagree with the resident run: {bad}")
+    require(all(np.isfinite(losses)), "an offload training loss is not "
+            "finite")
+    require(per_step == expect, f"offload launches per step {per_step} != "
+            f"{expect}")
+    require(len(spans) >= OFFLOAD_STEPS - 1 and all(
+        e["labels"]["bytes"] > 0 for e in spans), "offload_copy spans")
+    require(pinned >= 4 * n_params, "the master is not in host memory")
+    del state, holder, opt, init, step
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    try:
+        os.unlink(ev_path)
+    except OSError:
+        pass
+    log(f"[offload] after the phase: host memory {host_memory_reading()}, "
+        f"registered {ho._PinnedBlock.registered_bytes} bytes, unregister "
+        f"errors {ho._PinnedBlock.unregister_errors}")
+    return {k: counts[k] for k in TRAIN_KERNELS + INT8_KERNELS}
+
+
 # ------------------------------------------------------ checkpoint leg
 
 # 4 layers at most, so that the elastic leg after it (two launcher runs
@@ -4263,7 +4685,9 @@ def replay_phase(args):
 
 # --------------------------------------------------------- elastic leg
 
-ELASTIC_DEPTHS = (8, 4, 2)
+# 4 layers at most since the offload phase came: at 8 the whole script
+# took 979 s of its 1,200 s on an H100 80GB HBM3 at 700 W before it
+ELASTIC_DEPTHS = (4, 2)
 ELASTIC_STEPS = 6
 ELASTIC_CRASH_STEP = 3
 ELASTIC_KERNELS = ("rms_norm", "rms_norm_bwd", "flash_fwd", "flash_bwd_dkv",
@@ -5108,6 +5532,10 @@ def main() -> int:
     ap.add_argument("--serve-only", action="store_true",
                     help="only the serving main path (its legs and "
                     "captured kernel rows)")
+    ap.add_argument("--skip-offload", action="store_true",
+                    help="leave out the host-offload phase")
+    ap.add_argument("--offload-only", action="store_true",
+                    help="only the build and the host-offload phase")
     ap.add_argument("--skip-ckpt", action="store_true",
                     help="leave out the flash-checkpoint leg")
     ap.add_argument("--ckpt-only", action="store_true",
@@ -5180,6 +5608,10 @@ def main() -> int:
         replay_phase(args)
         log(smi_line())
         return 0
+    if args.offload_only:
+        offload_path(args)
+        log(smi_line())
+        return 0
     kernel_checks()
     flash_checks()
     rows = ring_phase()
@@ -5202,6 +5634,12 @@ def main() -> int:
                 row.update({k: v[key] for k, v in phases.items()})
     if not (args.kernels_only or args.skip_int8):
         rows += int8_path(args)
+    if not (args.kernels_only or args.skip_offload):
+        offload = offload_path(args)
+        for row in rows:
+            key = ELASTIC_ROWS.get(row["name"], OFFLOAD_ROWS.get(row["name"]))
+            if key is not None:
+                row["offload_launches"] = offload[key]
     if not (args.kernels_only or args.skip_ckpt):
         ckpt_path(args)
     if not (args.kernels_only or args.skip_replay):

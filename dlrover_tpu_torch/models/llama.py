@@ -624,10 +624,16 @@ def forward_hidden(
     cos, sin = rope_frequencies(
         cfg, torch.arange(start, start + s, device=tokens.device)
     )
-    # one unbind per stacked leaf: its backward stacks the per-layer
-    # grads once, where a slice per layer would add a full-size zero
-    # tensor per layer
-    layers = {k: v.unbind(0) for k, v in params["layers"].items()}
+    # a tuple or list of stacked layer trees runs as sequential
+    # segments, in order (the grouped offload step's split, whose
+    # backward per group then makes only that group's grads); one
+    # unbind per stacked leaf: its backward stacks the per-layer grads
+    # once, where a slice per layer would add a full-size zero tensor
+    # per layer
+    stacks = params["layers"]
+    if isinstance(stacks, dict):
+        stacks = (stacks,)
+    segments = [{k: v.unbind(0) for k, v in seg.items()} for seg in stacks]
 
     def block(lp, x, cos, sin):
         if gather is not None:
@@ -642,7 +648,9 @@ def forward_hidden(
                               context_fn=_dots_contexts)
         return block(lp, x, cos, sin)
 
-    x = select_layer_executor(mesh)(layer, layers, x, cos, sin)
+    execute = select_layer_executor(mesh)
+    for layers in segments:
+        x = execute(layer, layers, x, cos, sin)
     return rms_norm(x, _full(gather, params, "final_norm"), cfg.norm_eps)
 
 
@@ -728,3 +736,154 @@ def loss_fn(
         mask = mask.to(nll.dtype)
         return torch.sum(nll * mask) / torch.clamp(mask.sum(), min=1.0)
     return nll.mean()
+
+
+# ------------------------------------------------ grouped (offload) split
+
+
+def loss_fn_ngrouped(
+    parts,
+    batch: Dict,
+    cfg: LlamaConfig,
+    attention_fn: Optional[AttentionFn] = None,
+    fused_ce: Optional[bool] = None,
+) -> torch.Tensor:
+    """``loss_fn`` over an N-group param split: group 0 carries the
+    embedding and the first layer segment, middle groups a contiguous
+    layer segment each, the last group the tail segment, the final norm
+    and the lm head.  A backward taken for one group's leaves only makes
+    that group's grads, so the grouped offload step
+    (``optimizers.host_offload.build_grouped_offload_step``) runs one
+    backward per group and the largest grads tree resident at once is
+    one group's."""
+    parts = tuple(parts)
+    if len(parts) == 1:
+        return loss_fn(parts[0], batch, cfg, attention_fn, fused_ce)
+    params = {
+        "embed": parts[0]["embed"],
+        "layers": tuple(p["layers"] for p in parts),
+        "final_norm": parts[-1]["final_norm"],
+        "lm_head": parts[-1]["lm_head"],
+    }
+    return loss_fn(params, batch, cfg, attention_fn, fused_ce)
+
+
+def loss_fn_grouped(
+    params_a: Dict,
+    params_b: Dict,
+    batch: Dict,
+    cfg: LlamaConfig,
+    attention_fn: Optional[AttentionFn] = None,
+    fused_ce: Optional[bool] = None,
+) -> torch.Tensor:
+    """Two-group form of :func:`loss_fn_ngrouped` (the two-group calling
+    convention of ``build_grouped_offload_step``)."""
+    return loss_fn_ngrouped(
+        (params_a, params_b), batch, cfg, attention_fn, fused_ce)
+
+
+def init_ngrouped_params(cfg: LlamaConfig, boundaries,
+                         generator: Optional[torch.Generator] = None,
+                         device: DeviceLike = None,
+                         dtype: Optional[torch.dtype] = torch.float32):
+    """An N-group layer split built group by group, never the whole
+    stacked tree at once: ``boundaries`` are the strictly increasing
+    layer split points (``len(boundaries) + 1`` groups;
+    ``offload_group_plan`` picks them from the per-layer footprint).
+    Returns a list of thunks, so the caller can free each group's fp32
+    source before the next one is made.  Each group draws from its own
+    generator seeded from ``generator`` (seed 0 when omitted), as the
+    JAX version splits its key per group."""
+    import dataclasses
+
+    bounds = [0] + list(boundaries) + [cfg.n_layers]
+    for lo, hi in zip(bounds, bounds[1:]):
+        if hi <= lo:
+            raise ValueError(
+                f"boundaries {tuple(boundaries)} must be strictly "
+                f"increasing within (0, {cfg.n_layers})")
+    n_groups = len(bounds) - 1
+    dev = resolve_device(device)
+    if generator is None:
+        generator = torch.Generator(device=dev).manual_seed(0)
+    seeds = torch.randint(0, 2 ** 62, (n_groups,), generator=generator,
+                          device=dev).tolist()
+
+    def make(i: int):
+        seg_cfg = dataclasses.replace(
+            cfg, n_layers=bounds[i + 1] - bounds[i])
+
+        def init() -> Dict:
+            gen = torch.Generator(device=dev).manual_seed(seeds[i])
+            t = init_params(seg_cfg, gen, dev, dtype)
+            part = {"layers": t["layers"]}
+            if i == 0:
+                part["embed"] = t["embed"]
+            if i == n_groups - 1:
+                part["final_norm"] = t["final_norm"]
+                part["lm_head"] = t["lm_head"]
+            return part
+
+        return init
+
+    return [make(i) for i in range(n_groups)]
+
+
+def init_grouped_params(cfg: LlamaConfig, boundary: int,
+                        generator: Optional[torch.Generator] = None,
+                        device: DeviceLike = None,
+                        dtype: Optional[torch.dtype] = torch.float32):
+    """Two-group form of :func:`init_ngrouped_params`: ``(init_a,
+    init_b)`` thunks splitting the stack at ``boundary``."""
+    init_a, init_b = init_ngrouped_params(cfg, (boundary,), generator,
+                                          device, dtype)
+    return init_a, init_b
+
+
+def layer_param_counts(cfg: LlamaConfig) -> Tuple[int, int, int]:
+    """(params of one stacked layer, of the embedding, of the lm head),
+    from the config (``init_params``' shapes)."""
+    d, hd = cfg.dim, cfg.head_dim
+    per_layer = (
+        2 * d  # attn_norm, mlp_norm
+        + d * cfg.n_heads * hd  # wq
+        + 2 * d * cfg.n_kv_heads * hd  # wk, wv
+        + cfg.n_heads * hd * d  # wo
+        + 3 * d * cfg.mlp_dim  # w_gate, w_up, w_down
+    )
+    return per_layer, cfg.vocab_size * d, d * cfg.vocab_size
+
+
+def offload_group_plan(cfg: LlamaConfig, batch: int, seq: int,
+                       hbm_bytes: Optional[int] = None, **kwargs):
+    """The grouped offload step's split for ``cfg`` at ``batch`` x
+    ``seq``: ``accelerate.solver.solve_offload_groups`` over the
+    per-layer footprint, the embedding charged to group 0 and the head
+    to the last (``bench_mfu.py``'s wiring of the solver).  Returns its
+    ``OffloadGroupPlan``; ``plan.boundaries`` feed
+    :func:`init_ngrouped_params`."""
+    from dlrover_tpu_torch.accelerate.analyser import ModelProfile
+    from dlrover_tpu_torch.accelerate.solver import solve_offload_groups
+
+    per_layer, embed, head = layer_param_counts(cfg)
+    n_params = per_layer * cfg.n_layers + embed + head
+    profile = ModelProfile(
+        num_params=n_params,
+        param_bytes=4 * n_params,
+        largest_leaf=0,
+        leaf_count=12,
+        # the remat-none activation footprint per sample; the solver
+        # applies the remat policy's retained share itself
+        activation_bytes_per_sample=cfg.n_layers * seq * cfg.dim * 2 * 16,
+        num_layers=cfg.n_layers,
+    )
+    return solve_offload_groups(
+        profile,
+        batch_per_replica=batch,
+        remat=cfg.remat,
+        hbm_bytes=hbm_bytes,
+        layer_params=[per_layer] * cfg.n_layers,
+        embed_params=embed,
+        head_params=head,
+        **kwargs,
+    )

@@ -5,7 +5,8 @@ calls: counters, gauges and log-bucketed histograms
 (``MetricsRegistry`` :123, ``Histogram`` :42, ``LATENCY_BOUNDS`` and
 ``SIZE_BOUNDS`` :36-40, ``get_registry`` :330), the Prometheus text
 rendering the master's ``/metrics`` serves (``render_text`` :282),
-``record_ckpt_io`` (:347), ``record_reshard_io`` (:536),
+``record_ckpt_io`` (:347), ``record_offload_io`` (:514),
+``record_reshard_io`` (:536),
 ``record_datastore_flush`` (:563), ``record_dropped_reports`` (:588)
 and ``record_control_rpc`` (:613), under the reference's metric names.
 Left out (ROADMAP A7): series retirement and the exporter file that the
@@ -239,6 +240,24 @@ def record_input_io(stage: str, nbytes: int, seconds: float):
         )
     except Exception as e:  # noqa: BLE001
         logger.warning("input io metric export failed: %s", e)
+
+
+def record_offload_io(nbytes: int, seconds: float, buffered: bool):
+    """One host-offload chunk-stream measurement as gauges
+    (``dlrover_tpu_offload_gbps{buffered=...}`` / ``_bytes``): the
+    optimizer state's host<->device traffic of one streamed update.
+    ``buffered`` tells the rolling window from the serial stream
+    (``DLROVER_TPU_OFFLOAD_BUFFERED=0``), so a lost overlap shows as a
+    ratio between the two series.  Never raises."""
+    try:
+        reg = get_registry()
+        gbps = nbytes / 1e9 / max(seconds, 1e-9)
+        labels = {"buffered": "1" if buffered else "0"}
+        reg.set_gauge("dlrover_tpu_offload_gbps", gbps, labels=labels)
+        reg.set_gauge("dlrover_tpu_offload_bytes", float(nbytes),
+                      labels=labels)
+    except Exception as e:  # noqa: BLE001
+        logger.warning("offload io metric export failed: %s", e)
 
 
 def record_reshard_io(from_world: int, to_world: int, nbytes: int,

@@ -292,6 +292,7 @@ def fused_int8_adam_update(
     eps: float,
     out: Optional[torch.Tensor] = None,
     inplace: bool = False,
+    blocks: Optional[int] = None,
 ):
     """Fused Adam step over int8 moments (nu stored as sqrt(nu)).
 
@@ -301,14 +302,20 @@ def fused_int8_adam_update(
     new_mu_scales, new_nu_q, new_nu_scales)`` with the update fp32 and
     shaped like ``grad``.  ``out`` (fp32, ``grad``'s element count, may be
     ``grad`` itself) receives the update; ``inplace=True`` writes the new
-    moments over the given ones and returns those tensors."""
+    moments over the given ones and returns those tensors.  ``blocks``
+    is the payload's block count where it is not ``padded_blocks(n)``:
+    a host-offload chunk holds ``ceil(n / 1024)`` blocks, unrounded
+    (``optimizers.host_offload``); the payload is still ``[blocks * 8,
+    128]`` and the scales ``[blocks, 1]``."""
     shape, n = meta
     if n == 0:
         upd = torch.zeros(shape, dtype=torch.float32, device=grad.device)
         return upd, mu_q, mu_scales, nu_q, nu_scales
     if grad.numel() != n:
         raise ValueError(f"grad has {grad.numel()} elements, meta says {n}")
-    n_blocks = padded_blocks(n)
+    n_blocks = padded_blocks(n) if blocks is None else int(blocks)
+    if n_blocks * BLOCK < n:
+        raise ValueError(f"{n_blocks} blocks cannot hold {n} elements")
     bc1, bc2 = float(np.float32(bc1)), float(np.float32(bc2))
     flat = _flat_f32(grad)
     if _build.on_cpu(flat, mu_q, mu_scales, nu_q, nu_scales):

@@ -383,7 +383,9 @@ def placement_for(mesh: MeshContext, rules: LogicalAxisRules, logical_axes,
 
 
 def tree_map(fn, *trees):
-    """``fn`` over the leaves of nested dicts of one structure."""
+    """``fn`` over the leaves of nested dicts of one structure.  Lists
+    and tuples are leaves here (shapes, logical axes), unlike in
+    ``common.tree.tree_map``."""
     first = trees[0]
     if isinstance(first, dict):
         return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}

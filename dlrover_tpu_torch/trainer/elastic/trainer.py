@@ -29,6 +29,7 @@ import torch
 
 from dlrover_tpu_torch.common.constants import NodeEnv
 from dlrover_tpu_torch.common.log import default_logger as logger
+from dlrover_tpu_torch.common.tree import tree_map
 from dlrover_tpu_torch.observability.events import (
     anchored_now,
     get_event_logger,
@@ -68,18 +69,6 @@ def card_stats(device) -> Optional[dict]:
         "max_memory_allocated_mb":
             torch.cuda.max_memory_allocated(dev) >> 20,
     }
-
-
-def _tree_map(fn, tree, *rest):
-    """``fn`` over the tensors of ``tree`` (and of ``rest``, which share
-    its structure), keeping dicts, lists and tuples."""
-    if isinstance(tree, dict):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest))
-                for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_tree_map(fn, v, *(r[i] for r in rest))
-                          for i, v in enumerate(tree))
-    return fn(tree, *rest)
 
 
 class ElasticTrainer:
@@ -197,12 +186,12 @@ class ElasticTrainer:
                 total_loss, total_grads = loss, grads
             else:
                 total_loss = total_loss + loss
-                total_grads = _tree_map(
+                total_grads = tree_map(
                     lambda a, b: a + b, total_grads, grads
                 )
             count += 1
         scale = 1.0 / max(count, 1)
-        mean_grads = _tree_map(lambda g: g * scale, total_grads)
+        mean_grads = tree_map(lambda g: g * scale, total_grads)
         return total_loss * scale, mean_grads
 
     def state_dict(self) -> dict:

@@ -83,8 +83,8 @@ step times.  Step times run from one step's end to the next on the
 card's own clock: the time between consecutive ``done`` events (the
 first from an event recorded as ``train()`` starts).  On the CPU, where
 a step is synchronous, they are host-clock gaps between reads.  Each
-read appends ``{"step", "loss", "grad_norm", "step_time_s"}`` to
-``history``.
+read appends ``{"step", "loss", "grad_norm", "step_time_s"}`` (and
+``"lr"`` under an ``lr_schedule``) to ``history``.
 """
 
 import collections
@@ -150,11 +150,16 @@ class Trainer:
         eval_iter_fn: Optional[Callable[[], Iterable]] = None,
         rng_seed: int = 0,
         callbacks=None,
+        lr_schedule: Optional[Callable[[int], float]] = None,
     ):
         """``data_iter_fn()`` returns a fresh iterator of host batches
         (dicts of numpy arrays or tensors); ``eval_iter_fn`` enables
         ``evaluate()`` and the ``eval_interval`` cadence; ``callbacks``
-        is a list of ``trainer.callbacks.TrainerCallback``."""
+        is a list of ``trainer.callbacks.TrainerCallback``.
+        ``lr_schedule`` (the ``step -> lr`` schedule the optimizer
+        follows, ``optimizers.schedules.get_scheduler``) puts an ``lr``
+        in each step's record: step N's update applied ``schedule(N -
+        1)``, as an optax schedule counts."""
         for name, slice_ in _LATER.items():
             if getattr(args, name):
                 raise NotImplementedError(
@@ -184,6 +189,7 @@ class Trainer:
         self._eval_iter_fn = eval_iter_fn
         self._rng_seed = rng_seed
         self._callbacks = CallbackList(callbacks)
+        self._lr_schedule = lr_schedule
         self._replay = None
         if args.replay_dir:
             from dlrover_tpu_torch.trainer.replay import ReplayRecorder
@@ -500,6 +506,10 @@ class Trainer:
         record = {"loss": loss, "step_time_s": dt}
         if "grad_norm" in metrics:
             record["grad_norm"] = float(metrics["grad_norm"])
+        if self._lr_schedule is not None:
+            # an optax schedule is read BEFORE its count advances: the
+            # Nth update applied schedule(N - 1)
+            record["lr"] = float(self._lr_schedule(step - 1))
         self._callbacks.on_step_end(step, record)
         self.history.append({"step": step, **record})
         if self._args.log_interval and step % self._args.log_interval == 0:

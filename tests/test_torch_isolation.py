@@ -95,7 +95,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               # the Brain, replay and callbacks
               "master.resource_optimizer", "master.scaler", "master.brain",
               "master.auto_scaler", "scheduler.kubernetes",
-              "trainer.replay", "trainer.callbacks"):
+              "trainer.replay", "trainer.callbacks",
+              # host-offloaded AdamW, the schedules and WSAM
+              "optimizers.host_offload", "optimizers.schedules",
+              "optimizers.wsam", "common.tree"):
         assert f"dlrover_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -169,6 +172,24 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(no_cuda):
     assert sch.stats()["device"] == "cpu"
     assert kv_cache.init_block_pool(pcfg, "cpu")["k"].shape == (
         2, 8, 4, 2, 16)
+
+
+def test_offload_entry_points_raise_without_cuda_unless_given_cpu(no_cuda):
+    from dlrover_tpu_torch.optimizers import host_offload
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        host_offload.HostOffloadAdamW()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        host_offload.build_offloaded_train_step(lambda p, b: 0.0,
+                                                lambda r: {})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama.init_ngrouped_params(cfg, (1,))
+    opt = host_offload.HostOffloadAdamW(device="cpu")
+    state = opt.init(llama.init_ngrouped_params(cfg, (1,),
+                                                device="cpu")[0]())
+    assert state.master["embed"].device.type == "cpu"
+    assert state.params["embed"].dtype == torch.bfloat16
 
 
 def test_build_module_imports_and_fails_cleanly_without_nvcc(
