@@ -15,6 +15,7 @@ card::
     python3 chip_smoke.py --elastic-only  # build + the elastic leg
     python3 chip_smoke.py --replay-only   # build + the replay phase
     python3 chip_smoke.py --offload-only  # build + the offload phase
+    python3 chip_smoke.py --rlhf-only     # build + the RLHF phase
     python3 chip_smoke.py --skip-serve --skip-int8 --skip-ckpt \
         --skip-elastic   # kernels, training, search and remat phases
 
@@ -82,6 +83,35 @@ Phases (any failed check raises, so the script exits nonzero):
    fused in, paged decode, paged verify), and each kernel is held against
    its plain version on them (and must not match the planted fault;
    three runs bit for bit) and timed there.
+4b. RLHF phase (``--rlhf-only`` alone, ``--skip-rlhf`` leaves it out):
+   the in-process PPO loop at Llama-2-7B widths and 4 layers (fp32
+   masters, bf16 compute, remat none): the actor (``actor_ppo_loss``
+   over ``forward``, Adam 1e-4) and the example's critic (``emb [V,
+   16]``, ``w [16]``, Adam 1e-3) built through
+   ``ModelEngine.build_role``, ``KVCacheBackend`` (64 new tokens at T
+   1.0), ``RLHFTrainer.train`` over 2 rounds of 8 seeded 64-token
+   prompts with the example's reward (last token even), minibatches of
+   4.  Launch counters are zeroed just before ``train`` and read just
+   after: B1 (both entries), its backward and B2-B4 must equal the
+   counts the layer count predicts (``rlhf_expected_launches``), B5-B9
+   0.  Checks: round 1's ``mean_kl`` is 0; after round 1 the actor's
+   params have moved and the ref copy's digest equals its initial one
+   (and still does at the end); every figure is finite and round 2's KL
+   is not 0; prefill then ``decode_step`` over the last rollout's
+   tokens against ``forward`` at the same positions, max |err| over the
+   row's RMS within ``RLHF_CACHE_TOL``, and the same check must reject
+   layer 0's cached V zeroed at one past position (both readings
+   printed); ``categorical`` over the prefill's last logits rows from
+   one key gives the same bits and tokens on the card and the CPU; one
+   PPO round of ``LlamaConfig.tiny`` in fp32 on the card and on the
+   CPU's plain path from the same params and key: equal tokens, the
+   history within ``RLHF_TINY_TOL``.  Printed beside the card's name
+   and power limit: the prefill's ms and the decode step's (CUDA
+   events and the host clock), the rollouts' seconds and tokens/s, the
+   experience pass's forwards (actor, ref, critic), the actor's and the
+   critic's step ms, the peak allocated and reserved GiB and the
+   phase's seconds.  The kernels line's rows carry the phase's counts
+   as ``rlhf_launches``.
 5. training main path: Llama-2-7B width at ``--train-layers`` layers
    (default 8), fp32 masters, bf16 compute, through ``auto_accelerate``
    -> ``Trainer.train`` with AGD for ``--train-steps`` steps of 4 x 2048
@@ -258,7 +288,8 @@ Phases (any failed check raises, so the script exits nonzero):
    bytes and journal rows).  The training rows of the kernels line carry run
    1's restarted worker's counts as ``elastic_launches``.
 8. an ``{"input_plane": ...}`` line (the h2d readings, the stall check,
-   the ``{data 1, fsdp 1}`` comparison), a ``{"search": ..., "remat":
+   the ``{data 1, fsdp 1}`` comparison), an ``{"rlhf": ...}`` line (the
+   RLHF phase's figures), a ``{"search": ..., "remat":
    ...}`` line, a ``{"kernels": [...]}`` line (the training rows carry
    the search and remat phases' launches beside the leg's),
    the ``nvidia-smi`` line, and last
@@ -5506,6 +5537,399 @@ def elastic_path(args):
     return {"launches": inc1["launches"], "legs": legs, "master": fo_legs}
 
 
+# ------------------------------------------------------------ rlhf phase
+
+RLHF_LAYERS = 4
+RLHF_BATCH, RLHF_PROMPT, RLHF_NEW = 8, 64, 64
+RLHF_ROUNDS, RLHF_MINIBATCH = 2, 4
+# check 1: the cached path (prefill then decode_step, dense attention)
+# against forward (flash) on the same bf16 weights, per logits row:
+# max |cached - forward| over the row's RMS
+RLHF_CACHE_TOL = 0.1
+# check 5: tiny fp32 PPO round, card against the CPU's plain path: each
+# figure of the history within this share of max(1, |CPU's|)
+RLHF_TINY_TOL = 1e-4
+#: the rlhf phase's readings, printed as one line at the end
+RLHF = {}
+
+
+def row_launch_key(name: str) -> str:
+    """The launch counter a kernels-line row reads."""
+    base = name.removesuffix("_train").removesuffix("_ring")
+    return "rms_norm" if base == "add_rms_norm" else base
+
+
+def rlhf_expected_launches(L: int) -> dict:
+    """Launches of one ``RLHFTrainer.train`` at this shape: per round a
+    prefill and ``RLHF_NEW - 1`` decode steps (2 L + 1 norms each; the
+    last sample needs no decode), two no-grad forwards (actor, ref: 2 L +
+    1 norms and L flash forwards each), and the actor's minibatch steps
+    (a forward as above, a backward of every norm and L dK/dV and dQ).
+    The critic launches none of the port's kernels."""
+    norms = 2 * L + 1
+    steps = RLHF_BATCH // RLHF_MINIBATCH
+    per_round = {
+        "rms_norm": norms * (1 + (RLHF_NEW - 1) + 2 + steps),
+        "rms_norm_bwd": norms * steps,
+        "flash_fwd": L * (2 + steps),
+        "flash_bwd_dkv": L * steps,
+        "flash_bwd_dq": L * steps,
+    }
+    out = {k: 0 for k in (
+        "rms_norm", "rms_norm_bwd", "paged_decode", "paged_verify",
+        "flash_fwd", "flash_bwd_dkv", "flash_bwd_dq", "quantize",
+        "dequantize", "int8_adam")}
+    out.update({k: v * RLHF_ROUNDS for k, v in per_round.items()})
+    return out
+
+
+def device_digest(tree):
+    """Two int64 sums (mod 2^64) of each leaf's bits, one weighted by the
+    element's index: equal trees give equal digests, on the card."""
+    out = []
+    for t in _leaves(tree):
+        v = t.detach().reshape(-1)
+        v = v.view(torch.int32 if v.element_size() == 4 else torch.int16)
+        v = v.long()
+        w = torch.arange(v.numel(), device=v.device) % 65521 + 1
+        out.append((int(v.sum()), int((v * w).sum())))
+        del v, w
+    return out
+
+
+def rlhf_roles(llama, cfg, device):
+    """The example's actor and critic on ``device``: the actor's PPO loss
+    over ``forward`` with Adam at 1e-4, the critic ``emb [V, 16]``,
+    ``w [16]`` with Adam at 1e-3."""
+    from dlrover_tpu_torch.rl.config import RLConfig
+    from dlrover_tpu_torch.rl.engine import ModelEngine
+    from dlrover_tpu_torch.rl.trainer import actor_ppo_loss, critic_value_loss
+
+    config = RLConfig.from_dict({
+        "roles": {"actor": {"strategy": {"data": 1, "remat": "none"}},
+                  "critic": {"strategy": {"data": 1, "remat": "none"}}},
+        "ppo": {"rollout_batch": RLHF_MINIBATCH, "ppo_epochs": 1}})
+
+    def actor_forward(p, t):
+        return llama.forward(p, t, cfg)
+
+    def critic_value(p, t):
+        return torch.einsum("bse,e->bs", p["emb"][t.long()], p["w"])
+
+    def critic_init(g, d):
+        return {"emb": torch.randn((cfg.vocab_size, 16), generator=g,
+                                   device=d) * 0.1,
+                "w": torch.zeros((16,), device=d)}
+
+    engine = ModelEngine(config)
+    engine.build_role(
+        "actor",
+        loss_fn=lambda p, b: actor_ppo_loss(actor_forward(p, b["tokens"]), b),
+        optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-4),
+        init_params_fn=lambda g, d: llama.init_params(cfg, g, d,
+                                                      torch.float32),
+        param_axes=llama.param_logical_axes(cfg), device=device)
+    engine.build_role(
+        "critic",
+        loss_fn=lambda p, b: critic_value_loss(critic_value(p, b["tokens"]),
+                                               b),
+        optimizer=lambda ps: torch.optim.Adam(ps, lr=1e-3),
+        init_params_fn=critic_init,
+        param_axes={"emb": (None, None), "w": (None,)}, device=device)
+    engine.init_role_state("actor", SEED)
+    engine.init_role_state("critic", SEED + 1)
+    return engine, actor_forward, critic_value
+
+
+def rlhf_reward(tokens):
+    """The example's reward: 1 where the last token is even."""
+    return np.asarray(np.asarray(tokens)[:, -1] % 2 == 0, np.float32)
+
+
+def rlhf_prompts(vocab, batch, plen, rounds):
+    gen = np.random.default_rng(SEED)
+    return [gen.integers(0, vocab, (batch, plen)).astype(np.int32)
+            for _ in range(rounds)]
+
+
+def _np_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _np_tree(v) for k, v in tree.items()}
+    return tree.detach().cpu().numpy()
+
+
+def rlhf_cached_err(llama, cfg, params, tokens, plen, fault_pos=None):
+    """Check 1's reading: prefill ``tokens[:, :plen]``, feed the rest
+    through ``decode_step`` collecting each position's logits, and hold
+    them against ``forward``'s at positions ``plen - 1 ..``: max over rows
+    of max |err| / RMS of the forward row.  ``fault_pos`` zeroes layer
+    0's cached V at that position after the prefill."""
+    b, total = tokens.shape
+    with torch.no_grad():
+        cache = llama.init_kv_cache(cfg, b, total)
+        logits, cache = llama.prefill(params, tokens[:, :plen], cache, cfg)
+        if fault_pos is not None:
+            cache["v"][0][:, fault_pos] = 0
+        rows = [logits[:, plen - 1]]
+        del logits
+        for pos in range(plen, total - 1):
+            step, cache = llama.decode_step(params, tokens[:, pos], cache,
+                                            pos, cfg)
+            rows.append(step)
+        cached = torch.stack(rows, 1)
+        full = llama.forward(params, tokens, cfg)[:, plen - 1:total - 1]
+        rms = full.pow(2).mean(-1).sqrt()
+        err = ((cached - full).abs().amax(-1) / rms).max()
+    return float(err), cached[:, 0].float()
+
+
+def rlhf_tiny_round(llama, device, params0, critic0):
+    """Check 5's run: one PPO round of ``LlamaConfig.tiny`` in fp32 at T
+    1.0 on ``device`` from the given params; returns (tokens, history)."""
+    from dlrover_tpu_torch.rl.inference import KVCacheBackend
+    from dlrover_tpu_torch.rl.trainer import RLHFTrainer
+
+    cfg = llama.LlamaConfig.tiny(remat="none", dtype=torch.float32)
+    engine, fwd, critic = rlhf_roles(llama, cfg, device)
+    engine.set_role_params("actor", params0)
+    engine.set_role_params("critic", critic0)
+    backend = KVCacheBackend(cfg, max_new_tokens=8, temperature=1.0,
+                             device=device)
+    seen = []
+    generate = backend.generate
+
+    def recorded(prompts, rng, params=None):
+        out = generate(prompts, rng, params)
+        seen.append(out.cpu().numpy())
+        return out
+
+    backend.generate = recorded
+    trainer = RLHFTrainer(engine.config, engine, backend, fwd, critic,
+                          rlhf_reward, prompt_len=8)
+    hist = trainer.train(rlhf_prompts(cfg.vocab_size, 8, 8, 1), 2)
+    return seen[0], hist[0]
+
+
+def rlhf_phase(args):
+    """The ``[rlhf]`` phase (the module's docstring, phase 4b); returns
+    its launch counts."""
+    from dlrover_tpu_torch.models import llama
+    from dlrover_tpu_torch.ops import _build
+    from dlrover_tpu_torch.rl import sampling
+    from dlrover_tpu_torch.rl.inference import KVCacheBackend
+    from dlrover_tpu_torch.rl.trainer import RLHFTrainer
+
+    t_phase = time.perf_counter()
+    card = smi_line()
+    reduced = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    # what earlier phases left in cycles goes now, not in the phase's
+    # reading or its garbage collections
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated() / 2**30
+    L = RLHF_LAYERS
+    cfg = llama.LlamaConfig.llama2_7b(n_layers=L, remat="none")
+    engine, actor_forward, critic_value = rlhf_roles(llama, cfg, None)
+    actor = engine.states["actor"]["params"]
+    n_params = sum(t.numel() for t in _leaves(actor))
+    backend = KVCacheBackend(cfg, max_new_tokens=RLHF_NEW, temperature=1.0)
+    trainer = RLHFTrainer(engine.config, engine, backend, actor_forward,
+                          critic_value, rlhf_reward, prompt_len=RLHF_PROMPT)
+    log(f"[rlhf] {card} | Llama-2-7B widths at {L} layers ({n_params:,} "
+        f"params, fp32 masters, bf16 compute, remat none), actor Adam 1e-4, "
+        f"critic emb [V, 16] Adam 1e-3; {RLHF_ROUNDS} rounds of "
+        f"{RLHF_BATCH} prompts x {RLHF_PROMPT} tokens, {RLHF_NEW} new at "
+        f"T 1.0 through KVCacheBackend, minibatches of {RLHF_MINIBATCH}")
+    actor0 = device_digest(actor)
+    ref0 = device_digest(trainer.ref_params)
+    require(ref0 == actor0, "the ref copy is not the actor's params")
+
+    # timing hooks: CUDA events and the host clock around each piece
+    timed = {k: [] for k in ("prefill", "decode", "actor_logp", "ref_logp",
+                             "critic_values", "actor_step", "critic_step",
+                             "rollout")}
+
+    def evented(kind, fn):
+        def wrapped(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            timed[kind].append((start, end, time.perf_counter() - t0))
+            return out
+        return wrapped
+
+    def synced(kind, fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            timed[kind].append(time.perf_counter() - t0)
+            return out
+        return wrapped
+
+    backend._prefill = evented("prefill", backend._prefill)
+    backend._decode = evented("decode", backend._decode)
+    rollouts = []
+    generate = synced("rollout", backend.generate)
+
+    def recorded(prompts, rng, params=None):
+        out = generate(prompts, rng, params)
+        rollouts.append(out)
+        return out
+
+    backend.generate = recorded
+    logp = trainer._logp_fn
+
+    def logp_timed(params, tokens):
+        kind = "ref_logp" if params is trainer.ref_params else "actor_logp"
+        return synced(kind, logp)(params, tokens)
+
+    trainer._logp_fn = logp_timed
+    trainer._value_fn = synced("critic_values", trainer._value_fn)
+    for name in ("actor", "critic"):
+        fns = engine.roles[name].fns
+        fns.train_step = synced(f"{name}_step", fns.train_step)
+    digests = {}
+    make_experience = trainer.make_experience
+
+    def experience(prompts, rng):
+        if rollouts:  # round 2 starts: round 1 has trained
+            digests["actor"] = device_digest(actor)
+            digests["ref"] = device_digest(trainer.ref_params)
+        return make_experience(prompts, rng)
+
+    trainer.make_experience = experience
+    prompts = rlhf_prompts(cfg.vocab_size, RLHF_BATCH, RLHF_PROMPT,
+                           RLHF_ROUNDS)
+
+    # the main path, counted from zero
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    history = trainer.train(prompts, 2, minibatch_size=RLHF_MINIBATCH)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = dict(_build.launches)
+    peak_alloc = torch.cuda.max_memory_allocated() / 2**30
+    peak_res = torch.cuda.max_memory_reserved() / 2**30
+    want = rlhf_expected_launches(L)
+    log(f"[rlhf] launches {counts} (predicted {want})")
+    require(counts == want, "the RLHF phase's launches are not the "
+            "predicted ones")
+    for h in history:
+        log(f"[rlhf] round: {json.dumps(h)}")
+
+    # check 3: round 1's KL is 0; check 4: what moved, what did not
+    require(history[0]["mean_kl"] == 0.0,
+            "round 1's mean_kl is not 0 (old and ref logprobs differ)")
+    require(all(np.isfinite(v) for h in history for v in h.values()),
+            "a figure of the history is not finite")
+    require(history[1]["mean_kl"] != 0.0, "round 2's mean_kl is 0")
+    moved = digests["actor"] != actor0
+    ref_kept = digests["ref"] == ref0 and device_digest(
+        trainer.ref_params) == ref0
+    log(f"[check] rlhf round 1 mean_kl {history[0]['mean_kl']!r} (0), round "
+        f"2 {history[1]['mean_kl']!r}; after round 1 the actor moved: "
+        f"{moved}, the ref copy's digest equal to the initial one: "
+        f"{ref_kept}")
+    require(moved and ref_kept, "after round 1 the actor did not move, or "
+            "the ref copy did")
+
+    # check 1: the cached path against the full forward, and a fault
+    tokens = rollouts[-1]
+    err, first = rlhf_cached_err(llama, cfg, actor, tokens, RLHF_PROMPT)
+    fault_pos = RLHF_PROMPT // 2
+    bad, _ = rlhf_cached_err(llama, cfg, actor, tokens, RLHF_PROMPT,
+                             fault_pos)
+    log(f"[check] rlhf prefill + {RLHF_NEW - 1} decode steps against forward "
+        f"on the sampled tokens: max |err| / row RMS {err:.4g}, with layer "
+        f"0's cached V zeroed at position {fault_pos} {bad:.4g} (limit "
+        f"{RLHF_CACHE_TOL})")
+    require(err <= RLHF_CACHE_TOL < bad, "the cached path disagrees with "
+            "forward, or the check cannot see a zeroed cache row")
+
+    # check 2: the sampler's bits and tokens, card against the CPU
+    key = sampling.split(sampling.prng_key(SEED))[1]
+    bits = sampling.key_bits(key, first.shape, "cuda").cpu()
+    same_bits = torch.equal(bits, sampling.key_bits(key, first.shape))
+    toks = sampling.categorical(key, first, 1.0).cpu()
+    same_toks = torch.equal(toks, sampling.categorical(key, first.cpu(),
+                                                       1.0))
+    log(f"[check] rlhf categorical over {tuple(first.shape)} from one key: "
+        f"bits card == CPU {same_bits}, tokens equal {same_toks}")
+    require(same_bits and same_toks, "the batch sampler differs on the card")
+
+    def ev_ms(kind):
+        return [s.elapsed_time(e) for s, e, _ in timed[kind]]
+
+    def host_ms(kind):
+        return [1e3 * h for _, _, h in timed[kind]]
+
+    dec_ev, dec_host = ev_ms("decode"), host_ms("decode")
+    new_tokens = RLHF_BATCH * RLHF_NEW
+    figures = {
+        "card": card,
+        "prefill_ms": ev_ms("prefill"),
+        "decode_step_ms_events_median": statistics.median(dec_ev),
+        "decode_step_ms_host_median": statistics.median(dec_host),
+        "rollout_s": timed["rollout"],
+        "rollout_tokens_per_s": [new_tokens / s for s in timed["rollout"]],
+        "experience_ms": {k: [1e3 * s for s in timed[k]] for k in (
+            "actor_logp", "ref_logp", "critic_values")},
+        "actor_step_ms": [1e3 * s for s in timed["actor_step"]],
+        "critic_step_ms": [1e3 * s for s in timed["critic_step"]],
+        "peak_allocated_gib": peak_alloc, "peak_reserved_gib": peak_res,
+        "held_at_start_gib": held,
+        "train_s": train_s, "launches": counts,
+        "cached_err": err, "cached_fault_err": bad,
+    }
+    log(f"[rlhf] {card} | prefill ms {figures['prefill_ms']}; decode step "
+        f"median {figures['decode_step_ms_events_median']:.4f} ms by CUDA "
+        f"events, {figures['decode_step_ms_host_median']:.4f} ms on the host "
+        f"clock ({len(dec_ev)} steps); rollouts {timed['rollout']} s, "
+        f"{figures['rollout_tokens_per_s']} tokens/s; experience ms "
+        f"{figures['experience_ms']}; actor steps ms "
+        f"{figures['actor_step_ms']}; critic steps ms "
+        f"{figures['critic_step_ms']}; peak allocated {peak_alloc:.2f} GiB, "
+        f"reserved {peak_res:.2f} GiB ({held:.2f} GiB allocated at the "
+        f"phase's start); train {train_s:.2f} s")
+    del trainer, engine, backend, actor, rollouts, tokens, first
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # check 5: a tiny fp32 round, card against the CPU's plain path
+    tiny = llama.LlamaConfig.tiny(remat="none", dtype=torch.float32)
+    gen = torch.Generator().manual_seed(SEED)
+    params0 = _np_tree(llama.init_params(tiny, gen, "cpu", torch.float32))
+    critic0 = {"emb": np.random.default_rng(SEED).standard_normal(
+        (tiny.vocab_size, 16)).astype(np.float32) * 0.1,
+        "w": np.zeros(16, np.float32)}
+    # the CPU's round first: the process's world then ends on the card,
+    # where the phases after this one build theirs
+    cpu_toks, cpu_h = rlhf_tiny_round(llama, "cpu", params0, critic0)
+    card_toks, card_h = rlhf_tiny_round(llama, "cuda", params0, critic0)
+    worst = max(abs(card_h[k] - cpu_h[k]) / max(1.0, abs(cpu_h[k]))
+                for k in cpu_h)
+    log(f"[check] rlhf tiny fp32 PPO round, card vs CPU: tokens equal "
+        f"{np.array_equal(card_toks, cpu_toks)}; history card {card_h} CPU "
+        f"{cpu_h}: worst |diff| / max(1, |CPU|) {worst:.3g} (limit "
+        f"{RLHF_TINY_TOL})")
+    require(np.array_equal(card_toks, cpu_toks) and worst <= RLHF_TINY_TOL,
+            "the tiny PPO round differs between the card and the CPU")
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = (
+        reduced)
+    figures["phase_s"] = time.perf_counter() - t_phase
+    RLHF.update(figures)
+    log(f"[rlhf] {card} | the phase took {figures['phase_s']:.1f} s")
+    return counts
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--kernels-only", action="store_true")
@@ -5551,6 +5975,10 @@ def main() -> int:
                     help="leave out the elastic-launch leg")
     ap.add_argument("--elastic-only", action="store_true",
                     help="only the build and the elastic-launch leg")
+    ap.add_argument("--skip-rlhf", action="store_true",
+                    help="leave out the RLHF phase")
+    ap.add_argument("--rlhf-only", action="store_true",
+                    help="only the build and the RLHF phase")
     ap.add_argument("--elastic-layers", type=int, default=0,
                     help="depth of the elastic leg (default: the largest "
                     f"of {ELASTIC_DEPTHS} whose two shm slots fit)")
@@ -5612,6 +6040,11 @@ def main() -> int:
         offload_path(args)
         log(smi_line())
         return 0
+    if args.rlhf_only:
+        rlhf_phase(args)
+        log(json.dumps({"rlhf": RLHF}))
+        log(smi_line())
+        return 0
     kernel_checks()
     flash_checks()
     rows = ring_phase()
@@ -5620,6 +6053,9 @@ def main() -> int:
     train_parity()
     if not (args.kernels_only or args.skip_serve):
         rows += main_path(args)
+    rlhf = None
+    if not (args.kernels_only or args.skip_rlhf):
+        rlhf = rlhf_phase(args)
     if not (args.kernels_only or args.skip_train):
         rows += train_path(args)
         phases = {}
@@ -5655,8 +6091,13 @@ def main() -> int:
             if key is not None:
                 row["elastic_launches"] = elastic["launches"][key]
 
+    if rlhf is not None:
+        for row in rows:
+            row["rlhf_launches"] = rlhf[row_launch_key(row["name"])]
     if INPUT_PLANE:
         log(json.dumps({"input_plane": INPUT_PLANE}))
+    if RLHF:
+        log(json.dumps({"rlhf": RLHF}))
     if SEARCH_REMAT:
         log(json.dumps(SEARCH_REMAT))
     if rows:

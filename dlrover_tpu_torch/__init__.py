@@ -19,16 +19,19 @@ Layout (each module names its JAX counterpart in its docstring):
 - ``run.py``   the launcher, ``python -m dlrover_tpu_torch.run``;
 - ``ops/``     the hand-written CUDA kernels (``ops/csrc``), their build,
   their wrappers and plain PyTorch versions;
-- ``models/``  the Llama training forward and loss, the paged serving
-  steps and the JAX-params converter;
+- ``models/``  the Llama training forward and loss, the paged and the
+  dense-cache serving steps and the JAX-params converter;
 - ``optimizers/`` AGD;
 - ``parallel/`` the one-device train step (``build_train_step``);
 - ``accelerate/`` ``auto_accelerate`` with the one-device strategy;
 - ``trainer/`` the training loop (``Trainer``, ``TrainingArgs``), flash
   checkpoint, the worker's side of the elastic launch (``elastic/``,
   the drain and the hang detector);
-- ``examples/`` ``python -m dlrover_tpu_torch.examples.llama_pretrain``;
-- ``rl/``      the block pool, the sampler and the scheduler.
+- ``examples/`` ``python -m dlrover_tpu_torch.examples.llama_pretrain``
+  and ``.rlhf_ppo``;
+- ``rl/``      the block pool, the sampler and the scheduler; the
+  in-process RLHF loop (config, the per-role engine, the whole-batch
+  generators, the PPO math and ``RLHFTrainer``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 with no card and no explicit CPU they raise.  A kernel wrapper takes its

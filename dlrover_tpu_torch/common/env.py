@@ -5,10 +5,11 @@ configures either package.  Process identity, the control plane's
 long-poll and batching, the master's pool size and reconnect deadline,
 the events file's rotation, the checkpoint close timeout, the drain
 grace, the restart overlap and the previous world, the serving readers
-(``kv_incremental_enabled`` .. ``decode_steps``), the master's durable
-state and observatory (the datastore's write-behind switch, the timeline
-retention, the snapshot cadence, the observatory and self-telemetry
-switches) and ``get_free_port``.
+(``kv_incremental_enabled`` .. ``decode_steps``), the whole-batch
+generators' (``gen_buckets``, ``gen_batched_prefill_enabled``), the
+master's durable state and observatory (the datastore's write-behind
+switch, the timeline retention, the snapshot cadence, the observatory
+and self-telemetry switches) and ``get_free_port``.
 
 One difference: the switch of the master's subsystem that the port
 does not have yet (the live profiler and deep capture,
@@ -255,6 +256,37 @@ def decode_steps() -> int:
     forward; ``rl/scheduler.py``).  ``DLROVER_TPU_DECODE_STEPS=1``
     (the default) is exactly the PR-13 one-token-per-dispatch loop."""
     return max(1, int(env_float(DECODE_STEPS_ENV, 1)))
+
+
+GEN_BUCKETS_ENV = "DLROVER_TPU_GEN_BUCKETS"
+GEN_BATCHED_PREFILL_ENV = "DLROVER_TPU_GEN_BATCHED_PREFILL"
+
+
+def gen_buckets() -> tuple:
+    """Prompt-length buckets for the whole-batch generators
+    (``rl/inference.py``): a prompt pads up to the smallest bucket >= its
+    length.  Causal masking makes the padded result identical to the
+    exact-shape one at any temperature (the batch dim, which shapes the
+    sampler's noise, is never padded).  Unset/empty = exact shapes."""
+    raw = os.getenv(GEN_BUCKETS_ENV, "")
+    out = []
+    for part in raw.replace(";", ",").split(","):
+        part = part.strip()
+        if part:
+            try:
+                out.append(int(part))
+            except ValueError:
+                continue  # junk entries are ignored, not fatal
+    return tuple(sorted(set(b for b in out if b > 0)))
+
+
+def gen_batched_prefill_enabled() -> bool:
+    """Kill-switch for ``KVCacheBackend``'s batched single-forward
+    prefill; ``0`` restores the one-token-at-a-time prefill through the
+    cached decode step exactly."""
+    return os.getenv(GEN_BATCHED_PREFILL_ENV, "1").lower() not in (
+        "0", "false", "off",
+    )
 
 
 PROFILE_ENV = "DLROVER_TPU_PROFILE"

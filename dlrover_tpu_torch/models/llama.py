@@ -3,8 +3,9 @@ paged serving steps.
 
 Port of ``dlrover_tpu/models/llama.py`` (``LlamaConfig`` :33-85,
 ``init_params`` :91-124, ``rms_norm``/RoPE :248-275, the training
-forward and loss :278-447 and :957-996, and the paged steps :597-949):
-RMSNorm + RoPE (split-half) + GQA + SwiGLU.
+forward and loss :278-447 and :957-996, the dense-cache serving steps
+:453-590 and the paged steps :597-949): RMSNorm + RoPE (split-half) +
+GQA + SwiGLU.
 
 Training keeps fp32 master weights (``init_params(..., dtype=
 torch.float32)``) and computes in ``cfg.dtype``: every projection casts
@@ -50,6 +51,17 @@ The pool (``{"k","v"}: [L, num_blocks, block_size, KV, hd]``) is
 updated IN PLACE by the decode and prefill steps (JAX donates it and
 returns a new one); each step still returns it, so callers read like
 the reference.
+
+The dense-cache steps (``init_kv_cache``, ``decode_step``, ``prefill``:
+the whole-batch generators' path, ``rl/inference.py``) run on the
+*training* params, fp32 master weights, as the reference's do: each
+projection casts its weight to ``cfg.dtype`` (``_proj``), the logits are
+fp32 (``_mm_f32``), and the norms are B1.  Their attention is plain
+torch, as the reference's is: one query over the cached prefix in the
+decode step (``jnp`` in the reference), the dense
+``dot_product_attention`` in the prefill.  The cache
+(``{"k","v"}: [L, B, max_len, KV, hd]`` in ``cfg.dtype``) is written in
+place and returned.
 """
 
 from dataclasses import dataclass
@@ -454,6 +466,115 @@ def paged_prefill_chunk(
         )
         x, delta = _attn_residual(cfg, lp, x, attn)
     return _logits(cfg, params, x, delta), pool
+
+
+# ------------------------------------------------------ dense-cache decode
+
+
+def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int,
+                  device: DeviceLike = None) -> Dict[str, torch.Tensor]:
+    """Per-layer K/V cache for autoregressive decode, stacked on the layer
+    dim like the params: ``{"k","v"}: [L, batch, max_len, KV, hd]`` zeros
+    in ``cfg.dtype`` on ``device`` (the card unless ``"cpu"``)."""
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+            "v": torch.zeros(shape, dtype=cfg.dtype, device=dev)}
+
+
+def _cached_forward(cfg: LlamaConfig, params: Params, tokens, positions,
+                    cache, write, attend):
+    """The dense-cache layers over ``tokens [B, S]`` at ``positions
+    [S]``: ``write(cache_leaf, t)`` stores a layer's new K or V,
+    ``attend(q, k, v, k_cache, v_cache)`` gives its attention output
+    ``[B, S, H, hd]``.  Returns the fp32 logits ``[B, S, vocab]``."""
+    dt = cfg.dtype
+    b, s = tokens.shape
+    nh, nkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    x = params["embed"][tokens.long()].to(dt)
+    cos, sin = rope_frequencies(cfg, positions)
+    delta = None
+    for i in range(cfg.n_layers):
+        lp = _layer(params, i)
+        k_cache, v_cache = cache["k"][i], cache["v"][i]
+        x, h = _norm(cfg, x, delta, lp["attn_norm"])
+        q = apply_rope(_proj(h, lp["wq"], dt).reshape(b, s, nh, hd),
+                       cos, sin)
+        k = apply_rope(_proj(h, lp["wk"], dt).reshape(b, s, nkv, hd),
+                       cos, sin)
+        v = _proj(h, lp["wv"], dt).reshape(b, s, nkv, hd)
+        write(k_cache, k)
+        write(v_cache, v)
+        attn = attend(q, k, v, k_cache, v_cache)
+        o = _proj(attn.reshape(b, s, nh * hd), lp["wo"], dt)
+        x, h = add_rms_norm(x, o, lp["mlp_norm"], cfg.norm_eps)
+        gate = F.silu(_proj(h, lp["w_gate"], dt))
+        delta = _proj(gate * _proj(h, lp["w_up"], dt), lp["w_down"], dt)
+    _, x = _norm(cfg, x, delta, params["final_norm"])
+    logits = _mm_f32(x.reshape(b * s, -1), params["lm_head"].to(dt))
+    return logits.reshape(b, s, -1)
+
+
+@torch.no_grad()
+def decode_step(
+    params: Params,
+    tokens: torch.Tensor,  # [B] the token at ``pos`` of every row
+    cache: Dict[str, torch.Tensor],
+    pos: int,  # the position being decoded
+    cfg: LlamaConfig,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One cached decode step: logits ``[B, vocab]`` (fp32) for position
+    ``pos`` and the cache with this position's K/V written (in place).
+    Prior positions' K/V are read from the cache, so a T-token
+    generation costs T one-position forwards."""
+    dev = tokens.device
+    dt = cfg.dtype
+    hd = cfg.head_dim
+    valid = torch.arange(cache["k"].shape[2], device=dev) <= pos
+
+    def write(leaf, t):
+        leaf[:, pos] = t[:, 0]
+
+    def attend(q, k, v, k_cache, v_cache):
+        # the single query over the cached prefix (causal: <= pos)
+        b = q.shape[0]
+        qg = q.reshape(b, k_cache.shape[2], -1, hd)
+        logits = torch.einsum("bkgd,bskd->bkgs", qg.float(),
+                              k_cache.float()) * (hd ** -0.5)
+        logits = logits.masked_fill(~valid, -1e30)
+        probs = torch.softmax(logits, dim=-1)
+        attn = torch.einsum("bkgs,bskd->bkgd", probs.to(dt).float(),
+                            v_cache.float()).to(dt)
+        return attn.reshape(b, 1, -1, hd)
+
+    positions = torch.full((1,), pos, dtype=torch.long, device=dev)
+    logits = _cached_forward(cfg, params, tokens[:, None], positions,
+                             cache, write, attend)
+    return logits[:, 0], cache
+
+
+@torch.no_grad()
+def prefill(
+    params: Params,
+    tokens: torch.Tensor,  # [B, P] prompt tokens
+    cache: Dict[str, torch.Tensor],
+    cfg: LlamaConfig,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Batched single-forward prefill: one causal pass over the whole
+    prompt that writes every position's K/V into the cache (in place).
+    Returns ``(logits [B, P, vocab] fp32, cache)``; callers gather the
+    last *real* position's row to sample the first new token."""
+    p = tokens.shape[1]
+
+    def write(leaf, t):
+        leaf[:, :p] = t
+
+    def attend(q, k, v, k_cache, v_cache):
+        return dot_product_attention(q, k, v, causal=True)
+
+    positions = torch.arange(p, device=tokens.device)
+    return _cached_forward(cfg, params, tokens, positions, cache, write,
+                           attend), cache
 
 
 # ------------------------------------------------------------- training

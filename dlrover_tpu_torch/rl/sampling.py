@@ -1,4 +1,5 @@
-"""Token sampling for the scheduler, batched over lanes on the device.
+"""Token sampling for the scheduler (batched over lanes on the device)
+and for the whole-batch generators.
 
 Counterpart of ``_sample_rows`` / ``_sample_grid`` in
 ``dlrover_tpu/rl/scheduler.py:391-418``.  The contract is the
@@ -29,8 +30,26 @@ gives the same tail alone, batched, or after preemption and resume.
 The integer bits agree with JAX's bit for bit.  ``log`` is the
 library's own on each side, so the noise may differ from JAX's in its
 last bits, which moves an argmax only at a tie to within an ulp.
+
+The whole-batch samplers of ``rl/inference.py`` and ``rl/engine.py``
+draw as the reference's ``KVCacheBackend`` and ``make_sampler`` do
+(``dlrover_tpu/rl/inference.py:195-203``, ``engine.py:82-87``): one key
+for the whole rollout, ``rng, sub = jax.random.split(rng)`` a step, then
+``jax.random.categorical(sub, logits / T, axis=-1)`` over the ``[B, V]``
+block.  A key is its two uint32 words, carried as Python ints (a split
+is a handful of integer ops on the host, and launches nothing):
+
+- ``split(key)``: key ``i`` of ``num`` is both output words of
+  ``threefry2x32(key, (0, i))`` (``_threefry_split_foldlike``);
+- ``categorical(key, logits, T)``: the bits of element ``(b, i)`` come
+  from the flat index ``b * V + i`` (``jax_threefry_partitionable``),
+  then the same uniform, Gumbel and argmax as above.
 """
 
+import math
+from typing import List, Tuple
+
+import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
@@ -108,7 +127,59 @@ def sample_tokens(
     the OUTPUT position each token will occupy."""
     if temperature <= 0:
         return torch.argmax(logits, dim=-1).to(torch.int32)
+    g = gumbel_noise(seeds, positions, logits.shape[-1])
+    return _perturbed_argmax(g, logits, temperature)
+
+
+def _perturbed_argmax(g, logits, temperature: float) -> torch.Tensor:
+    """``argmax(g + logits / T)`` as int32, the division a multiply by
+    the fp32 reciprocal (see the module docstring)."""
     one = torch.tensor(1.0, dtype=torch.float32)
     inv_t = float(one / torch.tensor(temperature, dtype=torch.float32))
-    g = gumbel_noise(seeds, positions, logits.shape[-1])
     return torch.argmax(g + logits.float() * inv_t, dim=-1).to(torch.int32)
+
+
+# -- one key for a whole batch (the whole-batch samplers) ------------------
+
+Key = Tuple[int, int]
+
+
+def prng_key(seed: int) -> Key:
+    """``jax.random.PRNGKey(seed)``'s two words."""
+    return 0, int(seed) & _M32
+
+
+def key_words(rng) -> Key:
+    """A key as two Python ints: an ``int`` is a seed (``PRNGKey(seed)``);
+    anything else holds the key's two uint32 words (a JAX key through
+    ``numpy.asarray``, a tuple, a tensor)."""
+    if isinstance(rng, (int, np.integer)):
+        return prng_key(int(rng))
+    if isinstance(rng, torch.Tensor):
+        rng = rng.cpu().numpy()
+    words = np.asarray(rng).reshape(-1)
+    if words.size != 2:
+        raise ValueError(f"a key is two uint32 words, got {words.size}")
+    return int(words[0]) & _M32, int(words[1]) & _M32
+
+
+def split(key, num: int = 2) -> List[Key]:
+    """``jax.random.split(key, num)``: ``num`` new keys."""
+    k0, k1 = key_words(key)
+    return [threefry2x32(k0, k1, 0, i) for i in range(num)]
+
+
+def key_bits(key, shape, device=None) -> torch.Tensor:
+    """``jax.random.bits(key, shape, uint32)`` as int64 ``shape`` on
+    ``device``: element ``j`` (flat, row-major) from counter ``j``."""
+    k0, k1 = key_words(key)
+    idx = torch.arange(math.prod(shape), device=device)
+    b0, b1 = threefry2x32(k0, k1, idx >> 32, idx & _M32)
+    return (b0 ^ b1).reshape(tuple(shape))
+
+
+def categorical(key, logits: torch.Tensor, temperature: float) -> torch.Tensor:
+    """``jax.random.categorical(key, logits / T, axis=-1)`` over the whole
+    ``[..., V]`` block from one key -> int32 ``[...]``."""
+    u = uniform_from_bits(key_bits(key, logits.shape, logits.device))
+    return _perturbed_argmax(-torch.log(-torch.log(u)), logits, temperature)

@@ -98,7 +98,10 @@ def test_every_module_imports_without_jax_or_the_jax_package():
               "trainer.replay", "trainer.callbacks",
               # host-offloaded AdamW, the schedules and WSAM
               "optimizers.host_offload", "optimizers.schedules",
-              "optimizers.wsam", "common.tree"):
+              "optimizers.wsam", "common.tree",
+              # the in-process RLHF loop
+              "rl.config", "rl.engine", "rl.ppo", "rl.inference",
+              "rl.trainer", "examples.rlhf_ppo"):
         assert f"dlrover_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -172,6 +175,34 @@ def test_entry_points_raise_without_cuda_unless_given_cpu(no_cuda):
     assert sch.stats()["device"] == "cpu"
     assert kv_cache.init_block_pool(pcfg, "cpu")["k"].shape == (
         2, 8, 4, 2, 16)
+
+
+def test_rlhf_entry_points_raise_without_cuda_unless_given_cpu(no_cuda):
+    from dlrover_tpu_torch.rl import config, engine, inference
+
+    cfg = llama.LlamaConfig.tiny(dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama.init_kv_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inference.KVCacheBackend(cfg, 4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        inference.JitSamplerBackend(lambda p, t: t, 4)
+    eng = engine.ModelEngine(config.RLConfig())
+    role = dict(loss_fn=lambda p, b: p["w"].sum(),
+                optimizer=lambda ps: torch.optim.Adam(ps),
+                init_params_fn=lambda g, d: {"w": torch.zeros(2, device=d)},
+                param_axes={"w": (None,)})
+    with pytest.raises(RuntimeError, match="CUDA"):
+        eng.build_role("critic", **role)
+    # the same calls with an explicit CPU
+    assert llama.init_kv_cache(cfg, 2, 8, "cpu")["v"].shape == (
+        2, 2, 8, 2, 16)
+    assert inference.KVCacheBackend(cfg, 4, device="cpu").device.type == (
+        "cpu")
+    assert inference.JitSamplerBackend(
+        lambda p, t: t, 4, device="cpu").device.type == "cpu"
+    assert eng.build_role("critic", device="cpu", **role).fns.device == (
+        torch.device("cpu"))
 
 
 def test_offload_entry_points_raise_without_cuda_unless_given_cpu(no_cuda):
